@@ -1,0 +1,85 @@
+"""Carry a ledger and a verkey registry across from the JAX package.
+
+plenum_tpu has no weights: its state is the ledger (committed serialized
+txns plus the hash store's leaf and node digests) and the verkey registry
+the authenticator reads. These functions build the port's objects from
+that state as plain data, recomputing nothing.
+"""
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+
+from plenum_tpu_torch.crypto.batch_verifier import (
+    CoalescingVerifierHub, TorchBatchVerifier)
+from plenum_tpu_torch.ledger.compact_merkle_tree import CompactMerkleTree
+from plenum_tpu_torch.ledger.hash_store import MemoryHashStore
+from plenum_tpu_torch.ledger.ledger import Ledger, _seq_key
+from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
+from plenum_tpu_torch.ops.sha256 import TorchSha256Backend
+from plenum_tpu_torch.server.client_authn import CoreAuthNr
+from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
+
+
+def _node_keys(size: int):
+    """The (start, height) keys of every full aligned subtree of a tree of
+    `size` leaves, height 1 first, left to right within a height — the
+    order of the `node_hashes` rows."""
+    height = 1
+    while size >> height:
+        for i in range(size >> height):
+            yield i << height, height
+        height += 1
+
+
+def arrays_from_hash_store(hash_store, size: int) -> Tuple[np.ndarray,
+                                                           np.ndarray]:
+    """(leaf_hashes [size, 32] u8, node_hashes [n, 32] u8) read from any
+    hash store with read_leaf / read_subtree (the JAX package's or the
+    port's), nodes in `_node_keys` order."""
+    leaves = b"".join(hash_store.read_leaf(i) for i in range(size))
+    nodes = b"".join(hash_store.read_subtree(s, h)
+                     for s, h in _node_keys(size))
+    return (np.frombuffer(leaves, dtype=np.uint8).reshape(-1, 32),
+            np.frombuffer(nodes, dtype=np.uint8).reshape(-1, 32))
+
+
+def ledger_from_arrays(txn_blobs: Sequence[bytes], leaf_hashes: np.ndarray,
+                       node_hashes: np.ndarray, device=None) -> Ledger:
+    """The port's Ledger holding `txn_blobs` (committed serialized txns,
+    seqNo 1..n) with the given leaf and node digests in its hash store;
+    the tree is loaded with load_from_hash_store, so nothing is hashed.
+    Later appends hash through TorchSha256Backend on `device` (None means
+    CUDA)."""
+    n = len(txn_blobs)
+    leaf_hashes = np.ascontiguousarray(leaf_hashes, dtype=np.uint8)
+    node_hashes = np.ascontiguousarray(node_hashes, dtype=np.uint8)
+    keys = list(_node_keys(n))
+    if leaf_hashes.shape != (n, 32) or node_hashes.shape != (len(keys), 32):
+        raise ValueError("expected {} leaf and {} node digests of 32 bytes, "
+                         "got {} and {}".format(n, len(keys),
+                                                leaf_hashes.shape,
+                                                node_hashes.shape))
+    hash_store = MemoryHashStore()
+    for i in range(n):
+        hash_store.write_leaf(i, leaf_hashes[i].tobytes())
+    for (start, height), row in zip(keys, node_hashes):
+        hash_store.write_subtree(start, height, row.tobytes())
+    store = KeyValueStorageInMemory()
+    for seq_no, blob in enumerate(txn_blobs, start=1):
+        store.put(_seq_key(seq_no), bytes(blob))
+    hasher = TreeHasher(batch_backend=TorchSha256Backend(device))
+    return Ledger(tree=CompactMerkleTree(hasher, hash_store),
+                  txn_store=store)
+
+
+def authnr_from_registry(registry: Dict[str, str], verifier=None,
+                         device=None) -> CoreAuthNr:
+    """The port's CoreAuthNr knowing every identifier → verkey of
+    `registry`; `verifier` defaults to a CoalescingVerifierHub over the
+    batch verifier on `device` (None means CUDA)."""
+    if verifier is None:
+        verifier = CoalescingVerifierHub(batch=TorchBatchVerifier(device))
+    authnr = CoreAuthNr(verifier=verifier)
+    for identifier, verkey in registry.items():
+        authnr.addIdr(identifier, verkey)
+    return authnr

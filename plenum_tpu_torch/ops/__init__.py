@@ -1,0 +1,73 @@
+"""Device batch primitives: SHA-256 compression and ed25519 verify, each a
+hand-written CUDA kernel (csrc/) with a plain PyTorch version beside it.
+
+A wrapper launches its kernel on a CUDA tensor and runs the plain version
+on a CPU tensor; there is no other route between them.
+"""
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device=None` means CUDA. Raises when CUDA is asked for (explicitly
+    or by default) and no CUDA device is present: the port never carries
+    on silently on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError("unsupported device {}".format(dev))
+    return dev
+
+
+def to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy array → tensor on `device`; uint32 arrays travel as int32 of
+    the same bit patterns (PyTorch's uint32 support is partial)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:       # torch.from_numpy wants a writable array
+        a = a.copy()
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def check_arg(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape`: what
+    a kernel wrapper checks before it passes the pointer on."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError("{}: expected contiguous {} {}, got {} {}{}".format(
+            name, dtype, tuple(shape), t.dtype, tuple(t.shape),
+            "" if t.is_contiguous() else " (not contiguous)"))
+
+
+def u32_as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of values in [0, 2^32) → int32 tensor of the same bit
+    patterns (uint32 words travel as int32: PyTorch's uint32 support is
+    partial)."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def scatter_ragged_rows(msgs, width: int):
+    """Scatter variable-length messages into a zero-filled
+    ``[len(msgs), width]`` uint8 buffer with ONE flat vectorized
+    scatter (the mixed-length host padding of ``ops/sha256.pad_messages``).
+
+    Returns ``(out, lens)``: the row buffer and the per-message byte
+    lengths as int64.
+    """
+    n = len(msgs)
+    out = np.zeros((n, width), dtype=np.uint8)
+    lens = np.fromiter((len(m) for m in msgs), dtype=np.int64, count=n)
+    joined = np.frombuffer(b"".join(msgs), dtype=np.uint8)
+    if joined.shape[0]:
+        flat = out.reshape(-1)
+        starts = np.zeros(n, dtype=np.int64)
+        np.cumsum(lens[:-1], out=starts[1:])
+        rows = np.arange(n, dtype=np.int64)
+        dst = np.repeat(rows * width, lens) \
+            + (np.arange(joined.shape[0], dtype=np.int64)
+               - np.repeat(starts, lens))
+        flat[dst] = joined
+    return out, lens

@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under `plenum_tpu_torch/csrc/` is compiled by its own `nvcc`
+into a shared library with a plain C interface for Hopper (`sm_90a`), at
+first use, into `plenum_tpu_torch/_build/` (listed in .gitignore). The
+file name carries a hash of the source, so an edited kernel is rebuilt and
+a stale library is never loaded. `build()` starts every missing compile at
+once and waits for all of them. The libraries are loaded with ctypes;
+wrappers pass every pointer and the stream as `c_void_p`.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+SOURCES = ("sha256", "ed25519_verify")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _source(name: str) -> str:
+    return os.path.join(CSRC, name + ".cu")
+
+
+def lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(_source(name), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, "lib{}-{}.so".format(
+        name, h.hexdigest()[:16]))
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
+    """Compile every library in `names` that is not built yet, one nvcc
+    process per source, all started together. → {name: {"seconds",
+    "log"}} for the sources compiled now; raises with nvcc's output if any
+    compile fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    todo = {n: lib_path(n) for n in names if not os.path.exists(lib_path(n))}
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        tmp = "{}.{}.tmp".format(out, os.getpid())
+        procs[name] = (tmp, out, subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-o", tmp, _source(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    results, failures = {}, []
+    for name, (tmp, out, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failures.append("nvcc failed for {} (rc {}):\n{}".format(
+                name, proc.returncode, log))
+            continue
+        os.replace(tmp, out)
+        results[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return results
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `name`, building it first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not os.path.exists(path):
+            build([name])
+        lib = _loaded[name] = ctypes.CDLL(path)
+    return lib

@@ -1,0 +1,186 @@
+"""Client request authentication — ed25519 over the signing serialization.
+
+Reference: plenum/server/client_authn.py (`ClientAuthNr` :21, `NaclAuthNr`
+:82 authenticate_multi :84, `CoreAuthNr`); port of
+plenum_tpu/server/client_authn.py.
+
+Device seam: `CoreAuthNr.dispatch_batch` hands every signature of a batch
+of requests to the batch verifier (plenum_tpu_torch.crypto.batch_verifier)
+— thousands of signature checks become one device launch — and
+`conclude_batch` harvests the verdicts.
+"""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Dict, List, Optional, Sequence
+
+from plenum_tpu_torch.common.exceptions import (
+    CouldNotAuthenticate, InsufficientCorrectSignatures,
+    InsufficientSignatures, InvalidSignature)
+from plenum_tpu_torch.common.request import Request
+from plenum_tpu_torch.common.serializers.base58 import b58decode
+from plenum_tpu_torch.common.serializers.serialization import serialize_msg_for_signing
+from plenum_tpu_torch.crypto.batch_verifier import CoalescingVerifierHub
+from plenum_tpu_torch.crypto.signer import verkey_from_identifier
+
+class ClientAuthNr(ABC):
+    @abstractmethod
+    def authenticate(self, req: Request) -> List[str]:
+        """→ identifiers whose signatures verified; raises on failure."""
+
+    @abstractmethod
+    def addIdr(self, identifier: str, verkey: str, role=None): ...
+
+    @abstractmethod
+    def getVerkey(self, identifier: str) -> Optional[str]: ...
+
+
+class CoreAuthNr(ClientAuthNr):
+    def __init__(self, verkey_provider=None, verifier=None):
+        """verkey_provider(identifier) → verkey str or None (state-backed
+        in the node; local dict fallback for tests). verifier defaults to
+        a CoalescingVerifierHub over the CUDA batch verifier."""
+        self._verkey_provider = verkey_provider
+        self._local: Dict[str, str] = {}
+        self._verifier = verifier if verifier is not None \
+            else CoalescingVerifierHub()
+        # (identifier, verkey_str) → raw 32/64 bytes; keyed on BOTH so a
+        # rotated verkey can never serve a stale raw key
+        self._raw_cache: Dict[tuple, bytes] = {}
+
+    # ------------------------------------------------------------- keys
+
+    def addIdr(self, identifier: str, verkey: str, role=None):
+        self._local[identifier] = verkey
+
+    def getVerkey(self, identifier: str) -> Optional[str]:
+        if identifier in self._local:
+            return self._local[identifier]
+        if self._verkey_provider is not None:
+            return self._verkey_provider(identifier)
+        return None
+
+    def _raw_verkey(self, identifier: str) -> bytes:
+        verkey = self.getVerkey(identifier)
+        cache_key = (identifier, verkey)
+        raw = self._raw_cache.get(cache_key)
+        if raw is None:
+            raw = verkey_from_identifier(identifier, verkey)
+            if len(self._raw_cache) > 8192:
+                self._raw_cache.clear()
+            self._raw_cache[cache_key] = raw
+        return raw
+
+    # ----------------------------------------------------------- single
+
+    def authenticate(self, req: Request) -> List[str]:
+        items, idrs = self._verify_items(req)
+        return self._conclude(req, idrs, self._verifier.verify_batch(items))
+
+    # ------------------------------------------------------------ batch
+
+    def authenticate_batch(self, reqs: Sequence[Request]
+                           ) -> List[Optional[List[str]]]:
+        """Authenticate many requests in ONE device dispatch. Returns, per
+        request, the verified identifier list or None if auth failed."""
+        return self.conclude_batch(self.dispatch_batch(reqs))
+
+    def dispatch_batch(self, reqs: Sequence[Request]):
+        """Phase 1 (non-blocking): pack every signature on every request
+        into one device dispatch and return a pending handle. The caller
+        overlaps other work with the device round trip and calls
+        conclude_batch later."""
+        all_items, spans, idrs_per_req = [], [], []
+        prep_errors: List[Optional[Exception]] = []
+        for req in reqs:
+            try:
+                items, idrs = self._verify_items(req)
+                prep_errors.append(None)
+            except Exception as e:
+                items, idrs = [], []
+                prep_errors.append(e)
+            spans.append((len(all_items), len(items)))
+            idrs_per_req.append(idrs)
+            all_items.extend(items)
+        pending = self._verifier.dispatch(all_items) if all_items else None
+        return list(reqs), spans, idrs_per_req, prep_errors, pending
+
+    def flush(self) -> None:
+        """Start any coalesced device launch now (CoalescingVerifierHub);
+        no-op for providers without a coalescing window. A networked
+        node calls this right after its tick's dispatch — nothing else
+        co-resident will deepen the generation, and without the flush a
+        hub pending's ready() could never turn true."""
+        fn = getattr(self._verifier, "flush", None)
+        if fn is not None:
+            fn()
+
+    def batch_ready(self, handle) -> bool:
+        """Non-blocking: True when conclude_batch will not block on the
+        device (the caller polls this to overlap the round trip with other
+        work)."""
+        pending = handle[4]
+        if pending is None:
+            return True
+        r = getattr(pending, "ready", None)
+        return bool(r()) if r is not None else True
+
+    def conclude_batch(self, handle) -> List[Optional[List[str]]]:
+        """Phase 2 (blocking): harvest the device results."""
+        reqs, spans, idrs_per_req, prep_errors, pending = handle
+        results = pending.collect() if pending is not None else []
+        out: List[Optional[List[str]]] = []
+        for req, (start, count), idrs, err in zip(reqs, spans, idrs_per_req,
+                                                  prep_errors):
+            if err is not None:
+                out.append(None)
+                continue
+            try:
+                out.append(self._conclude(
+                    req, idrs, results[start:start + count]))
+            except InsufficientCorrectSignatures:
+                out.append(None)
+        return out
+
+    # ---------------------------------------------------------- internal
+
+    def _verify_items(self, req: Request):
+        """→ ([(msg_bytes, sig64, vk32)], [identifier]) for every
+        signature on the request."""
+        sigs: Dict[str, str] = {}
+        if req.signatures:
+            sigs.update(req.signatures)
+        if req.signature:
+            if req.identifier is None:
+                raise CouldNotAuthenticate(
+                    None, req.reqId, "signature without identifier")
+            sigs[req.identifier] = req.signature
+        if not sigs:
+            raise InsufficientSignatures(0, 1)
+        items, idrs = [], []
+        for idr, sig in sorted(sigs.items()):
+            try:
+                sig_raw = b58decode(sig)
+            except Exception:
+                raise InvalidSignature(
+                    idr, req.reqId, "malformed signature from {}".format(idr))
+            try:
+                vk = self._raw_verkey(idr)
+            except Exception:
+                vk = None
+            if vk is None:
+                raise CouldNotAuthenticate(
+                    idr, req.reqId, "no verkey for {}".format(idr))
+            ser = serialize_msg_for_signing(req.signingPayloadState(idr))
+            items.append((ser, sig_raw, vk))
+            idrs.append(idr)
+        return items, idrs
+
+    @staticmethod
+    def _conclude(req: Request, idrs: List[str],
+                  results: Sequence[bool]) -> List[str]:
+        ok = [i for i, good in zip(idrs, results) if good]
+        if len(ok) != len(idrs):
+            raise InsufficientCorrectSignatures(len(ok), len(idrs))
+        return ok
+
