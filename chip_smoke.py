@@ -16,18 +16,42 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    (raw bytes, padded on the card) and its pre-padded entry on ragged
    messages at B = 1023/1024/1025, and the pre-padded entry on 2^20 node
    pairs (all against hashlib too);
-3. drives the main path: a domain ledger of 2^20 NYM txns recovered with
-   Ledger.recoverTreeFromTxnLog (root checked against hashlib), 2,000
-   signed NYM requests (1% tampered) authenticated by four CoreAuthNrs
-   sharing one CoalescingVerifierHub, the accepted ones staged in 3PC
-   batches of Max3PCBatchSize and committed, and every reply's audit path
-   checked on the host. The three kernel entries' launch counters are
-   zeroed just before and read just after; each must have launched;
-4. holds each kernel against its plain version again at the main path's
-   own shapes (the 2,000-signature verify batch, the 2^20 leaves, the
-   first tree level, the staged batches), times both there (and the
-   verify kernel at 16,384 signatures too) and prints {"kernels": [...]},
-   the card line and, last, {"ok": true, "device": {...}}.
+   The SHA3-256 kernel's two entries (digests, and the fused compare
+   against refs) against their plain version and hashlib at B = 1, 127,
+   128, 129 and 2,001 on messages of 0 to ~530 bytes (the absorb
+   boundaries 135/136/137 and 271/272 among them), with one corrupted
+   ref that must give False;
+3. drives the ledger path: a domain ledger of 2^20 NYM txns recovered
+   with Ledger.recoverTreeFromTxnLog (root checked against hashlib),
+   2,000 signed NYM requests (1% tampered) authenticated by four
+   CoreAuthNrs sharing one CoalescingVerifierHub, the accepted ones
+   staged in 3PC batches of Config.Max3PCBatchSize (1,000) and committed,
+   and every reply's audit path checked on the host;
+4. holds each kernel against its plain version again at the ledger
+   path's own shapes (the 2,000-signature verify batch, the 2^20 leaves,
+   the first tree level, the staged batches) and times both there (and
+   the verify kernel at 16,384 signatures too);
+5. drives the pool path at the headline's shape (bench.py run_pool over
+   make_sim_pool): four Nodes on SimNetwork and MockTimer sharing one
+   CoalescingVerifierHub order 4,000 signed NYM writes sent in client
+   chunks of 2,000 (Max3PCBatchSize 2,000) with 20 tampered requests
+   among them, through dispatch_client_batch / conclude_client_batch,
+   service() and the timer, then serve 4,000 GET_NYM reads of the
+   written DIDs with state proofs from one node. It checks the ordered
+   count on every node, equal ledger and state roots across the nodes,
+   the domain root against hashlib, the domain state root against a
+   host-only trie fed the same writes, the nacks, and the reads;
+6. holds ed25519 verify and SHA-256's ragged entry against their plain
+   versions (and hashlib) on the pool's own launches — the hub's
+   deduplicated batches, the ledgers' staged leaf batches and tree
+   levels — and both SHA3 entries against theirs and hashlib on every
+   state level the pool hashed on the card, timing them at the largest;
+   then prints {"kernels": [...]}, the card line and, last,
+   {"ok": true, "device": {...}}.
+
+Each path's kernel launch counters are zeroed just before it and read
+just after; every kernel of a path must have launched in it. The
+kernels line gives each kernel's launches over both paths.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory that holds this
@@ -55,6 +79,10 @@ CLIENT_BATCH = 2000          # bench.py CLIENT_BATCH: one client batch
 BAD_REQUESTS = CLIENT_BATCH // 100
 N_NODES = 4
 TXN_TIME = 1700000000
+POOL_REQS = 4000             # bench.py POOL_REQS
+POOL_BAD = 20                # tampered requests, spread over the chunks
+SHA3_BATCHES = (1, 127, 128, 129, 2001)
+SHA3_LENGTHS = (0, 135, 136, 137, 271, 272, 530)
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bandwidth,
 # and 32-bit integer instructions over all 128 lanes of the 132 SMs at
@@ -77,6 +105,14 @@ SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
 # final products. Reductions and carries are not counted.
 ED25519_MULS_PER_VERIFY = 1564 * 36 + 2130 * 64
 ED25519_BYTES_PER_SIG = 2 * 20 * 4 + 2 * 4 + 2 * 8 * 4 + 4
+# Keccak-f[1600], per absorbed 136-byte block, in the fewest Hopper
+# instructions (csrc/sha3.cu keeps 64-bit lanes, two 32-bit halves each):
+# a round is theta (5 column parities of 5 lanes: 2 three-input xors a
+# half = 20; 5 D lanes, a 1-bit rotation as 2 funnel shifts and an xor a
+# half = 20; 25 lanes xored with D = 50), rho (24 rotations, 2 funnel
+# shifts each = 48), chi (one LOP3 a half = 50) and iota (2); then the
+# absorb xors 17 lanes (34).
+KECCAK_OPS_PER_BLOCK = 24 * (20 + 20 + 50 + 48 + 50 + 2) + 17 * 2
 
 
 def log(*args):
@@ -124,10 +160,10 @@ def u32_max_abs_err(torch, a, b):
     return int(((a.long() & mask) - (b.long() & mask)).abs().max().item())
 
 
-def where_the_time_goes(torch, run_main_path):
-    """Run the main path once more under torch.profiler (device busy time
-    per kernel and the device's idle share of the wall time) and once
-    under cProfile (host functions by own time)."""
+def where_the_time_goes(torch, run_main_path, label):
+    """Run a path once more under torch.profiler (device busy time per
+    kernel and the device's idle share of the wall time) and once under
+    cProfile (host functions by own time, and own time by package area)."""
     import cProfile
     import io
     import pstats
@@ -145,22 +181,402 @@ def where_the_time_goes(torch, run_main_path):
             busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
     if busy:
         total = sum(busy.values())
-        log("profile: device busy {:.3f} ms of {:.3f} ms wall, idle share "
-            "{:.6f}".format(total / 1e3, wall_us / 1e3, 1 - total / wall_us))
+        log("profile {}: device busy {:.3f} ms of {:.3f} ms wall, idle "
+            "share {:.6f}".format(label, total / 1e3, wall_us / 1e3,
+                                  1 - total / wall_us))
         for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
             log("  device {:.3f} ms  {}".format(us / 1e3, name[:90]))
     else:
-        log("profile: device time not measured (no device events traced)")
+        log("profile {}: device time not measured (no device events "
+            "traced)".format(label))
     prof_host = cProfile.Profile()
     prof_host.enable()
     run_main_path()
     prof_host.disable()
     out = io.StringIO()
-    pstats.Stats(prof_host, stream=out).sort_stats("tottime").print_stats(14)
-    log("profile: host functions by own time (under cProfile)")
+    stats = pstats.Stats(prof_host, stream=out)
+    stats.sort_stats("tottime").print_stats(14)
+    log("profile {}: host functions by own time (under cProfile)".format(
+        label))
     for line in out.getvalue().splitlines():
         if line.strip():
             log("  " + line.rstrip())
+    areas = {}
+    for (path, _, _), (_, _, tottime, _, _) in stats.stats.items():
+        rel = os.path.relpath(path, REPO) if path.startswith(REPO) else ""
+        parts = rel.split(os.sep)
+        area = os.sep.join(parts[:2]) if parts[0] == "plenum_tpu_torch" \
+            else "other (stdlib, torch, builtins)"
+        areas[area] = areas.get(area, 0.0) + tottime
+    total = sum(areas.values())
+    log("profile {}: host own time by area, {:.3f} s in all".format(
+        label, total))
+    for area, t in sorted(areas.items(), key=lambda kv: -kv[1])[:10]:
+        log("  {:.3f} s  {:.4f}  {}".format(t, t / total, area))
+
+
+def sha3_phase(torch, dev):
+    """Both SHA3-256 entries against their plain version and hashlib at
+    B = SHA3_BATCHES on messages of SHA3_LENGTHS and random lengths up to
+    600 bytes; one corrupted ref per batch must give False. → (largest
+    digest byte difference, number of differing verdicts)."""
+    import numpy as np
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops import sha3
+    rng = np.random.RandomState(SEED + 3)
+    err = eq_err = 0
+    for n in SHA3_BATCHES:
+        lens = [SHA3_LENGTHS[i % len(SHA3_LENGTHS)] if i % 2
+                else int(rng.randint(600)) for i in range(n)]
+        msgs = [rng.randint(0, 256, size=ln, dtype=np.uint8).tobytes()
+                for ln in lens]
+        want = [hashlib.sha3_256(m).digest() for m in msgs]
+        data, offsets, refs = sha.upload_ragged(msgs, dev, want)
+        dk = sha3.sha3_ragged_cuda(data, offsets)
+        dp = sha3.sha3_ragged_plain(data, offsets)
+        err = max(err, int((dk.int() - dp.int()).abs().max().item()))
+        check(sha3.digests_to_bytes(dk.cpu()) == want,
+              "SHA3 kernel equals hashlib at B={}".format(n))
+        bad = refs.clone()
+        bad[n // 2, int(rng.randint(32))] ^= 1 << int(rng.randint(8))
+        for r, expect in ((refs, [True] * n),
+                          (bad, [i != n // 2 for i in range(n)])):
+            ok = sha3.sha3_ragged_eq_cuda(data, offsets, r)
+            okp = sha3.sha3_ragged_eq_plain(data, offsets, r)
+            eq_err += int((ok != okp).sum().item())
+            check(ok.cpu().tolist() == expect,
+                  "SHA3 fused compare at B={}: True on the refs, False on "
+                  "the corrupted one".format(n))
+    check(err == 0, "SHA3 kernel equals the plain version")
+    check(eq_err == 0, "SHA3 fused compare equals the plain version")
+    log("sha3: both entries == plain == hashlib at B={} (lengths {} among "
+        "them); the corrupted ref gives False".format(SHA3_BATCHES,
+                                                      SHA3_LENGTHS))
+    return err, eq_err
+
+
+def pool_requests(signer):
+    """bench.py's headline requests (POOL_REQS NYM writes by one author)
+    in chunks of CLIENT_BATCH, and POOL_BAD more whose signatures no
+    longer match — half with a changed operation, half with a changed
+    signature character — spread over the chunks. → (chunks, the valid
+    requests, the tampered reqIds)."""
+    from plenum_tpu_torch.testing import pool
+    reqs = pool.make_requests(POOL_REQS, signer)
+    bad = pool.make_requests(POOL_BAD, signer, first_req_id=POOL_REQS + 1)
+    for i, r in enumerate(bad):
+        if i % 2:
+            r["operation"] = dict(r["operation"], verkey="~" + "1" * 22)
+        else:
+            sig = r["signature"]
+            r["signature"] = sig[:-1] + ("2" if sig[-1] != "2" else "3")
+    n_chunks = POOL_REQS // CLIENT_BATCH
+    per = POOL_BAD // n_chunks
+    chunks = [reqs[i * CLIENT_BATCH:(i + 1) * CLIENT_BATCH]
+              + bad[i * per:(i + 1) * per] for i in range(n_chunks)]
+    return chunks, reqs, {r["reqId"] for r in bad}
+
+
+def pool_path(torch, dev, signer, profile, sha3_errs):
+    """Phases 5 and 6: the pool path, and every kernel it ran held against
+    its plain version on the pool's own inputs. → {"launches": per
+    kernel, "ed_err" and "rag_err": the largest differences of
+    ed25519_verify and sha256_ragged there, "kernels": the two SHA3
+    entries' lines}."""
+    import numpy as np
+    from plenum_tpu_torch.common.constants import (
+        AUDIT_LEDGER_ID, CONFIG_LEDGER_ID, DOMAIN_LEDGER_ID, POOL_LEDGER_ID,
+        TARGET_NYM, VERKEY)
+    from plenum_tpu_torch.common.messages.node_messages import (
+        Reply, RequestNack)
+    from plenum_tpu_torch.common.state_codec import (
+        encode_state_value, nym_to_state_key)
+    from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops import sha3
+    from plenum_tpu_torch.ops import trie as trie_ops
+    from plenum_tpu_torch.state.pruning_state import PruningState
+    from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
+    from plenum_tpu_torch.testing import pool
+
+    t0 = time.perf_counter()
+    chunks, reqs, bad_ids = pool_requests(signer)
+    dests = [r["operation"][TARGET_NYM] for r in reqs]
+    reads = [{"identifier": signer.identifier, "reqId": 10 ** 6 + i,
+              "operation": {"type": "105", TARGET_NYM: d}}
+             for i, d in enumerate(dests)]
+    log("pool set-up: {} signed requests ({} tampered) in {:.1f} s".format(
+        sum(map(len, chunks)), len(bad_ids), time.perf_counter() - t0))
+
+    # The inputs of the pool's launches, recorded on their way to the
+    # kernel wrappers (the wrappers launch and count as always) so that
+    # phase 6 can replay them against the plain versions: the hub's
+    # deduplicated verify batches, the ledgers' staged leaf batches and
+    # tree levels, and the state levels.
+    levels, verify_levels = [], []
+    verify_batches, sha_batches = [], []
+    hash_nodes = trie_ops.hash_nodes
+    dispatch_verify = trie_ops.dispatch_node_verify_batch
+    ed_verify, sha_ragged = ed.verify, sha.sha256_ragged
+
+    def recording_verify(*args):
+        verify_batches.append(args)
+        return ed_verify(*args)
+
+    def recording_sha256_ragged(data, offsets, prefix=-1):
+        sha_batches.append((data, offsets, prefix))
+        return sha_ragged(data, offsets, prefix)
+
+    def recording_hash_nodes(blobs, device=None, staging=None):
+        levels.append(list(blobs))
+        return hash_nodes(blobs, device, staging)
+
+    def recording_dispatch_verify(blobs, expected, device=None,
+                                  staging=None):
+        verify_levels.append((list(blobs), list(expected)))
+        return dispatch_verify(blobs, expected, device, staging)
+
+    def run_pool_path():
+        """Order every chunk on four nodes, then serve the reads from one.
+        → (nodes, hub, nacks per node, read replies, wall seconds of the
+        writes, of the reads)."""
+        nodes, timer = pool.make_sim_pool(pool.NAMES, "torch_hub",
+                                          device=dev)
+        hub = nodes[0].authnr._verifier
+        # No client transport is attached (as in bench.py's pool, so no
+        # node builds Replies for the writes); each node's reply callback
+        # collects what it sends: the nacks, then the read replies.
+        sent = [[] for _ in nodes]
+        for node, out in zip(nodes, sent):
+            node._reply_to_client = lambda c, m, out=out: out.append(m)
+        per_chunk = [len(c) for c in chunks]
+        valid = [CLIENT_BATCH] * len(chunks)
+
+        def expected(injected):
+            done = 0
+            for n_sent, n_valid in zip(per_chunk, valid):
+                if injected >= n_sent:
+                    injected -= n_sent
+                    done += n_valid
+            return done
+
+        t_w = time.perf_counter()
+        pool.pipelined_intake(nodes, timer, chunks, "bench-client",
+                              expected=expected)
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline and not all(
+                nd.domain_ledger.size >= POOL_REQS for nd in nodes):
+            for nd in nodes:
+                nd.service()
+            timer.run_for(0.01)
+        torch.cuda.synchronize()
+        writes_s = time.perf_counter() - t_w
+        nacks = [[m for m in out if isinstance(m, RequestNack)]
+                 for out in sent]
+        reader = nodes[1]
+        before = len(sent[1])
+        t_r = time.perf_counter()
+        reader.process_client_batch([(r, "reader") for r in reads])
+        torch.cuda.synchronize()
+        reads_s = time.perf_counter() - t_r
+        return nodes, hub, nacks, sent[1][before:], writes_s, reads_s
+
+    counters = {"ed25519_verify": ed.verify_cuda,
+                "sha256_compress": sha.sha256_blocks_cuda,
+                "sha256_ragged": sha.sha256_ragged_cuda,
+                "sha3_ragged": sha3.sha3_ragged_cuda,
+                "sha3_ragged_eq": sha3.sha3_ragged_eq_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    sha3.sha3_ragged_cuda.rows = []
+    sha3.sha3_ragged_eq_cuda.rows = []
+    trie_ops.hash_nodes = recording_hash_nodes
+    trie_ops.dispatch_node_verify_batch = recording_dispatch_verify
+    ed.verify, sha.sha256_ragged = recording_verify, recording_sha256_ragged
+    try:
+        nodes, hub, nacks, replies, writes_s, reads_s = run_pool_path()
+    finally:
+        trie_ops.hash_nodes = hash_nodes
+        trie_ops.dispatch_node_verify_batch = dispatch_verify
+        ed.verify, sha.sha256_ragged = ed_verify, sha_ragged
+    launches = {k: fn.launches for k, fn in counters.items()}
+    p50, p99, e2e = pool.pool_latency_summary(nodes)
+    log("pool path launches:", launches)
+    log("pool: {} requests ordered on every node in {:.3f} s wall, {:.1f} "
+        "ordered requests/s; ORDERED_E2E_MS p50 {} p99 {} over {} "
+        "intake-to-commit samples".format(
+            min(n.domain_ledger.size for n in nodes), writes_s,
+            POOL_REQS / writes_s, p50, p99, e2e))
+    log("pool: hub launches {} (unique signatures each: {}), {} "
+        "signatures per launch".format(
+            len(hub.launches), [u for u, _ in hub.launches],
+            sum(u for u, _ in hub.launches) / max(1, len(hub.launches))))
+    log("pool: sha3_ragged launches {} rows {}; sha3_ragged_eq launches {} "
+        "rows {}; sha256_ragged launches {}".format(
+            launches["sha3_ragged"], sha3.sha3_ragged_cuda.rows,
+            launches["sha3_ragged_eq"], sha3.sha3_ragged_eq_cuda.rows,
+            launches["sha256_ragged"]))
+    log("pool: {} GET_NYM reads with state proofs served in {:.3f} s "
+        "wall".format(len(reads), reads_s))
+
+    # ------------------------------------------------ pool path checks
+    t0 = time.perf_counter()
+    check(all(n.domain_ledger.size == POOL_REQS for n in nodes),
+          "all {} requests ordered on every node".format(POOL_REQS))
+    for lid in (DOMAIN_LEDGER_ID, AUDIT_LEDGER_ID, POOL_LEDGER_ID,
+                CONFIG_LEDGER_ID):
+        check(len({n.db_manager.get_ledger(lid).root_hash
+                   for n in nodes}) == 1,
+              "ledger {} roots equal across the nodes".format(lid))
+    state = [n.db_manager.get_state(DOMAIN_LEDGER_ID) for n in nodes]
+    check(len({(s.headHash, s.committedHeadHash) for s in state}) == 1,
+          "domain state roots equal across the nodes")
+    ledger = nodes[0].domain_ledger
+    blobs = [ledger.serialize_for_tree(ledger.getBySeqNo(i))
+             for i in range(1, ledger.size + 1)]
+    check(ledger.root_hash_raw == TreeHasher().hash_full_tree(blobs),
+          "domain ledger root equals the hashlib Merkle root")
+    host = PruningState(KeyValueStorageInMemory())
+    written = set()
+    for i in range(1, ledger.size + 1):
+        txn = ledger.getBySeqNo(i)
+        data, md = txn["txn"]["data"], txn["txnMetadata"]
+        written.add(txn["txn"]["metadata"]["reqId"])
+        host.set(nym_to_state_key(data[TARGET_NYM]), encode_state_value(
+            {"identifier": txn["txn"]["metadata"]["from"],
+             VERKEY: data[VERKEY], "seqNo": md["seqNo"]},
+            md["seqNo"], md["txnTime"]))
+    check(state[0].committedHeadHash == host.headHash,
+          "domain state root equals a host-only trie fed the same writes")
+    check(not written & bad_ids, "no tampered request reached the ledger")
+    for node_nacks in nacks:
+        check({m.reqId for m in node_nacks} == bad_ids,
+              "every node nacked exactly the tampered requests")
+    got = [m for m in replies if isinstance(m, Reply)]
+    check(len(got) == len(reads), "one reply per read")
+    root = state[1].committedHeadHash
+    for i, m in enumerate(got):
+        res = m.result
+        check(res["data"][VERKEY] == "~" + dests[i],
+              "read {} returns the written verkey".format(i))
+        if i % 40 == 0:
+            key = nym_to_state_key(dests[i])
+            check(PruningState.verify_state_proof(
+                root, key, bytes(state[1].get(key)),
+                PruningState.deserialize_proof(
+                    res["state_proof"]["proof_nodes"])),
+                "read {}'s state proof verifies".format(i))
+    for name in ("ed25519_verify", "sha256_ragged", "sha3_ragged",
+                 "sha3_ragged_eq"):
+        check(launches[name] > 0, "{} launched on the pool path".format(
+            name))
+    log("pool path checks: roots equal on the four nodes, domain root == "
+        "hashlib, state root == host trie, {} tampered requests nacked by "
+        "every node, {} reads verified ({:.1f} s)".format(
+            len(bad_ids), len(got), time.perf_counter() - t0))
+
+    if profile:
+        where_the_time_goes(torch, run_pool_path, "pool path")
+
+    # ------ 6. the kernels against their plain versions at the pool's
+    # shapes: the verify batches and SHA-256 launches the pool made, then
+    # the SHA3 levels it hashed and verified
+    t0 = time.perf_counter()
+    check(len(verify_batches) == launches["ed25519_verify"]
+          and len(sha_batches) == launches["sha256_ragged"],
+          "every ed25519 and SHA-256 launch of the pool was recorded")
+    ed_err = rag_err = 0
+    for args in verify_batches:
+        ed_err = max(ed_err, int((ed.verify_cuda(*args).int()
+                                  - ed.verify_plain(*args).int()).abs().max()
+                                 .item()))
+    check(ed_err == 0, "ed25519 kernel verdicts equal the plain version's "
+                       "on the pool's verify batches")
+    for data, offsets, prefix in sha_batches:
+        dk = sha.sha256_ragged_cuda(data, offsets, prefix)
+        rag_err = max(rag_err, u32_max_abs_err(
+            torch, dk, sha.sha256_ragged_plain(data, offsets, prefix)))
+        flat, bounds = data.cpu().numpy().tobytes(), offsets.cpu().tolist()
+        pre = b"" if prefix < 0 else bytes([prefix])
+        check(sha.digests_to_bytes(dk.cpu().numpy().view(np.uint32))
+              == [hashlib.sha256(pre + flat[a:b]).digest()
+                  for a, b in zip(bounds, bounds[1:])],
+              "SHA-256 ragged entry equals hashlib on a pool batch")
+    check(rag_err == 0, "SHA-256 ragged entry equals the plain version on "
+                        "the pool's batches")
+    log("kernel == plain at the pool's shapes: ed25519_verify on {} "
+        "batches ({} signatures), sha256_ragged on {} batches ({} "
+        "messages, == hashlib) ({:.1f} s)".format(
+            len(verify_batches), [int(a[0].shape[0]) for a in verify_batches],
+            len(sha_batches), [int(o.shape[0]) - 1 for _, o, _ in sha_batches],
+            time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    err, eq_err = sha3_errs
+    for blobs in levels:
+        data, offsets = sha.upload_ragged(blobs, dev)
+        dk = sha3.sha3_ragged_cuda(data, offsets)
+        err = max(err, int((dk.int() - sha3.sha3_ragged_plain(
+            data, offsets).int()).abs().max().item()))
+        check(sha3.digests_to_bytes(dk.cpu())
+              == [hashlib.sha3_256(b).digest() for b in blobs],
+              "SHA3 kernel equals hashlib on a pool level")
+    for blobs, refs in verify_levels:
+        data, offsets, r = sha.upload_ragged(blobs, dev, refs)
+        ok = sha3.sha3_ragged_eq_cuda(data, offsets, r)
+        eq_err += int((ok != sha3.sha3_ragged_eq_plain(data, offsets, r))
+                      .sum().item())
+        check(bool(ok.all()), "every read level verifies")
+    check(err == 0 and eq_err == 0, "SHA3 entries equal the plain version "
+                                     "on the pool's levels")
+
+    def blocks_of(blobs):
+        return sum(len(b) // 136 + 1 for b in blobs)
+
+    big = max(levels, key=len)
+    big_in = sha.upload_ragged(big, dev)
+    h_ms, _ = cuda_ms(torch, lambda: sha3.sha3_ragged_cuda(*big_in), 50)
+    h_plain_ms, _ = cuda_ms(torch, lambda: sha3.sha3_ragged_plain(*big_in),
+                            1)
+    nbytes = sum(map(len, big))
+    h_bound_ms, h_bound_by = bound(
+        blocks_of(big) * KECCAK_OPS_PER_BLOCK,
+        nbytes + 8 * (len(big) + 1) + 32 * len(big))
+    vblobs, vrefs = max(verify_levels, key=lambda v: len(v[0]))
+    v_in = sha.upload_ragged(vblobs, dev, vrefs)
+    v_ms, _ = cuda_ms(torch, lambda: sha3.sha3_ragged_eq_cuda(*v_in), 50)
+    v_plain_ms, _ = cuda_ms(torch,
+                            lambda: sha3.sha3_ragged_eq_plain(*v_in), 1)
+    v_bound_ms, v_bound_by = bound(
+        blocks_of(vblobs) * KECCAK_OPS_PER_BLOCK,
+        sum(map(len, vblobs)) + 8 * (len(vblobs) + 1) + 33 * len(vblobs))
+    log("sha3 at the pool's shapes: both entries == plain == hashlib on "
+        "{} hashed levels (rows {}) and {} verified levels (rows {}) "
+        "({:.1f} s)".format(len(levels), sorted(map(len, levels)),
+                            len(verify_levels),
+                            sorted(len(b) for b, _ in verify_levels),
+                            time.perf_counter() - t0))
+    log("sha3_ragged: {} rows, {} blocks, {} bytes: {:.4f} ms (bound {:.5f} "
+        "ms), plain {:.3f} ms; sha3_ragged_eq: {} rows, {} blocks: {:.4f} "
+        "ms (bound {:.5f} ms), plain {:.3f} ms".format(
+            len(big), blocks_of(big), nbytes, h_ms, h_bound_ms, h_plain_ms,
+            len(vblobs), blocks_of(vblobs), v_ms, v_bound_ms, v_plain_ms))
+    kernels = [
+        {"name": "sha3_ragged", "route": "cuda",
+         "source": "plenum_tpu_torch/csrc/sha3.cu",
+         "replaces": "plenum_tpu/ops/sha3.py:136",
+         "launches": launches["sha3_ragged"], "max_abs_err": err,
+         "ms": h_ms, "plain_ms": h_plain_ms, "bound_ms": h_bound_ms,
+         "bound_by": h_bound_by, "library_ms": None},
+        {"name": "sha3_ragged_eq", "route": "cuda",
+         "source": "plenum_tpu_torch/csrc/sha3.cu",
+         "replaces": "plenum_tpu/ops/trie_jax.py:74",
+         "launches": launches["sha3_ragged_eq"], "max_abs_err": eq_err,
+         "ms": v_ms, "plain_ms": v_plain_ms, "bound_ms": v_bound_ms,
+         "bound_by": v_bound_by, "library_ms": None},
+    ]
+    return {"launches": launches, "ed_err": ed_err, "rag_err": rag_err,
+            "kernels": kernels}
 
 
 def main(argv=None) -> int:
@@ -292,6 +708,7 @@ def main(argv=None) -> int:
         "{} among them, no prefix and both RFC 6962 prefixes); pre-padded "
         "entry == plain == hashlib there and on {} node pairs".format(
             SHA_RAGGED_BATCHES, SHA_BOUNDARY_LENGTHS, NODE_PAIRS))
+    sha3_errs = sha3_phase(torch, dev)
     log("phase 2: {:.1f} s".format(time.perf_counter() - t0))
 
     # --------------------------------------------------- 3. the main path
@@ -473,8 +890,15 @@ def main(argv=None) -> int:
             ed_micro_bound_ms))
 
     if profile:
-        where_the_time_goes(torch, run_main_path)
+        where_the_time_goes(torch, run_main_path, "ledger path")
 
+    pool_result = pool_path(torch, dev, signer, profile, sha3_errs)
+
+    pool_launches = pool_result["launches"]
+    ed_err = max(ed_err, pool_result["ed_err"])
+    rag_err = max(rag_err, pool_result["rag_err"])
+    launches = {k: launches.get(k, 0) + pool_launches.get(k, 0)
+                for k in set(launches) | set(pool_launches)}
     kernels = [
         {"name": "ed25519_verify", "route": "cuda",
          "source": "plenum_tpu_torch/csrc/ed25519_verify.cu",
@@ -494,7 +918,7 @@ def main(argv=None) -> int:
          "launches": launches["sha256_ragged"], "max_abs_err": rag_err,
          "ms": rag_ms, "plain_ms": rag_plain_ms, "bound_ms": rag_bound_ms,
          "bound_by": rag_bound_by, "library_ms": None},
-    ]
+    ] + pool_result["kernels"]
     log("total: {:.1f} s".format(time.perf_counter() - t_all))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,11 +1,13 @@
-"""Carry a ledger and a verkey registry across from the JAX package.
+"""Carry a ledger, a state trie and a verkey registry across from the JAX
+package.
 
 plenum_tpu has no weights: its state is the ledger (committed serialized
-txns plus the hash store's leaf and node digests) and the verkey registry
+txns plus the hash store's leaf and node digests), the MPT state (the
+trie's hash → RLP node blobs and its head root) and the verkey registry
 the authenticator reads. These functions build the port's objects from
 that state as plain data, recomputing nothing.
 """
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterable, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -17,6 +19,7 @@ from plenum_tpu_torch.ledger.ledger import Ledger, _seq_key
 from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
 from plenum_tpu_torch.ops.sha256 import TorchSha256Backend
 from plenum_tpu_torch.server.client_authn import CoreAuthNr
+from plenum_tpu_torch.state.pruning_state import PruningState
 from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
 
 
@@ -83,3 +86,39 @@ def authnr_from_registry(registry: Dict[str, str], verifier=None,
     for identifier, verkey in registry.items():
         authnr.addIdr(identifier, verkey)
     return authnr
+
+
+def state_from_nodes(nodes: Union[Iterable[Tuple[bytes, bytes]],
+                                  Tuple[np.ndarray, np.ndarray, np.ndarray]],
+                     head_root: bytes, committed_root: bytes = None,
+                     device=None) -> PruningState:
+    """The port's PruningState over a JAX PruningState's KV contents, its
+    head at `head_root`; nothing is hashed. `nodes` is either the store's
+    (key, value) bytes pairs (the node blobs under their 32-byte hashes,
+    and the committed-root entry if the store has one) or three numpy
+    arrays: node hashes [n, 32] u8, the blobs joined as one uint8 array
+    and their int64 offsets [n + 1]. `committed_root`, when given, is
+    written as the committed head. The state's device MPT engine runs on
+    `device` (None means CUDA)."""
+    kv = KeyValueStorageInMemory()
+    if isinstance(nodes, tuple) and len(nodes) == 3 \
+            and isinstance(nodes[0], np.ndarray):
+        keys, data, offsets = nodes
+        keys = np.ascontiguousarray(keys, dtype=np.uint8)
+        offsets = np.asarray(offsets, dtype=np.int64)
+        if keys.ndim != 2 or keys.shape[1] != 32 \
+                or offsets.shape != (keys.shape[0] + 1,):
+            raise ValueError("expected [n, 32] node hashes and [n + 1] "
+                             "offsets, got {} and {}".format(keys.shape,
+                                                             offsets.shape))
+        raw = np.ascontiguousarray(data, dtype=np.uint8).tobytes()
+        kv.setBatch((keys[i].tobytes(), raw[offsets[i]:offsets[i + 1]])
+                    for i in range(keys.shape[0]))
+    else:
+        kv.setBatch((bytes(k), bytes(v)) for k, v in nodes)
+    if committed_root is not None:
+        kv.put(PruningState.rootHashKey, bytes(committed_root))
+    state = PruningState(kv)
+    state.revertToHead(bytes(head_root))
+    state.attach_device_engine(device=device)
+    return state

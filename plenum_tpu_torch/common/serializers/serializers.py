@@ -2,13 +2,15 @@
 
 MsgPack for the ledger (the port's own pure-Python codec, byte-equal to
 the `msgpack` package's), ordered JSON for state values (bit-identical
-across nodes — consensus-critical), and the canonical signing
-serialization.
+across nodes — consensus-critical), Base58 for roots, Base64 for proof
+nodes, and the canonical signing serialization.
 """
+import base64
 import json
 from abc import ABC, abstractmethod
 from typing import Any
 
+from plenum_tpu_torch.common.serializers.base58 import b58decode, b58encode
 from plenum_tpu_torch.common.serializers.msgpack_codec import packb, unpackb
 
 
@@ -76,3 +78,19 @@ class SigningSerializer(Serializer):
         if isinstance(data, (bytes, bytearray)):
             data = data.decode('utf-8')
         return json.loads(data)
+
+
+class Base58Serializer(Serializer):
+    def serialize(self, data: bytes, to_bytes=False) -> str:
+        return b58encode(data)
+
+    def deserialize(self, data) -> bytes:
+        return b58decode(data)
+
+
+class Base64Serializer(Serializer):
+    def serialize(self, data, to_bytes=True):
+        return base64.b64encode(data)
+
+    def deserialize(self, data):
+        return base64.b64decode(data)

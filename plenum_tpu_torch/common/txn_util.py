@@ -1,9 +1,11 @@
-"""Canonical transaction envelope helpers (the two the write path uses).
+"""Canonical transaction envelope helpers.
 
 Reference: plenum/common/txn_util.py:335 — a committed txn is
 {ver, txn: {type, data, metadata, protocolVersion}, txnMetadata: {txnTime,
 seqNo, txnId}, reqSignature: {type, values}}.
 """
+from typing import Optional
+
 from plenum_tpu_torch.common.constants import (
     TXN_PAYLOAD, TXN_PAYLOAD_TYPE, TXN_PAYLOAD_DATA, TXN_PAYLOAD_METADATA,
     TXN_PAYLOAD_METADATA_FROM, TXN_PAYLOAD_METADATA_REQ_ID,
@@ -15,10 +17,26 @@ from plenum_tpu_torch.common.constants import (
     TXN_VERSION, ED25519)
 
 
+def init_empty_txn(txn_type, protocol_version=None) -> dict:
+    txn = {
+        TXN_PAYLOAD: {
+            TXN_PAYLOAD_TYPE: txn_type,
+            TXN_PAYLOAD_DATA: {},
+            TXN_PAYLOAD_METADATA: {},
+        },
+        TXN_METADATA: {},
+        TXN_SIGNATURE: {},
+        TXN_VERSION: "1",
+    }
+    if protocol_version is not None:
+        txn[TXN_PAYLOAD][TXN_PAYLOAD_PROTOCOL_VERSION] = protocol_version
+    return txn
+
+
 def reqToTxn(req) -> dict:
     """Build the txn envelope from a Request (reference txn_util.py
     reqToTxn). Runs once per write on the apply hot path — the envelope
-    is built as one literal."""
+    is built as one literal instead of init_empty_txn + patching."""
     if isinstance(req, dict):
         from plenum_tpu_torch.common.request import Request
         req = Request(**req) if 'operation' in req else Request(**req.get('req', req))
@@ -67,3 +85,56 @@ def append_txn_metadata(txn: dict, seq_no: int = None, txn_time: int = None,
     if txn_id is not None:
         md[TXN_METADATA_ID] = txn_id
     return txn
+
+
+def get_type(txn: dict):
+    return txn[TXN_PAYLOAD][TXN_PAYLOAD_TYPE]
+
+
+def get_payload_data(txn: dict) -> dict:
+    return txn[TXN_PAYLOAD][TXN_PAYLOAD_DATA]
+
+
+def get_from(txn: dict) -> Optional[str]:
+    return txn[TXN_PAYLOAD][TXN_PAYLOAD_METADATA].get(TXN_PAYLOAD_METADATA_FROM)
+
+
+def get_req_id(txn: dict) -> Optional[int]:
+    return txn[TXN_PAYLOAD][TXN_PAYLOAD_METADATA].get(TXN_PAYLOAD_METADATA_REQ_ID)
+
+
+def get_digest(txn: dict) -> Optional[str]:
+    return txn[TXN_PAYLOAD][TXN_PAYLOAD_METADATA].get(TXN_PAYLOAD_METADATA_DIGEST)
+
+
+def get_payload_digest(txn: dict) -> Optional[str]:
+    return txn[TXN_PAYLOAD][TXN_PAYLOAD_METADATA].get(
+        TXN_PAYLOAD_METADATA_PAYLOAD_DIGEST)
+
+
+def get_seq_no(txn: dict) -> Optional[int]:
+    return txn.get(TXN_METADATA, {}).get(TXN_METADATA_SEQ_NO)
+
+
+def get_txn_time(txn: dict) -> Optional[int]:
+    return txn.get(TXN_METADATA, {}).get(TXN_METADATA_TIME)
+
+
+def get_txn_id(txn: dict) -> Optional[str]:
+    return txn.get(TXN_METADATA, {}).get(TXN_METADATA_ID)
+
+
+def get_version(txn: dict):
+    return txn.get(TXN_VERSION)
+
+
+def get_protocol_version(txn: dict):
+    return txn[TXN_PAYLOAD].get(TXN_PAYLOAD_PROTOCOL_VERSION)
+
+
+def get_req_signature(txn: dict) -> dict:
+    return txn.get(TXN_SIGNATURE, {})
+
+
+class TxnMarker:
+    """Sort marker for deterministic txn iteration."""

@@ -202,3 +202,27 @@ class CoalescingVerifierHub:
 
     def verify_batch(self, items: Sequence[VerifyItem]) -> List[bool]:
         return self.dispatch(items).collect()
+
+
+_PROVIDERS = {
+    "cpu": ScalarVerifier,
+    "torch_batch": TorchBatchVerifier,
+    "torch_hub": lambda device=None, threshold=None: CoalescingVerifierHub(
+        batch=TorchBatchVerifier(device), threshold=threshold),
+}
+
+
+def create_verifier(name: str = "torch_hub", **kwargs):
+    """A verification provider by name: "cpu" (the scalar RFC 8032
+    check), "torch_batch" (one launch per dispatch on `device`) or
+    "torch_hub" (a CoalescingVerifierHub over it; `threshold` defaults
+    to Config.VERIFIER_BATCH_THRESHOLD). `device=None` means CUDA."""
+    if name == "remote":
+        raise NotImplementedError("the remote verifier and its verify "
+                                  "daemon are not ported yet (ROADMAP A4)")
+    try:
+        cls = _PROVIDERS[name]
+    except KeyError:
+        raise ValueError("unknown verifier provider {!r}; one of {}".format(
+            name, sorted(_PROVIDERS)))
+    return cls(**kwargs)

@@ -1,4 +1,4 @@
-"""Device batch primitives: SHA-256 compression and ed25519 verify, each a
+"""Device batch primitives: SHA-256, SHA3-256 and ed25519 verify, each a
 hand-written CUDA kernel (csrc/) with a plain PyTorch version beside it.
 
 A wrapper launches its kernel on a CUDA tensor and runs the plain version
@@ -40,6 +40,29 @@ def check_arg(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError("{}: expected contiguous {} {}, got {} {}{}".format(
             name, dtype, tuple(shape), t.dtype, tuple(t.shape),
             "" if t.is_contiguous() else " (not contiguous)"))
+
+
+def check_ragged(data: torch.Tensor, offsets: torch.Tensor,
+                 prefix: int = -1) -> int:
+    """Raise unless data is a contiguous 1-D uint8 tensor, offsets a
+    contiguous 1-D int64 tensor of non-decreasing offsets into it (one
+    reduction, read back) and prefix -1 or a byte. → B."""
+    if data.dim() != 1 or offsets.dim() != 1 or offsets.shape[0] < 1:
+        raise ValueError("data must be 1-D and offsets [B + 1], got {} and "
+                         "{}".format(tuple(data.shape), tuple(offsets.shape)))
+    check_arg(data, "data", torch.uint8, data.shape)
+    check_arg(offsets, "offsets", torch.int64, offsets.shape)
+    if data.device != offsets.device:
+        raise ValueError("data and offsets lie on {} and {}".format(
+            data.device, offsets.device))
+    if not -1 <= prefix <= 255:
+        raise ValueError("prefix must be -1 or a byte, got {}".format(prefix))
+    bad = (offsets[0] < 0) | (offsets[-1] > data.shape[0]) \
+        | (offsets[1:] < offsets[:-1]).any()
+    if bool(bad):
+        raise ValueError("offsets must be non-decreasing and within the "
+                         "{} data bytes".format(data.shape[0]))
+    return int(offsets.shape[0]) - 1
 
 
 def u32_as_i32(x: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from plenum_tpu_torch.ops import (
-    check_arg, cuda_lib, resolve_device, scatter_ragged_rows, to_tensor,
-    u32_as_i32)
+    check_arg, check_ragged, cuda_lib, resolve_device, scatter_ragged_rows,
+    to_tensor, u32_as_i32)
 
 _IV = np.array([
     0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
@@ -161,29 +161,6 @@ def sha256_blocks(words: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:
 _PAD_CHUNK = 1 << 15        # messages padded at a time by the plain version
 
 
-def _check_ragged(data: torch.Tensor, offsets: torch.Tensor,
-                  prefix: int) -> int:
-    """Raise unless data is a contiguous 1-D uint8 tensor, offsets a
-    contiguous 1-D int64 tensor of non-decreasing offsets into it (one
-    reduction, read back) and prefix -1 or a byte. → B."""
-    if data.dim() != 1 or offsets.dim() != 1 or offsets.shape[0] < 1:
-        raise ValueError("data must be 1-D and offsets [B + 1], got {} and "
-                         "{}".format(tuple(data.shape), tuple(offsets.shape)))
-    check_arg(data, "data", torch.uint8, data.shape)
-    check_arg(offsets, "offsets", torch.int64, offsets.shape)
-    if data.device != offsets.device:
-        raise ValueError("data and offsets lie on {} and {}".format(
-            data.device, offsets.device))
-    if not -1 <= prefix <= 255:
-        raise ValueError("prefix must be -1 or a byte, got {}".format(prefix))
-    bad = (offsets[0] < 0) | (offsets[-1] > data.shape[0]) \
-        | (offsets[1:] < offsets[:-1]).any()
-    if bool(bad):
-        raise ValueError("offsets must be non-decreasing and within the "
-                         "{} data bytes".format(data.shape[0]))
-    return int(offsets.shape[0]) - 1
-
-
 def _pad_ragged(data: torch.Tensor, offsets: torch.Tensor, prefix: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SHA-pad prefix || data[offsets[i]:offsets[i + 1]] for each i with
@@ -222,7 +199,7 @@ def sha256_ragged_plain(data: torch.Tensor, offsets: torch.Tensor,
     (no prefix when prefix is -1): data [n] uint8, offsets [B + 1] int64 →
     digest state [B, 8] int32. Pads with torch, a chunk of messages at a
     time, and runs sha256_blocks_plain."""
-    B = _check_ragged(data, offsets, prefix)
+    B = check_ragged(data, offsets, prefix)
     out = [torch.empty((0, 8), dtype=torch.int32, device=data.device)]
     for lo in range(0, B, _PAD_CHUNK):
         hi = min(lo + _PAD_CHUNK, B)
@@ -238,7 +215,7 @@ def sha256_ragged_cuda(data: torch.Tensor, offsets: torch.Tensor,
     the offsets on the card (one reduction, read back), launches on the
     current stream without synchronising, and counts each launch in
     `sha256_ragged_cuda.launches`."""
-    B = _check_ragged(data, offsets, prefix)
+    B = check_ragged(data, offsets, prefix)
     dev = data.device
     if dev.type != "cuda":
         raise ValueError("sha256_ragged_cuda needs CUDA tensors, got "
@@ -316,6 +293,34 @@ def ragged_arrays(msgs: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
     offsets = np.zeros(len(msgs) + 1, dtype=np.int64)
     np.cumsum(lens, out=offsets[1:])
     return np.frombuffer(b"".join(msgs), dtype=np.uint8), offsets
+
+
+def upload_ragged(msgs: Sequence[bytes], device, refs: Sequence[bytes] = (),
+                  staging: PinnedStaging = None) -> Tuple[torch.Tensor, ...]:
+    """(data, offsets[, refs]) tensors on `device` for `msgs` in the layout
+    of `ragged_arrays` (and their 32-byte refs, as [B, 32] uint8). On CUDA
+    they travel in one copy from the grow-only pinned buffer `staging` (or
+    a fresh one): data first (the kernels read it 16 bytes at a time), then
+    offsets and refs each at the next 16-byte boundary."""
+    data, offsets = ragged_arrays(msgs)
+    ref_arr = np.frombuffer(b"".join(refs), dtype=np.uint8).reshape(-1, 32)
+    if device.type != "cuda":
+        out = (to_tensor(data, device), to_tensor(offsets, device))
+        return out + (to_tensor(ref_arr, device),) if refs else out
+    parts, at, spans = [], 0, []
+    for a in (data, offsets, ref_arr) if refs else (data, offsets):
+        spans.append((at, at + a.nbytes))
+        parts.append(a)
+        at += a.nbytes
+        pad = -at % 16
+        parts.append(np.zeros(pad, dtype=np.uint8))
+        at += pad
+    buf = (staging or PinnedStaging()).upload(parts, device)
+    out = [buf[spans[0][0]:spans[0][1]],
+           buf[spans[1][0]:spans[1][1]].view(torch.int64)]
+    if refs:
+        out.append(buf[spans[2][0]:spans[2][1]].view(-1, 32))
+    return tuple(out)
 
 
 # --------------------------------------------------- host-side helpers
@@ -429,16 +434,7 @@ def sha256_many_dispatch(msgs: Sequence[bytes], device=None,
     dev = resolve_device(device)
     if not msgs:
         return None
-    data, offsets = ragged_arrays(msgs)
-    if dev.type == "cuda":
-        # data first (the kernel reads it 16 bytes at a time), then the
-        # offsets at the next 16-byte boundary
-        at = -(-data.nbytes // 16) * 16
-        pad = np.zeros(at - data.nbytes, dtype=np.uint8)
-        buf = (staging or PinnedStaging()).upload([data, pad, offsets], dev)
-        return sha256_ragged(buf[:data.nbytes], buf[at:].view(torch.int64),
-                             prefix)
-    return sha256_ragged(to_tensor(data, dev), to_tensor(offsets, dev), prefix)
+    return sha256_ragged(*upload_ragged(msgs, dev, staging=staging), prefix)
 
 
 def sha256_many_collect(handle) -> List[bytes]:

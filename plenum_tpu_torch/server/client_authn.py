@@ -1,8 +1,8 @@
 """Client request authentication — ed25519 over the signing serialization.
 
 Reference: plenum/server/client_authn.py (`ClientAuthNr` :21, `NaclAuthNr`
-:82 authenticate_multi :84, `CoreAuthNr`); port of
-plenum_tpu/server/client_authn.py.
+:82 authenticate_multi :84, `CoreAuthNr`) + req_authenticator.py
+(`ReqAuthenticator` :11); port of plenum_tpu/server/client_authn.py.
 
 Device seam: `CoreAuthNr.dispatch_batch` hands every signature of a batch
 of requests to the batch verifier (plenum_tpu_torch.crypto.batch_verifier)
@@ -184,3 +184,25 @@ class CoreAuthNr(ClientAuthNr):
             raise InsufficientCorrectSignatures(len(ok), len(idrs))
         return ok
 
+
+class ReqAuthenticator:
+    """Registry of authenticators (reference req_authenticator.py:11)."""
+
+    def __init__(self):
+        self._authenticators: List[ClientAuthNr] = []
+
+    def register_authenticator(self, authnr: ClientAuthNr):
+        self._authenticators.append(authnr)
+
+    def authenticate(self, req: Request) -> List[str]:
+        identifiers = []
+        for a in self._authenticators:
+            identifiers.extend(a.authenticate(req))
+        return identifiers
+
+    @property
+    def core_authenticator(self) -> Optional[CoreAuthNr]:
+        for a in self._authenticators:
+            if isinstance(a, CoreAuthNr):
+                return a
+        return None

@@ -1,8 +1,10 @@
 """Guards of the PyTorch/CUDA port: plenum_tpu_torch and chip_smoke.py
-import neither jax nor plenum_tpu, every entry point that touches the
-device raises when CUDA is absent and the caller did not ask for the CPU,
-and chip_smoke.py refuses to report without a card or without the
-package beside it."""
+import neither jax nor plenum_tpu and load no native extension of the JAX
+package, every entry point that touches the device raises when CUDA is
+absent and the caller did not ask for the CPU, the Node raises
+NotImplementedError on the branches that are not ported, and
+chip_smoke.py refuses to report without a card or without the package
+beside it."""
 import ast
 import os
 import shutil
@@ -48,6 +50,20 @@ def test_port_imports_neither_jax_nor_plenum_tpu(path):
     assert not _imported_top_names(path) & FORBIDDEN
 
 
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_loads_no_native_extension_of_the_jax_package(path):
+    """The JAX package loads its optional C extensions through
+    native.try_load_ext; the port keeps only the pure-Python branches,
+    and its one loader (ops/cuda_lib.py) loads its own CUDA libraries."""
+    with open(path) as f:
+        src = f.read()
+    assert "try_load_ext" not in src and "build_and_load" not in src
+    if "ctypes.CDLL(" in src:
+        assert os.path.relpath(path, REPO) == os.path.join(
+            "plenum_tpu_torch", "ops", "cuda_lib.py")
+
+
 def test_import_scan_matches_exact_top_level_names(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import plenum_tpu_torch.ops\nfrom jaxtyping import x\n"
@@ -57,14 +73,42 @@ def test_import_scan_matches_exact_top_level_names(tmp_path):
                                              "plenum_tpu", "jax"}
 
 
+def _node(**kw):
+    from plenum_tpu_torch.server.node import Node
+    from plenum_tpu_torch.runtime.sim_random import DefaultSimRandom
+    from plenum_tpu_torch.testing.mock_timer import MockTimer
+    from plenum_tpu_torch.testing.sim_network import SimNetwork
+    timer = MockTimer()
+    net = SimNetwork(timer, DefaultSimRandom(0))
+    return Node("Alpha", ["Alpha", "Beta", "Gamma", "Delta"], timer,
+                net.create_peer("Alpha"), **kw)
+
+
 def _entry_points():
     from plenum_tpu_torch import carry
     from plenum_tpu_torch.crypto.batch_verifier import (
-        CoalescingVerifierHub, TorchBatchVerifier)
-    from plenum_tpu_torch.ops import ed25519, resolve_device, sha256
+        CoalescingVerifierHub, TorchBatchVerifier, create_verifier)
+    from plenum_tpu_torch.ops import ed25519, resolve_device, sha256, sha3
+    from plenum_tpu_torch.ops import trie
     from plenum_tpu_torch.server.client_authn import CoreAuthNr
+    from plenum_tpu_torch.state.device_state import DeviceStateEngine
+    from plenum_tpu_torch.state.pruning_state import PruningState
+    from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
+    from plenum_tpu_torch.testing import pool
     empty = np.zeros((0, 32), dtype=np.uint8)
     return {
+        "sha3_256_many": lambda: sha3.sha3_256_many([b"abc"]),
+        "hash_nodes": lambda: trie.hash_nodes([b"abc"]),
+        "dispatch_node_verify_batch": lambda: trie.dispatch_node_verify_batch(
+            [b"abc"], [bytes(32)]),
+        "DeviceStateEngine": lambda: DeviceStateEngine(
+            KeyValueStorageInMemory()),
+        "attach_device_engine": lambda: PruningState(
+            KeyValueStorageInMemory()).attach_device_engine(),
+        "state_from_nodes": lambda: carry.state_from_nodes([], bytes(32)),
+        "create_verifier": lambda: create_verifier("torch_hub"),
+        "Node": lambda: _node(),
+        "make_sim_pool": lambda: pool.make_sim_pool(pool.NAMES, "cpu"),
         "resolve_device": lambda: resolve_device(),
         "sha256_many": lambda: sha256.sha256_many([b"abc"]),
         "sha256_node_pairs_array": lambda: sha256.sha256_node_pairs_array(
@@ -89,12 +133,45 @@ def test_device_entry_points_raise_without_cuda(name, monkeypatch):
 
 
 def test_entry_points_run_on_the_cpu_when_asked(monkeypatch):
+    import hashlib
     from plenum_tpu_torch.crypto.batch_verifier import TorchBatchVerifier
-    from plenum_tpu_torch.ops import sha256
+    from plenum_tpu_torch.ops import sha256, sha3, trie
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert sha256.sha256_many([b"abc"], device="cpu")[0].hex().startswith(
         "ba7816bf")
     assert TorchBatchVerifier("cpu").device == torch.device("cpu")
+    assert sha3.sha3_256_many([b"abc"], device="cpu") == \
+        [hashlib.sha3_256(b"abc").digest()]
+    assert trie.hash_nodes([b"abc"], device="cpu") == \
+        [hashlib.sha3_256(b"abc").digest()]
+    assert _node(device="cpu").device == torch.device("cpu")
+
+
+def test_sha3_cuda_wrappers_refuse_cpu_tensors():
+    from plenum_tpu_torch.ops import sha3
+    from plenum_tpu_torch.ops.sha256 import upload_ragged
+    data, offsets = upload_ragged([b"abc"], torch.device("cpu"))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        sha3.sha3_ragged_cuda(data, offsets)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        sha3.sha3_ragged_eq_cuda(data, offsets,
+                                 torch.zeros((1, 32), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("branch", ["bls_signer", "bls_bft_replica",
+                                    "MERKLE_DEVICE_PROOFS",
+                                    "PIPELINE_ENABLED", "remote_verifier"])
+def test_node_raises_on_branches_not_ported(branch):
+    from plenum_tpu_torch.common.config import Config
+    kw = {"device": "cpu"}
+    if branch.startswith("bls"):
+        kw[branch] = object()
+    elif branch == "remote_verifier":
+        kw["config"] = Config(VERIFIER_PROVIDER="remote")
+    else:
+        kw["config"] = Config(**{branch: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        _node(**kw)
 
 
 def _run_smoke(cwd, script):
