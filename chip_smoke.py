@@ -17,10 +17,15 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    messages at B = 1023/1024/1025, and the pre-padded entry on 2^20 node
    pairs (all against hashlib too);
    The SHA3-256 kernel's two entries (digests, and the fused compare
-   against refs) against their plain version and hashlib at B = 1, 127,
-   128, 129 and 2,001 on messages of 0 to ~530 bytes (the absorb
-   boundaries 135/136/137 and 271/272 among them), with one corrupted
-   ref that must give False;
+   against refs), each in both layouts (five lanes and one lane per
+   message), against their plain version and hashlib at B = 1, 4, 5, 6,
+   7, 31, 32, 33, 127, 129 and 2,001 on messages of 0 to ~530 bytes (the
+   absorb boundaries 135/136/137 and 271/272 among them), with one
+   corrupted ref that must give False; both wrappers called under
+   torch.cuda.set_sync_debug_mode("error") (neither may synchronise);
+   negative, decreasing and past-the-data offsets raising ValueError at
+   the host copy, and a good launch after them; ptxas must give the
+   SHA3 kernels no stack frame;
 3. drives the ledger path: a domain ledger of 2^20 NYM txns recovered
    with Ledger.recoverTreeFromTxnLog (root checked against hashlib),
    2,000 signed NYM requests (1% tampered) authenticated by four
@@ -45,9 +50,16 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    versions (and hashlib) on the pool's own launches — the hub's
    deduplicated batches, the ledgers' staged leaf batches and tree
    levels — and both SHA3 entries against theirs and hashlib on every
-   state level the pool hashed on the card, timing them at the largest;
-   then prints {"kernels": [...]}, the card line and, last,
-   {"ok": true, "device": {...}}.
+   state level the pool hashed on the card. Both SHA3 entries are timed
+   at the pool's largest hashed and verified levels and at 65,536 rows
+   drawn from them: the kernel alone (CUDA events over 50 back-to-back
+   launches, inputs on the card) and the round trip (host clock over the
+   ops/trie.py dispatch and collect, its result checked against
+   hashlib at every shape), each beside its bound. Then it prints
+   {"kernels": [...]}, the card line and, last, {"ok": true, "device":
+   {...}}. Every entry's "ms" is cuda_ms, one definition for all five;
+   the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
+   pool's shape.
 
 Each path's kernel launch counters are zeroed just before it and read
 just after; every kernel of a path must have launched in it. The
@@ -81,8 +93,13 @@ N_NODES = 4
 TXN_TIME = 1700000000
 POOL_REQS = 4000             # bench.py POOL_REQS
 POOL_BAD = 20                # tampered requests, spread over the chunks
-SHA3_BATCHES = (1, 127, 128, 129, 2001)
+# the five-lane groups' and the warps' boundaries (six messages a warp of
+# groups, 32 a warp of threads), and a ragged tail of both
+SHA3_BATCHES = (1, 4, 5, 6, 7, 31, 32, 33, 127, 129, 2001)
 SHA3_LENGTHS = (0, 135, 136, 137, 271, 272, 530)
+# the throughput shape: 32 x the JAX package's MESH_SHARD_MIN (2,048), the
+# level size from which it treats a level as large
+SHA3_WIDE_ROWS = 65536
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bandwidth,
 # and 32-bit integer instructions over all 128 lanes of the 132 SMs at
@@ -216,13 +233,17 @@ def where_the_time_goes(torch, run_main_path, label):
 
 
 def sha3_phase(torch, dev):
-    """Both SHA3-256 entries against their plain version and hashlib at
-    B = SHA3_BATCHES on messages of SHA3_LENGTHS and random lengths up to
-    600 bytes; one corrupted ref per batch must give False. → (largest
+    """Both SHA3-256 entries, in both layouts (five lanes and one lane per
+    message), against their plain version and hashlib at B = SHA3_BATCHES
+    on messages of SHA3_LENGTHS and random lengths up to 600 bytes; one
+    corrupted ref per batch must give False. Then: neither wrapper
+    synchronises (set_sync_debug_mode "error"), and offsets that are
+    negative, decreasing or past the data raise ValueError at the host
+    copy, after which a good launch still equals hashlib. → (largest
     digest byte difference, number of differing verdicts)."""
     import numpy as np
     from plenum_tpu_torch.ops import sha256 as sha
-    from plenum_tpu_torch.ops import sha3
+    from plenum_tpu_torch.ops import sha3, to_tensor
     rng = np.random.RandomState(SEED + 3)
     err = eq_err = 0
     for n in SHA3_BATCHES:
@@ -232,27 +253,167 @@ def sha3_phase(torch, dev):
                 for ln in lens]
         want = [hashlib.sha3_256(m).digest() for m in msgs]
         data, offsets, refs = sha.upload_ragged(msgs, dev, want)
-        dk = sha3.sha3_ragged_cuda(data, offsets)
-        dp = sha3.sha3_ragged_plain(data, offsets)
-        err = max(err, int((dk.int() - dp.int()).abs().max().item()))
-        check(sha3.digests_to_bytes(dk.cpu()) == want,
-              "SHA3 kernel equals hashlib at B={}".format(n))
+        dp = sha3.sha3_ragged_plain(data, offsets).cpu().numpy()
         bad = refs.clone()
         bad[n // 2, int(rng.randint(32))] ^= 1 << int(rng.randint(8))
-        for r, expect in ((refs, [True] * n),
-                          (bad, [i != n // 2 for i in range(n)])):
-            ok = sha3.sha3_ragged_eq_cuda(data, offsets, r)
-            okp = sha3.sha3_ragged_eq_plain(data, offsets, r)
-            eq_err += int((ok != okp).sum().item())
-            check(ok.cpu().tolist() == expect,
-                  "SHA3 fused compare at B={}: True on the refs, False on "
-                  "the corrupted one".format(n))
+        for lanes in (5, 1):
+            dk = sha3.sha3_ragged_cuda(data, offsets, lanes).host()
+            err = max(err, int(np.abs(dk.astype(np.int64) - dp).max()))
+            check(sha3.digests_to_bytes(dk) == want,
+                  "SHA3 kernel ({} lanes) equals hashlib at B={}".format(
+                      lanes, n))
+            for r, expect in ((refs, [True] * n),
+                              (bad, [i != n // 2 for i in range(n)])):
+                ok = sha3.sha3_ragged_eq_cuda(data, offsets, r, lanes).host()
+                okp = sha3.sha3_ragged_eq_plain(data, offsets, r)
+                eq_err += int((ok != okp.cpu().numpy()).sum())
+                check(ok.tolist() == expect,
+                      "SHA3 fused compare ({} lanes) at B={}: True on the "
+                      "refs, False on the corrupted one".format(lanes, n))
     check(err == 0, "SHA3 kernel equals the plain version")
     check(eq_err == 0, "SHA3 fused compare equals the plain version")
-    log("sha3: both entries == plain == hashlib at B={} (lengths {} among "
-        "them); the corrupted ref gives False".format(SHA3_BATCHES,
-                                                      SHA3_LENGTHS))
+    log("sha3: both entries in both layouts == plain == hashlib at B={} "
+        "(lengths {} among them); the corrupted ref gives False".format(
+            SHA3_BATCHES, SHA3_LENGTHS))
+
+    # no read-back before the launch: the inputs are on the card already
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        launches = [sha3.sha3_ragged_cuda(data, offsets),
+                    sha3.sha3_ragged_eq_cuda(data, offsets, refs)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(sha3.digests_to_bytes(launches[0].host()) == want
+          and bool(launches[1].host().all()),
+          "the launches made under the sync check are right")
+    n = len(want)
+    cases = {"negative": [-1] + [0] * n,
+             "decreasing": [0] * (n - 1) + [data.shape[0], 0],
+             "past nbytes": [0] * n + [data.shape[0] + 1]}
+    for what, offs in cases.items():
+        bad_off = to_tensor(np.asarray(offs, dtype=np.int64), dev)
+        for launch in (lambda: sha3.sha3_ragged_cuda(data, bad_off),
+                       lambda: sha3.sha3_ragged_eq_cuda(data, bad_off, refs)):
+            try:
+                launch().host()
+            except ValueError as e:
+                check("non-decreasing" in str(e), "the offsets' message")
+            else:
+                raise RuntimeError("check failed: {} offsets raise at the "
+                                   "host copy".format(what))
+    torch.cuda.synchronize()
+    check(sha3.digests_to_bytes(sha3.sha3_ragged_cuda(data, offsets).host())
+          == want, "a good launch after the bad offsets equals hashlib")
+    log("sha3: neither wrapper synchronises (sync debug mode \"error\"); "
+        "{} offsets raise ValueError at the host copy of both entries, and "
+        "the card stays usable".format(", ".join(cases)))
     return err, eq_err
+
+
+def kernel_ms(torch, fn, reps=50):
+    """Device milliseconds per call of fn over `reps` back-to-back calls
+    on inputs already on the card, from CUDA events. A sleep kernel holds
+    the stream while the host queues the calls, so the events time the
+    launches alone and not the host's enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def round_trip_ms(fn, reps=20):
+    """Median host milliseconds of fn(), a dispatch and its collect, after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def sha3_times(torch, dev, blobs, vblobs, vrefs):
+    """Both SHA3 entries timed at the pool's largest hashed level `blobs`
+    and verified level (`vblobs`, `vrefs`), and at SHA3_WIDE_ROWS rows
+    drawn from them (the pool's mix of lengths): the kernel alone
+    (kernel_ms, 50 launches) and the round trip through ops/trie.py
+    (round_trip_ms of dispatch + collect, the upload included), each
+    beside its bound, after one round trip's result is held against
+    hashlib at that shape; the plain version at the pool's shapes. →
+    {entry: the pool shape's "ms" (cuda_ms, as for every kernel),
+    "kernel_ms", "round_trip_ms", "plain_ms", "bound_ms", "bound_by"}."""
+    import numpy as np
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops import sha3
+    from plenum_tpu_torch.ops import trie as trie_ops
+    rng = np.random.RandomState(SEED + 4)
+    staging = sha.PinnedStaging()
+    out = {}
+    for name, pool_rows, refs in (("sha3_ragged", blobs, None),
+                                  ("sha3_ragged_eq", vblobs, vrefs)):
+        pick = rng.randint(len(pool_rows), size=SHA3_WIDE_ROWS)
+        wide = [pool_rows[i] for i in pick]
+        shapes = [("pool", pool_rows, refs),
+                  ("wide", wide,
+                   None if refs is None else [refs[i] for i in pick])]
+        for shape, rows, r in shapes:
+            args = sha.upload_ragged(rows, dev, r or ())
+            if r is None:
+                def kernel(args=args):
+                    return sha3.sha3_ragged_cuda(*args)
+
+                def trip(rows=rows):
+                    return trie_ops.collect_node_hash_batch(
+                        trie_ops.dispatch_node_hash_batch(rows, dev, staging))
+                plain = sha3.sha3_ragged_plain
+            else:
+                def kernel(args=args):
+                    return sha3.sha3_ragged_eq_cuda(*args)
+
+                def trip(rows=rows, r=r):
+                    return trie_ops.collect_node_verify_batch(
+                        trie_ops.dispatch_node_verify_batch(rows, r, dev,
+                                                            staging))
+                plain = sha3.sha3_ragged_eq_plain
+            want = [hashlib.sha3_256(b).digest() for b in rows]
+            got = trip()
+            if r is None:
+                check(sha3.digests_to_bytes(got) == want, "{} equals hashlib "
+                      "at {} rows".format(name, len(rows)))
+            else:
+                check(got.tolist() == [w == x for w, x in zip(want, r)],
+                      "{} equals hashlib at {} rows".format(name, len(rows)))
+            k_ms = kernel_ms(torch, kernel)
+            rt_ms = round_trip_ms(trip)
+            blocks = sum(len(b) // 136 + 1 for b in rows)
+            nbytes = sum(map(len, rows)) + 8 * (len(rows) + 1) \
+                + (32 * len(rows) if r is None else 33 * len(rows))
+            b_ms, b_by = bound(blocks * KECCAK_OPS_PER_BLOCK, nbytes)
+            log("{} at {} rows ({}, {} blocks, lanes {}): kernel alone "
+                "{:.5f} ms, round trip {:.5f} ms; bound {:.6f} ms ({}), "
+                "kernel {:.2%} of it".format(
+                    name, len(rows), shape, blocks,
+                    sha3.lanes_for(len(rows)), k_ms, rt_ms, b_ms, b_by,
+                    b_ms / k_ms))
+            if shape == "pool":
+                ms, _ = cuda_ms(torch, kernel, 20)
+                plain_ms, _ = cuda_ms(torch, lambda: plain(*args), 1)
+                log("{} at {} rows: {:.5f} ms a call (cuda_ms, the host's "
+                    "enqueueing included, as for every kernel's \"ms\")"
+                    .format(name, len(rows), ms))
+                out[name] = {"ms": ms, "kernel_ms": k_ms,
+                             "round_trip_ms": rt_ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by}
+    return out
 
 
 def pool_requests(signer):
@@ -515,65 +676,50 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
     err, eq_err = sha3_errs
     for blobs in levels:
         data, offsets = sha.upload_ragged(blobs, dev)
-        dk = sha3.sha3_ragged_cuda(data, offsets)
-        err = max(err, int((dk.int() - sha3.sha3_ragged_plain(
-            data, offsets).int()).abs().max().item()))
-        check(sha3.digests_to_bytes(dk.cpu())
+        dk = sha3.sha3_ragged_cuda(data, offsets).host()
+        dp = sha3.sha3_ragged_plain(data, offsets).cpu().numpy()
+        err = max(err, int(np.abs(dk.astype(np.int64) - dp).max()))
+        check(sha3.digests_to_bytes(dk)
               == [hashlib.sha3_256(b).digest() for b in blobs],
               "SHA3 kernel equals hashlib on a pool level")
     for blobs, refs in verify_levels:
         data, offsets, r = sha.upload_ragged(blobs, dev, refs)
-        ok = sha3.sha3_ragged_eq_cuda(data, offsets, r)
-        eq_err += int((ok != sha3.sha3_ragged_eq_plain(data, offsets, r))
-                      .sum().item())
+        ok = sha3.sha3_ragged_eq_cuda(data, offsets, r).host()
+        eq_err += int((ok != sha3.sha3_ragged_eq_plain(data, offsets, r)
+                       .cpu().numpy()).sum())
         check(bool(ok.all()), "every read level verifies")
     check(err == 0 and eq_err == 0, "SHA3 entries equal the plain version "
                                      "on the pool's levels")
-
-    def blocks_of(blobs):
-        return sum(len(b) // 136 + 1 for b in blobs)
-
-    big = max(levels, key=len)
-    big_in = sha.upload_ragged(big, dev)
-    h_ms, _ = cuda_ms(torch, lambda: sha3.sha3_ragged_cuda(*big_in), 50)
-    h_plain_ms, _ = cuda_ms(torch, lambda: sha3.sha3_ragged_plain(*big_in),
-                            1)
-    nbytes = sum(map(len, big))
-    h_bound_ms, h_bound_by = bound(
-        blocks_of(big) * KECCAK_OPS_PER_BLOCK,
-        nbytes + 8 * (len(big) + 1) + 32 * len(big))
-    vblobs, vrefs = max(verify_levels, key=lambda v: len(v[0]))
-    v_in = sha.upload_ragged(vblobs, dev, vrefs)
-    v_ms, _ = cuda_ms(torch, lambda: sha3.sha3_ragged_eq_cuda(*v_in), 50)
-    v_plain_ms, _ = cuda_ms(torch,
-                            lambda: sha3.sha3_ragged_eq_plain(*v_in), 1)
-    v_bound_ms, v_bound_by = bound(
-        blocks_of(vblobs) * KECCAK_OPS_PER_BLOCK,
-        sum(map(len, vblobs)) + 8 * (len(vblobs) + 1) + 33 * len(vblobs))
     log("sha3 at the pool's shapes: both entries == plain == hashlib on "
         "{} hashed levels (rows {}) and {} verified levels (rows {}) "
         "({:.1f} s)".format(len(levels), sorted(map(len, levels)),
                             len(verify_levels),
                             sorted(len(b) for b, _ in verify_levels),
                             time.perf_counter() - t0))
-    log("sha3_ragged: {} rows, {} blocks, {} bytes: {:.4f} ms (bound {:.5f} "
-        "ms), plain {:.3f} ms; sha3_ragged_eq: {} rows, {} blocks: {:.4f} "
-        "ms (bound {:.5f} ms), plain {:.3f} ms".format(
-            len(big), blocks_of(big), nbytes, h_ms, h_bound_ms, h_plain_ms,
-            len(vblobs), blocks_of(vblobs), v_ms, v_bound_ms, v_plain_ms))
+    big = max(levels, key=len)
+    vblobs, vrefs = max(verify_levels, key=lambda v: len(v[0]))
+    times = sha3_times(torch, dev, big, vblobs, vrefs)
     kernels = [
         {"name": "sha3_ragged", "route": "cuda",
          "source": "plenum_tpu_torch/csrc/sha3.cu",
          "replaces": "plenum_tpu/ops/sha3.py:136",
          "launches": launches["sha3_ragged"], "max_abs_err": err,
-         "ms": h_ms, "plain_ms": h_plain_ms, "bound_ms": h_bound_ms,
-         "bound_by": h_bound_by, "library_ms": None},
+         "ms": times["sha3_ragged"]["ms"],
+         "plain_ms": times["sha3_ragged"]["plain_ms"],
+         "bound_ms": times["sha3_ragged"]["bound_ms"],
+         "bound_by": times["sha3_ragged"]["bound_by"], "library_ms": None,
+         "kernel_ms": times["sha3_ragged"]["kernel_ms"],
+         "round_trip_ms": times["sha3_ragged"]["round_trip_ms"]},
         {"name": "sha3_ragged_eq", "route": "cuda",
          "source": "plenum_tpu_torch/csrc/sha3.cu",
          "replaces": "plenum_tpu/ops/trie_jax.py:74",
          "launches": launches["sha3_ragged_eq"], "max_abs_err": eq_err,
-         "ms": v_ms, "plain_ms": v_plain_ms, "bound_ms": v_bound_ms,
-         "bound_by": v_bound_by, "library_ms": None},
+         "ms": times["sha3_ragged_eq"]["ms"],
+         "plain_ms": times["sha3_ragged_eq"]["plain_ms"],
+         "bound_ms": times["sha3_ragged_eq"]["bound_ms"],
+         "bound_by": times["sha3_ragged_eq"]["bound_by"], "library_ms": None,
+         "kernel_ms": times["sha3_ragged_eq"]["kernel_ms"],
+         "round_trip_ms": times["sha3_ragged_eq"]["round_trip_ms"]},
     ]
     return {"launches": launches, "ed_err": ed_err, "rag_err": rag_err,
             "kernels": kernels}
@@ -585,7 +731,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile the main path (device busy "
                              "time, host functions)")
-    profile = parser.parse_args(argv).profile
+    args = parser.parse_args(argv)
+    profile = args.profile
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
@@ -619,8 +766,15 @@ def main(argv=None) -> int:
     built = cuda_lib.build()
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "stack" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "stack")):
                 log("  nvcc {}: {}".format(name, line.strip()))
+    if "sha3" in built:
+        frames = [line for line in built["sha3"]["log"].splitlines()
+                  if "stack frame" in line]
+        check(frames and all(line.strip().startswith("0 bytes stack frame")
+                             for line in frames),
+              "ptxas gives the SHA3 kernels no stack frame")
     for name in cuda_lib.SOURCES:
         cuda_lib.load(name)
     log("build: {:.1f} s ({} libraries compiled)".format(

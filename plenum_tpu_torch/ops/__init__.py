@@ -42,11 +42,15 @@ def check_arg(t: torch.Tensor, name: str, dtype, shape) -> None:
             "" if t.is_contiguous() else " (not contiguous)"))
 
 
-def check_ragged(data: torch.Tensor, offsets: torch.Tensor,
-                 prefix: int = -1) -> int:
-    """Raise unless data is a contiguous 1-D uint8 tensor, offsets a
-    contiguous 1-D int64 tensor of non-decreasing offsets into it (one
-    reduction, read back) and prefix -1 or a byte. → B."""
+RAGGED_OFFSETS_ERROR = ("offsets must be non-decreasing and within the {} "
+                        "data bytes")
+
+
+def check_ragged_layout(data: torch.Tensor, offsets: torch.Tensor,
+                        prefix: int = -1) -> int:
+    """What check_ragged checks without reading the offsets: data a
+    contiguous 1-D uint8 tensor, offsets a contiguous 1-D int64 tensor of
+    at least one entry on the same device, prefix -1 or a byte. → B."""
     if data.dim() != 1 or offsets.dim() != 1 or offsets.shape[0] < 1:
         raise ValueError("data must be 1-D and offsets [B + 1], got {} and "
                          "{}".format(tuple(data.shape), tuple(offsets.shape)))
@@ -57,12 +61,20 @@ def check_ragged(data: torch.Tensor, offsets: torch.Tensor,
             data.device, offsets.device))
     if not -1 <= prefix <= 255:
         raise ValueError("prefix must be -1 or a byte, got {}".format(prefix))
+    return int(offsets.shape[0]) - 1
+
+
+def check_ragged(data: torch.Tensor, offsets: torch.Tensor,
+                 prefix: int = -1) -> int:
+    """Raise unless data is a contiguous 1-D uint8 tensor, offsets a
+    contiguous 1-D int64 tensor of non-decreasing offsets into it (one
+    reduction, read back) and prefix -1 or a byte. → B."""
+    B = check_ragged_layout(data, offsets, prefix)
     bad = (offsets[0] < 0) | (offsets[-1] > data.shape[0]) \
         | (offsets[1:] < offsets[:-1]).any()
     if bool(bad):
-        raise ValueError("offsets must be non-decreasing and within the "
-                         "{} data bytes".format(data.shape[0]))
-    return int(offsets.shape[0]) - 1
+        raise ValueError(RAGGED_OFFSETS_ERROR.format(data.shape[0]))
+    return B
 
 
 def u32_as_i32(x: torch.Tensor) -> torch.Tensor:

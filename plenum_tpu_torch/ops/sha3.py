@@ -18,21 +18,35 @@ version (`sha3_ragged_plain`, `sha3_ragged_eq_plain`) on CPU tensors. The
 plain version keeps the 25 lanes as int64 tensors holding the 64-bit
 patterns, so a rotation masks what the arithmetic right shift drags in,
 and the round constants above 2^63 are their signed int64 patterns.
+
+On the card the wrappers read nothing back: they launch and return a
+`Sha3Launch`, whose one buffer holds the rows and the kernel's error word
+(set for a row whose offsets are invalid). `to_host` copies it once, at
+the first point the host needs the rows, and raises ValueError there.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from plenum_tpu_torch.ops import check_arg, check_ragged, cuda_lib, \
-    resolve_device
+from plenum_tpu_torch.ops import (
+    RAGGED_OFFSETS_ERROR, check_arg, check_ragged, check_ragged_layout,
+    cuda_lib, resolve_device)
 from plenum_tpu_torch.ops.sha256 import upload_ragged
 
 RATE_BYTES = 136          # SHA3-256: r = 1088 bits
 RATE_LANES = RATE_BYTES // 8
 DIGEST_BYTES = 32
+TAIL_BYTES = 16           # after a launch's rows: the error word, zeros
+# Levels of at most this many rows run five lanes per message, larger ones
+# one thread per message (csrc/sha3.cu). Measured crossover on an NVIDIA
+# H100 80GB HBM3 at 700 W, kernel alone on the pool's 2-block state nodes:
+# five lanes 0.0177 ms against 0.0215 at 6,144 rows, 0.0225 against
+# 0.0217 at 8,192 (PERF.md).
+GROUP_MAX_ROWS = 6144
 
 
 def _i64(v: int) -> int:
@@ -166,41 +180,106 @@ def sha3_ragged_eq_plain(data: torch.Tensor, offsets: torch.Tensor,
 
 # ------------------------------------------------------- the kernels
 
-def _launch(name: str, args, dev) -> None:
-    fn = getattr(cuda_lib.load("sha3"), name)
-    fn.argtypes = [ctypes.c_void_p] * (len(args) - 1) + [ctypes.c_int,
-                                                          ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError("{} launch failed: CUDA error {}".format(name,
-                                                                    err))
+class Sha3Launch:
+    """A launch of csrc/sha3.cu in flight: `buf`, its output on the card
+    (the rows — B * 32 digest bytes, or B verdict bytes rounded up to 16
+    — then TAIL_BYTES whose first uint32 is the kernel's error word), the
+    row count, the byte count of the data (for the error's message) and
+    whether the rows are verdicts."""
+
+    __slots__ = ("buf", "rows", "nbytes", "verdicts")
+
+    def __init__(self, buf: torch.Tensor, rows: int, nbytes: int,
+                 verdicts: bool):
+        self.buf, self.rows = buf, rows
+        self.nbytes, self.verdicts = nbytes, verdicts
+
+    def host(self) -> np.ndarray:
+        """One device→host copy (it waits for the launch) → [B, 32] uint8
+        digests or [B] bool verdicts. Raises ValueError, with
+        check_ragged's message, when a row's offsets were invalid."""
+        h = self.buf.cpu().numpy()
+        rows = h[:-TAIL_BYTES]
+        if h[-TAIL_BYTES:][:4].view(np.uint32)[0]:
+            raise ValueError(RAGGED_OFFSETS_ERROR.format(self.nbytes))
+        if self.verdicts:
+            return rows[:self.rows].view(bool)
+        return rows.reshape(-1, DIGEST_BYTES)
 
 
-def _check_cuda(data: torch.Tensor, name: str) -> None:
+def to_host(result: Union[Sha3Launch, torch.Tensor]) -> np.ndarray:
+    """The rows of a sha3_ragged / sha3_ragged_eq result as a numpy array:
+    a launch's checked copy (Sha3Launch.host), or the plain version's
+    tensor, whose offsets check_ragged checked before it hashed."""
+    if isinstance(result, Sha3Launch):
+        return result.host()
+    return result.numpy()
+
+
+def lanes_for(rows: int) -> int:
+    """Lanes per message for a launch of `rows` rows: 5 up to
+    GROUP_MAX_ROWS, then 1."""
+    return 5 if rows <= GROUP_MAX_ROWS else 1
+
+
+def _launch(data: torch.Tensor, offsets: torch.Tensor, refs, lanes,
+            name: str) -> Sha3Launch:
+    """Check what the kernel needs without reading anything back (the
+    ragged layout, CUDA tensors, data on a 16-byte boundary, refs on an
+    8-byte one, lanes 1 or 5 or None for lanes_for(B)), then launch
+    csrc/sha3.cu's sha3_ragged (refs None) or sha3_ragged_eq on the
+    current stream. → its Sha3Launch; rows 0 launch nothing."""
+    B = check_ragged_layout(data, offsets)
     if data.device.type != "cuda":
         raise ValueError("{} needs CUDA tensors, got {}".format(name,
                                                                 data.device))
-
-
-def sha3_ragged_cuda(data: torch.Tensor,
-                     offsets: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel (csrc/sha3.cu, sha3_ragged) on CUDA tensors, same
-    arguments and result as sha3_ragged_plain. Launches exactly B rows on
-    the current stream without synchronising; counts each launch in
-    `sha3_ragged_cuda.launches` and its rows in `.rows`."""
-    B = check_ragged(data, offsets)
-    _check_cuda(data, "sha3_ragged_cuda")
-    out = torch.empty((B, DIGEST_BYTES), dtype=torch.uint8,
-                      device=data.device)
+    if data.data_ptr() % 16:
+        raise ValueError("data must start on a 16-byte boundary")
+    lanes = lanes_for(B) if lanes is None else lanes
+    if lanes not in (1, 5):
+        raise ValueError("lanes must be 1 or 5, got {}".format(lanes))
+    verdicts = refs is not None
+    if verdicts:
+        _check_refs(refs, data, B)
+        if refs.data_ptr() % 8:
+            raise ValueError("refs must start on an 8-byte boundary")
+    rows_bytes = -(-B // 16) * 16 if verdicts else B * DIGEST_BYTES
+    nbytes = int(data.shape[0])
+    dev = data.device
     if B == 0:
-        return out
-    _launch("sha3_ragged", (data.data_ptr(), offsets.data_ptr(),
-                            out.data_ptr(), B), data.device)
-    sha3_ragged_cuda.launches += 1
-    sha3_ragged_cuda.rows.append(B)
+        return Sha3Launch(torch.zeros((TAIL_BYTES,), dtype=torch.uint8,
+                                      device=dev), 0, nbytes, verdicts)
+    buf = torch.empty((rows_bytes + TAIL_BYTES,), dtype=torch.uint8,
+                      device=dev)
+    entry = "sha3_ragged_eq" if verdicts else "sha3_ragged"
+    fn = getattr(cuda_lib.load("sha3"), entry)
+    ptrs = [offsets.data_ptr()] + ([refs.data_ptr()] if verdicts else [])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64] \
+        + [ctypes.c_void_p] * (len(ptrs) + 1) \
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(data.data_ptr(), nbytes, *ptrs, buf.data_ptr(), B, lanes,
+                 stream)
+    if err != 0:
+        raise RuntimeError("{} launch failed: CUDA error {}".format(entry,
+                                                                    err))
+    return Sha3Launch(buf, B, nbytes, verdicts)
+
+
+def sha3_ragged_cuda(data: torch.Tensor, offsets: torch.Tensor,
+                     lanes: int = None) -> Sha3Launch:
+    """The CUDA kernel (csrc/sha3.cu, sha3_ragged) on CUDA tensors, the
+    function of sha3_ragged_plain; `lanes` per message, 1 or 5 (None: by
+    B). Launches exactly B rows on the current stream and returns without
+    synchronising; the offsets are checked by the kernel and reported by
+    the result's host(). Counts each launch in `sha3_ragged_cuda.launches`
+    and its rows in `.rows`."""
+    out = _launch(data, offsets, None, lanes, "sha3_ragged_cuda")
+    if out.rows:
+        sha3_ragged_cuda.launches += 1
+        sha3_ragged_cuda.rows.append(out.rows)
     return out
 
 
@@ -209,34 +288,27 @@ sha3_ragged_cuda.rows = []
 
 
 def sha3_ragged_eq_cuda(data: torch.Tensor, offsets: torch.Tensor,
-                        refs: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel's fused entry (csrc/sha3.cu, sha3_ragged_eq), same
-    arguments and result as sha3_ragged_eq_plain; refs must start on an
-    8-byte boundary. Counts each launch in `.launches`, its rows in
-    `.rows`."""
-    B = check_ragged(data, offsets)
-    _check_cuda(data, "sha3_ragged_eq_cuda")
-    _check_refs(refs, data, B)
-    if refs.data_ptr() % 8:
-        raise ValueError("refs must start on an 8-byte boundary")
-    ok = torch.empty((B,), dtype=torch.bool, device=data.device)
-    if B == 0:
-        return ok
-    _launch("sha3_ragged_eq", (data.data_ptr(), offsets.data_ptr(),
-                               refs.data_ptr(), ok.data_ptr(), B),
-            data.device)
-    sha3_ragged_eq_cuda.launches += 1
-    sha3_ragged_eq_cuda.rows.append(B)
-    return ok
+                        refs: torch.Tensor, lanes: int = None) -> Sha3Launch:
+    """The CUDA kernel's fused entry (csrc/sha3.cu, sha3_ragged_eq), the
+    function of sha3_ragged_eq_plain; refs must start on an 8-byte
+    boundary. As sha3_ragged_cuda, it reads nothing back. Counts each
+    launch in `.launches`, its rows in `.rows`."""
+    out = _launch(data, offsets, refs, lanes, "sha3_ragged_eq_cuda")
+    if out.rows:
+        sha3_ragged_eq_cuda.launches += 1
+        sha3_ragged_eq_cuda.rows.append(out.rows)
+    return out
 
 
 sha3_ragged_eq_cuda.launches = 0
 sha3_ragged_eq_cuda.rows = []
 
 
-def sha3_ragged(data: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """Flat bytes + [B + 1] offsets → [B, 32] uint8 digests. CUDA tensors
-    go through the kernel, CPU tensors through the plain version."""
+def sha3_ragged(data: torch.Tensor, offsets: torch.Tensor
+                ) -> Union[Sha3Launch, torch.Tensor]:
+    """Flat bytes + [B + 1] offsets → [B, 32] uint8 digests: a Sha3Launch
+    for CUDA tensors (the kernel), a tensor for CPU tensors (the plain
+    version). `to_host` takes either."""
     if data.device.type == "cuda":
         return sha3_ragged_cuda(data, offsets)
     if data.device.type == "cpu":
@@ -245,9 +317,10 @@ def sha3_ragged(data: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
 
 
 def sha3_ragged_eq(data: torch.Tensor, offsets: torch.Tensor,
-                   refs: torch.Tensor) -> torch.Tensor:
-    """Flat bytes + [B + 1] offsets + [B, 32] refs → [B] bool. CUDA tensors
-    go through the kernel, CPU tensors through the plain version."""
+                   refs: torch.Tensor) -> Union[Sha3Launch, torch.Tensor]:
+    """Flat bytes + [B + 1] offsets + [B, 32] refs → [B] bool, as
+    sha3_ragged: the kernel's launch on CUDA tensors, the plain version's
+    tensor on CPU tensors."""
     if data.device.type == "cuda":
         return sha3_ragged_eq_cuda(data, offsets, refs)
     if data.device.type == "cpu":
@@ -263,11 +336,11 @@ def sha3_256_many(msgs: Sequence[bytes], device=None) -> List[bytes]:
     if not msgs:
         return []
     dev = resolve_device(device)
-    return digests_to_bytes(sha3_ragged(*upload_ragged(msgs, dev)).cpu())
+    return digests_to_bytes(to_host(sha3_ragged(*upload_ragged(msgs, dev))))
 
 
-def digests_to_bytes(dig: torch.Tensor) -> List[bytes]:
+def digests_to_bytes(dig: np.ndarray) -> List[bytes]:
     """[B, 32] uint8 digests → list of 32-byte strings."""
-    flat = dig.numpy().tobytes()
+    flat = dig.tobytes()
     return [flat[i:i + DIGEST_BYTES] for i in range(0, len(flat),
                                                      DIGEST_BYTES)]

@@ -15,6 +15,13 @@ csrc/sha3.cu):
    [B] bool verdict crosses back (read/proof path — a corrupted store
    can never serve a value or proof that does not hash to its ref).
 
+A dispatch uploads the level and launches; it reads nothing back, so
+the host goes on while the card hashes (as the JAX seam's dispatch
+does). The collect makes the one device→host copy of the launch's
+buffer, which also carries the kernel's error word: a level whose
+offsets were invalid raises ValueError there, before any of its rows is
+used.
+
 The JAX package padded each level's batch to a power of two for XLA's
 compile cache and sharded large levels over a device mesh; a launch here
 takes exactly the level's rows on one card. The routing gates stay the
@@ -30,7 +37,7 @@ import numpy as np
 from plenum_tpu_torch.ops import resolve_device
 from plenum_tpu_torch.ops.sha256 import upload_ragged
 from plenum_tpu_torch.ops.sha3 import (
-    digests_to_bytes, sha3_ragged, sha3_ragged_eq)
+    digests_to_bytes, sha3_ragged, sha3_ragged_eq, to_host)
 
 
 def dispatch_node_hash_batch(blobs: Sequence[bytes], device=None,
@@ -38,8 +45,8 @@ def dispatch_node_hash_batch(blobs: Sequence[bytes], device=None,
     """Start the SHA3-256 of one level of node blobs on `device` (None
     means CUDA), copied through the pinned buffer `staging` (an
     ops.sha256.PinnedStaging, or a fresh one); pair with
-    collect_node_hash_batch (the launch is async — the caller can build
-    host work while the card hashes)."""
+    collect_node_hash_batch. Returns once the launch is queued, without
+    waiting for the card: the caller builds host work meanwhile."""
     if not blobs:
         return None
     return sha3_ragged(*upload_ragged(blobs, resolve_device(device),
@@ -47,10 +54,11 @@ def dispatch_node_hash_batch(blobs: Sequence[bytes], device=None,
 
 
 def collect_node_hash_batch(handle) -> np.ndarray:
-    """Await a dispatch_node_hash_batch handle → [B, 32] u8 digests."""
+    """Await a dispatch_node_hash_batch handle → [B, 32] u8 digests;
+    raises ValueError if the kernel found invalid offsets."""
     if handle is None:
         return np.zeros((0, 32), dtype=np.uint8)
-    return handle.cpu().numpy()
+    return to_host(handle)
 
 
 def dispatch_node_verify_batch(blobs: Sequence[bytes],
@@ -68,14 +76,15 @@ def dispatch_node_verify_batch(blobs: Sequence[bytes],
 
 
 def collect_node_verify_batch(handle) -> np.ndarray:
-    """Await a dispatch_node_verify_batch handle → [B] bool verdicts."""
+    """Await a dispatch_node_verify_batch handle → [B] bool verdicts;
+    raises ValueError if the kernel found invalid offsets."""
     if handle is None:
         return np.zeros((0,), dtype=bool)
-    return handle.cpu().numpy()
+    return to_host(handle)
 
 
 def hash_nodes(blobs: Sequence[bytes], device=None,
                staging=None) -> List[bytes]:
     """Synchronous convenience: SHA3-256 every blob in one launch."""
-    handle = dispatch_node_hash_batch(blobs, device, staging)
-    return [] if handle is None else digests_to_bytes(handle.cpu())
+    return digests_to_bytes(collect_node_hash_batch(
+        dispatch_node_hash_batch(blobs, device, staging)))
