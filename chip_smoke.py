@@ -15,7 +15,13 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    subset against the RFC 8032 scalar verify; SHA-256's ragged entry
    (raw bytes, padded on the card) and its pre-padded entry on ragged
    messages at B = 1023/1024/1025, and the pre-padded entry on 2^20 node
-   pairs (all against hashlib too);
+   pairs (all against hashlib too); the Merkle level entry
+   (sha256_node_levels) on every level above 1, 2, 3, 511, 512, 513,
+   1,023, 1,024, 1,025, 4,095, 4,097 and 2^18 ± 1 digests (across its
+   CTAs' 512 children and its launches' nine levels) against its plain
+   version and hashlib; SHA-256's ragged and level wrappers called under
+   torch.cuda.set_sync_debug_mode("error"), and invalid offsets raising
+   ValueError at the ragged entry's host copy;
    The SHA3-256 kernel's two entries (digests, and the fused compare
    against refs), each in both layouts (five lanes and one lane per
    message), against their plain version and hashlib at B = 1, 4, 5, 6,
@@ -34,8 +40,15 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    and every reply's audit path checked on the host;
 4. holds each kernel against its plain version again at the ledger
    path's own shapes (the 2,000-signature verify batch, the 2^20 leaves,
-   the first tree level, the staged batches) and times both there (and
-   the verify kernel at 16,384 signatures too);
+   the 20 tree levels above them, the staged batches) and times both
+   there (and the verify kernel at 16,384 signatures too). The 2^20 level
+   build is held against the step it replaced (each level of 256 pairs or
+   more copied to the card, its words built by
+   _node_words_from_digest_pairs, sha256_compress, a copy back; hashlib
+   below), level by level and, as a SHA-256 of all 2^20 - 1 entries,
+   against the recovered ledger's hash store; the two are timed in turns
+   (old, new, new, old; host wall) and once each under torch.profiler
+   (device time by kernel and copy), the new kernel alone per launch;
 5. drives the pool path at the headline's shape (bench.py run_pool over
    make_sim_pool): four Nodes on SimNetwork and MockTimer sharing one
    CoalescingVerifierHub order 4,000 signed NYM writes sent in client
@@ -100,6 +113,11 @@ SHA3_LENGTHS = (0, 135, 136, 137, 271, 272, 530)
 # the throughput shape: 32 x the JAX package's MESH_SHARD_MIN (2,048), the
 # level size from which it treats a level as large
 SHA3_WIDE_ROWS = 65536
+# children below sha256_node_levels: a CTA's 512, a launch's nine levels
+# (2^10 children before a second launch) and 2^k +- 1 around them
+NODE_LEVEL_COUNTS = (1, 2, 3, 511, 512, 513, 1023, 1024, 1025, 4095, 4097,
+                     (1 << 18) - 1, (1 << 18) + 1)
+LEDGER_LEVELS = LEDGER_TXNS.bit_length() - 1
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bandwidth,
 # and 32-bit integer instructions over all 128 lanes of the 132 SMs at
@@ -177,6 +195,35 @@ def u32_max_abs_err(torch, a, b):
     return int(((a.long() & mask) - (b.long() & mask)).abs().max().item())
 
 
+def device_time(torch, fn):
+    """Run fn once under torch.profiler → ({kernel or copy name: (device
+    microseconds, count)}, wall microseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    t0 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, count = busy.get(e.name, (0.0, 0))
+            busy[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    return busy, wall_us
+
+
+def hashlib_levels(digests, levels):
+    """The `levels` RFC 6962 levels above `digests` ([n, 32] uint8) with
+    hashlib, each level's digests joined."""
+    out, cur = [], [bytes(r) for r in digests]
+    for _ in range(levels):
+        cur = [hashlib.sha256(b"\x01" + cur[2 * i] + cur[2 * i + 1]).digest()
+               for i in range(len(cur) // 2)]
+        out.append(b"".join(cur))
+    return out
+
+
 def where_the_time_goes(torch, run_main_path, label):
     """Run a path once more under torch.profiler (device busy time per
     kernel and the device's idle share of the wall time) and once under
@@ -184,18 +231,9 @@ def where_the_time_goes(torch, run_main_path, label):
     import cProfile
     import io
     import pstats
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    t0 = time.perf_counter()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        run_main_path()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    busy = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
+    traced, wall_us = device_time(torch, run_main_path)
+    busy = {name: us for name, (us, _) in traced.items()}
     if busy:
         total = sum(busy.values())
         log("profile {}: device busy {:.3f} ms of {:.3f} ms wall, idle "
@@ -309,6 +347,85 @@ def sha3_phase(torch, dev):
         "{} offsets raise ValueError at the host copy of both entries, and "
         "the card stays usable".format(", ".join(cases)))
     return err, eq_err
+
+
+def node_levels_phase(torch, dev):
+    """sha256_node_levels against its plain version (on the card) and
+    hashlib on every level above NODE_LEVEL_COUNTS random digests (levels
+    1..floor(log2 n), and one for n = 1, which has no parent), through the
+    wrapper and through the array entry (one upload, one copy back). →
+    the largest digest byte difference."""
+    import numpy as np
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops import to_tensor
+    rng = np.random.RandomState(SEED + 5)
+    err = 0
+    for n in NODE_LEVEL_COUNTS:
+        digests = rng.randint(0, 256, size=(n, 32), dtype=np.uint8)
+        levels = max(n.bit_length() - 1, 1)
+        d = to_tensor(digests, dev)
+        dk = sha.sha256_node_levels_cuda(d, levels)
+        dp = sha.sha256_node_levels_plain(d, levels)
+        if dk.numel():
+            err = max(err, int((dk.int() - dp.int()).abs().max().item()))
+        want = hashlib_levels(digests, levels)
+        got = sha.sha256_node_levels_array(digests, levels, dev)
+        check(dk.cpu().numpy().tobytes() == b"".join(want)
+              and [g.tobytes() for g in got] == want,
+              "sha256_node_levels equals hashlib at {} children".format(n))
+    check(err == 0, "sha256_node_levels equals the plain version")
+    log("sha256_node_levels: kernel == plain == hashlib on every level "
+        "above {} children".format(NODE_LEVEL_COUNTS))
+    return err
+
+
+def sha256_sync_phase(torch, dev):
+    """Neither sha256_ragged_cuda nor sha256_node_levels_cuda
+    synchronises (set_sync_debug_mode "error"); offsets that are
+    negative, decreasing or past the data raise ValueError at the ragged
+    entry's host copy, after which a good launch still equals hashlib."""
+    import numpy as np
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops import to_tensor
+    rng = np.random.RandomState(SEED + 6)
+    msgs = [rng.randint(0, 256, size=int(rng.randint(300)),
+                        dtype=np.uint8).tobytes() for _ in range(1025)]
+    want = [hashlib.sha256(b"\x00" + m).digest() for m in msgs]
+    digests = rng.randint(0, 256, size=(1025, 32), dtype=np.uint8)
+    data, offsets = sha.upload_ragged(msgs, dev)
+    d = to_tensor(digests, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rag = sha.sha256_ragged_cuda(data, offsets, 0x00)
+        lv = sha.sha256_node_levels_cuda(d, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(sha.digests_to_bytes(sha.to_host(rag)) == want
+          and lv.cpu().numpy().tobytes() == b"".join(
+              hashlib_levels(digests, 10)),
+          "the launches made under the sync check are right")
+    n = len(msgs)
+    cases = {"negative": [-1] + [0] * n,
+             "decreasing": [0] * (n - 1) + [data.shape[0], 0],
+             "past nbytes": [0] * n + [data.shape[0] + 1]}
+    for what, offs in cases.items():
+        bad = to_tensor(np.asarray(offs, dtype=np.int64), dev)
+        try:
+            sha.to_host(sha.sha256_ragged_cuda(data, bad, 0x00))
+        except ValueError as e:
+            check("non-decreasing" in str(e), "the offsets' message")
+        else:
+            raise RuntimeError("check failed: {} offsets raise at the host "
+                               "copy".format(what))
+    torch.cuda.synchronize()
+    check(sha.digests_to_bytes(sha.to_host(sha.sha256_ragged_cuda(
+        data, offsets, 0x00))) == want,
+        "a good launch after the bad offsets equals hashlib")
+    log("sha256: neither the ragged nor the level wrapper synchronises "
+        "(sync debug mode \"error\"); {} offsets raise ValueError at the "
+        "ragged entry's host copy, and the card stays usable".format(
+            ", ".join(cases)))
 
 
 def kernel_ms(torch, fn, reps=50):
@@ -546,6 +663,7 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
     counters = {"ed25519_verify": ed.verify_cuda,
                 "sha256_compress": sha.sha256_blocks_cuda,
                 "sha256_ragged": sha.sha256_ragged_cuda,
+                "sha256_node_levels": sha.sha256_node_levels_cuda,
                 "sha3_ragged": sha3.sha3_ragged_cuda,
                 "sha3_ragged_eq": sha3.sha3_ragged_eq_cuda}
     for fn in counters.values():
@@ -657,10 +775,11 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
     for data, offsets, prefix in sha_batches:
         dk = sha.sha256_ragged_cuda(data, offsets, prefix)
         rag_err = max(rag_err, u32_max_abs_err(
-            torch, dk, sha.sha256_ragged_plain(data, offsets, prefix)))
+            torch, dk.digests, sha.sha256_ragged_plain(data, offsets,
+                                                       prefix)))
         flat, bounds = data.cpu().numpy().tobytes(), offsets.cpu().tolist()
         pre = b"" if prefix < 0 else bytes([prefix])
-        check(sha.digests_to_bytes(dk.cpu().numpy().view(np.uint32))
+        check(sha.digests_to_bytes(sha.to_host(dk))
               == [hashlib.sha256(pre + flat[a:b]).digest()
                   for a, b in zip(bounds, bounds[1:])],
               "SHA-256 ragged entry equals hashlib on a pool batch")
@@ -723,6 +842,128 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
     ]
     return {"launches": launches, "ed_err": ed_err, "rag_err": rag_err,
             "kernels": kernels}
+
+
+def level_build_phase(torch, dev, leaf_digests, hash_store):
+    """The 20 levels above the main path's 2^20 leaf digests ([2^20, 32]
+    uint8): sha256_node_levels (the launches of node_level_split) against
+    its plain version, against the step it replaced, level by level, and
+    against the recovered ledger's hash store (a SHA-256 of its 2^20 - 1
+    subtree entries); then the kernel alone (all launches, and each), the
+    wrapper (cuda_ms), and the two level builds in turns (old, new, new,
+    old; host wall) and once each under torch.profiler. → the numbers of
+    the kernels line's entry."""
+    from plenum_tpu_torch import carry
+    from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
+    from plenum_tpu_torch.ops import cuda_lib, to_tensor
+    from plenum_tpu_torch.ops import sha256 as sha
+
+    class OldLevelStep:
+        """The level step before sha256_node_levels, from the functions
+        kept: one level's pairs copied to the card from pageable memory,
+        their words built by _node_words_from_digest_pairs, sha256_compress
+        and a pageable copy back. It has no node_levels_array, so
+        TreeHasher.hash_node_levels_array takes the levels one by one
+        (hashlib below its threshold of 256 pairs), as the tree did."""
+
+        def node_hashes_array(self, pairs):
+            words = sha._node_words_from_digest_pairs(to_tensor(pairs, dev))
+            nvalid = torch.full((pairs.shape[0],), 2, dtype=torch.int32,
+                                device=dev)
+            return sha.digests_to_array(sha.to_host(
+                sha.sha256_blocks_cuda(words, nvalid)))
+
+    old_hasher = TreeHasher(batch_backend=OldLevelStep())
+    new_hasher = TreeHasher(batch_backend=sha.TorchSha256Backend(dev))
+
+    def old():
+        return old_hasher.hash_node_levels_array(leaf_digests, LEDGER_LEVELS)
+
+    def new():
+        return new_hasher.hash_node_levels_array(leaf_digests, LEDGER_LEVELS)
+
+    t0 = time.perf_counter()
+    old_levels, new_levels = old(), new()
+    check(len(new_levels) == LEDGER_LEVELS
+          and all(a.tobytes() == b.tobytes()
+                  for a, b in zip(old_levels, new_levels)),
+          "every level of the 2^20 build equals the old level step's")
+    _, nodes = carry.arrays_from_hash_store(hash_store, LEDGER_TXNS)
+    old_sum = hashlib.sha256(b"".join(a.tobytes() for a in old_levels))
+    check(nodes.shape[0] == LEDGER_TXNS - 1
+          and hashlib.sha256(nodes.tobytes()).digest() == old_sum.digest(),
+          "the recovered ledger's subtree entries equal the old level "
+          "step's")
+    d = to_tensor(leaf_digests, dev)
+    ms, dk = cuda_ms(
+        torch, lambda: sha.sha256_node_levels_cuda(d, LEDGER_LEVELS), 10)
+    plain_ms, dp = cuda_ms(
+        torch, lambda: sha.sha256_node_levels_plain(d, LEDGER_LEVELS), 1)
+    err = int((dk.int() - dp.int()).abs().max().item())
+    check(err == 0 and dk.cpu().numpy().tobytes()
+          == b"".join(a.tobytes() for a in new_levels),
+          "sha256_node_levels equals the plain version on the 2^20 build")
+    log("sha256_node_levels: the 2^20 build's {} levels == plain == the old "
+        "level step, level by level; the recovered hash store's {} subtree "
+        "entries == the old step's (SHA-256 {}) ({:.1f} s)".format(
+            LEDGER_LEVELS, nodes.shape[0], old_sum.hexdigest(),
+            time.perf_counter() - t0))
+
+    split = sha.node_level_split(LEDGER_TXNS, LEDGER_LEVELS,
+                                 sha._node_wave(cuda_lib.load("sha256"), dev))
+    alone = kernel_ms(torch,
+                      lambda: sha.sha256_node_levels_cuda(d, LEDGER_LEVELS))
+    # two blocks a node; the children read once, the nodes written once
+    n_all = LEDGER_TXNS - 1
+    b_ms, b_by = bound(2 * n_all * SHA256_OPS_PER_BLOCK,
+                       32 * (LEDGER_TXNS + n_all))
+    log("sha256_node_levels kernel alone: all {} levels ({} nodes, {} "
+        "launches of {} levels) {:.5f} ms, bound {:.5f} ms ({}), {:.2%} of "
+        "it; wrapper (cuda_ms) {:.5f} ms; plain version {:.3f} ms".format(
+            LEDGER_LEVELS, n_all, len(split), split, alone, b_ms, b_by,
+            b_ms / alone, ms, plain_ms))
+    per_launch, src, done = [], d, 0
+    for lv in split:
+        nodes = sum(src.shape[0] >> k for k in range(1, lv + 1))
+        t = kernel_ms(torch,
+                      lambda src=src, lv=lv: sha.sha256_node_levels_cuda(src,
+                                                                         lv))
+        b_t, _ = bound(2 * nodes * SHA256_OPS_PER_BLOCK,
+                       32 * (src.shape[0] + nodes))
+        per_launch.append(t)
+        log("  launch of levels {}-{} ({} children, {} nodes): {:.5f} ms, "
+            "bound {:.6f} ms, {:.2%} of it".format(
+                done + 1, done + lv, src.shape[0], nodes, t, b_t, b_t / t))
+        last = dk[sum(LEDGER_TXNS >> k for k in range(1, done + lv)):]
+        src = last[:LEDGER_TXNS >> (done + lv)]
+        done += lv
+
+    walls = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        fn = old if which == "old" else new
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[which].append(1e3 * (time.perf_counter() - t))
+    log("level build of the 2^20 leaf digests (arrays in, arrays out), "
+        "host wall in turns old, new, new, old: old {} ms, new {} ms".format(
+            " / ".join("{:.3f}".format(w) for w in walls["old"]),
+            " / ".join("{:.3f}".format(w) for w in walls["new"])))
+    for which, fn in (("old", old), ("new", new)):
+        busy, _ = device_time(torch, fn)
+        log("level build {} under torch.profiler: device {:.4f} ms in {} "
+            "kernels and copies".format(
+                which, sum(us for us, _ in busy.values()) / 1e3,
+                sum(c for _, c in busy.values())))
+        for name, (us, count) in sorted(busy.items(),
+                                        key=lambda kv: -kv[1][0])[:8]:
+            log("  device {:.4f} ms  x{}  {}".format(us / 1e3, count,
+                                                      name[:90]))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "err": err, "kernel_ms": alone,
+            "kernel_ms_per_launch": per_launch, "split": split,
+            "build_wall_ms": {k: sorted(v) for k, v in walls.items()}}
 
 
 def main(argv=None) -> int:
@@ -829,9 +1070,10 @@ def main(argv=None) -> int:
                              for a in sha.ragged_arrays(ragged))
             dk = sha.sha256_ragged_cuda(data, offsets, prefix)
             rag_err = max(rag_err, u32_max_abs_err(
-                torch, dk, sha.sha256_ragged_plain(data, offsets, prefix)))
+                torch, dk.digests, sha.sha256_ragged_plain(data, offsets,
+                                                           prefix)))
             pre = b"" if prefix < 0 else bytes([prefix])
-            check(sha.digests_to_bytes(dk.cpu().numpy().view(np.uint32))
+            check(sha.digests_to_bytes(sha.to_host(dk))
                   == [hashlib.sha256(pre + m).digest() for m in ragged],
                   "SHA-256 ragged entry equals hashlib on B={} prefix {}"
                   .format(n, prefix))
@@ -862,6 +1104,8 @@ def main(argv=None) -> int:
         "{} among them, no prefix and both RFC 6962 prefixes); pre-padded "
         "entry == plain == hashlib there and on {} node pairs".format(
             SHA_RAGGED_BATCHES, SHA_BOUNDARY_LENGTHS, NODE_PAIRS))
+    node_err = node_levels_phase(torch, dev)
+    sha256_sync_phase(torch, dev)
     sha3_errs = sha3_phase(torch, dev)
     log("phase 2: {:.1f} s".format(time.perf_counter() - t0))
 
@@ -919,11 +1163,13 @@ def main(argv=None) -> int:
 
     sha.sha256_blocks_cuda.launches = 0
     sha.sha256_ragged_cuda.launches = 0
+    sha.sha256_node_levels_cuda.launches = 0
     ed.verify_cuda.launches = 0
     ledger, recovered_root, hub, nodes, auth, replies, phases = \
         run_main_path()
     launches = {"sha256_compress": sha.sha256_blocks_cuda.launches,
                 "sha256_ragged": sha.sha256_ragged_cuda.launches,
+                "sha256_node_levels": sha.sha256_node_levels_cuda.launches,
                 "ed25519_verify": ed.verify_cuda.launches}
     log("main path launches:", launches, "| host seconds:",
         json.dumps({k: round(v, 3) for k, v in phases.items()}))
@@ -951,8 +1197,16 @@ def main(argv=None) -> int:
             ledger.strToHash(info["rootHash"]))
     check(not written & {reqs[i]["reqId"] for i in bad},
           "no tampered request reached the ledger")
-    check(all(n > 0 for n in launches.values()),
+    check(all(n > 0 for k, n in launches.items() if k != "sha256_compress"),
           "every kernel of the path launched on the main path")
+    split = sha.node_level_split(LEDGER_TXNS, LEDGER_LEVELS,
+                                 sha._node_wave(cuda_lib.load("sha256"), dev))
+    check(launches["sha256_node_levels"] == len(split)
+          <= -(-LEDGER_LEVELS // sha.NODE_LEVELS)
+          and launches["sha256_compress"] == 0,
+          "the 2^20 level build made its {} launches (levels {}), at most "
+          "ceil({} / {}), and the old level step none".format(
+              len(split), split, LEDGER_LEVELS, sha.NODE_LEVELS))
     log("main path checks: 2^20 root == hashlib, {} audit paths verified, "
         "{} tampered requests rejected ({:.1f} s)".format(
             len(replies), len(bad), time.perf_counter() - t0))
@@ -988,8 +1242,8 @@ def main(argv=None) -> int:
         torch, lambda: sha.sha256_ragged_cuda(*leaf_in, 0x00), 10)
     rag_plain_ms, dp = cuda_ms(
         torch, lambda: sha.sha256_ragged_plain(*leaf_in, 0x00), 1)
-    rag_err = max(rag_err, u32_max_abs_err(torch, dk, dp))
-    leaf_digests = sha.digests_to_array(dk.cpu().numpy().view(np.uint32))
+    rag_err = max(rag_err, u32_max_abs_err(torch, dk.digests, dp))
+    leaf_digests = sha.digests_to_array(sha.to_host(dk))
     check(leaf_digests.tobytes() == b"".join(
         hashlib.sha256(b"\x00" + b).digest() for b in blobs),
         "SHA-256 ragged entry equals hashlib on the 2^20 leaves")
@@ -1012,6 +1266,8 @@ def main(argv=None) -> int:
     sha_bound_ms, sha_bound_by = bound(
         LEDGER_TXNS * SHA256_OPS_PER_BLOCK,
         LEDGER_TXNS * 64 + (4 + 32) * (LEDGER_TXNS // 2))
+    levels = level_build_phase(torch, dev, leaf_digests,
+                               ledger.tree.hash_store)
     staged = []
     for lo in range(0, len(replies), Config.Max3PCBatchSize):
         hi = min(lo + Config.Max3PCBatchSize, len(replies))
@@ -1021,8 +1277,8 @@ def main(argv=None) -> int:
         data, offsets = (to_tensor(a, dev) for a in sha.ragged_arrays(msgs))
         dk = sha.sha256_ragged_cuda(data, offsets, 0x00)
         rag_err = max(rag_err, u32_max_abs_err(
-            torch, dk, sha.sha256_ragged_plain(data, offsets, 0x00)))
-        check(sha.digests_to_bytes(dk.cpu().numpy().view(np.uint32))
+            torch, dk.digests, sha.sha256_ragged_plain(data, offsets, 0x00)))
+        check(sha.digests_to_bytes(sha.to_host(dk))
               == [hashlib.sha256(b"\x00" + m).digest() for m in msgs],
               "SHA-256 ragged entry equals hashlib on a staged batch")
     check(rag_err == 0, "SHA-256 ragged entry equals the plain version at "
@@ -1072,6 +1328,16 @@ def main(argv=None) -> int:
          "launches": launches["sha256_ragged"], "max_abs_err": rag_err,
          "ms": rag_ms, "plain_ms": rag_plain_ms, "bound_ms": rag_bound_ms,
          "bound_by": rag_bound_by, "library_ms": None},
+        {"name": "sha256_node_levels", "route": "cuda",
+         "source": "plenum_tpu_torch/csrc/sha256.cu",
+         "replaces": "plenum_tpu/ops/sha256_pallas.py:74",
+         "launches": launches["sha256_node_levels"],
+         "max_abs_err": max(node_err, levels["err"]), "ms": levels["ms"],
+         "plain_ms": levels["plain_ms"], "bound_ms": levels["bound_ms"],
+         "bound_by": levels["bound_by"], "library_ms": None,
+         "kernel_ms": levels["kernel_ms"],
+         "kernel_ms_per_launch": levels["kernel_ms_per_launch"],
+         "build_wall_ms": levels["build_wall_ms"]},
     ] + pool_result["kernels"]
     log("total: {:.1f} s".format(time.perf_counter() - t_all))
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 // Host C++ stand-ins for the CUDA built-ins the kernels in this directory
 // use, so that their device code compiles with g++ (-std=c++20) and runs
 // on the CPU: one std::thread per CUDA thread, the blocks of a launch one
-// after another (so a __shared__ array is a static one), and every warp
+// after another (so a __shared__ array is a static one), every warp
 // collective (__shfl_sync, __ballot_sync, __syncwarp) a barrier among the
-// lanes of its mask. Slow, but it runs the kernels' own arithmetic,
+// lanes of its mask, and __syncthreads a barrier among the block's
+// threads (all of which must reach it, as the kernels here see to). Slow, but it runs the kernels' own arithmetic,
 // indexing and lane-group exchanges; build with -fsanitize=address to
 // catch a load outside a buffer.
 #pragma once
@@ -31,6 +32,9 @@ using std::min;
 
 struct alignas(16) uint4 {
   uint32_t x, y, z, w;
+};
+struct alignas(8) uint2 {
+  uint32_t x, y;
 };
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
   return uint4{x, y, z, w};
@@ -79,6 +83,28 @@ inline const uint64_t* host_exchange(uint32_t mask, uint64_t bits) {
 
 inline void __syncwarp(uint32_t mask = 0xffffffffu) { host_exchange(mask, 0); }
 
+// The threads of one block.
+struct HostBlock {
+  std::mutex mu;
+  std::condition_variable cv;
+  int arrived = 0;
+  uint64_t gen = 0;
+};
+inline thread_local HostBlock* host_block = nullptr;
+
+inline void __syncthreads() {
+  HostBlock& b = *host_block;
+  std::unique_lock<std::mutex> lk(b.mu);
+  const uint64_t gen = b.gen;
+  if (++b.arrived == blockDim.x) {
+    b.arrived = 0;
+    ++b.gen;
+    b.cv.notify_all();
+  } else {
+    b.cv.wait(lk, [&] { return b.gen != gen; });
+  }
+}
+
 template <class T>
 T __shfl_sync(uint32_t mask, T v, int src, int = 32) {
   static_assert(sizeof(T) <= 8, "a shuffle moves at most 64 bits");
@@ -111,6 +137,14 @@ inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
   s &= 31;
   return s ? (lo >> s) | (hi << (32 - s)) : lo;
 }
+// Byte k of the result is byte (s >> 4k) & 7 of y:x (selectors 0..7).
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  uint32_t r = 0;
+  for (int k = 0; k < 4; ++k)
+    r |= (uint32_t)(v >> (8 * ((s >> (4 * k)) & 7)) & 0xff) << (8 * k);
+  return r;
+}
 template <class T>
 T __ldg(const T* p) {
   return *p;
@@ -128,12 +162,14 @@ void host_launch(int grid, int block, K kernel, A... args) {
     std::vector<std::unique_ptr<HostWarp>> warps;
     for (int i = 0; i < (block + 31) / 32; ++i)
       warps.push_back(std::make_unique<HostWarp>());
+    HostBlock barrier;
     std::vector<std::thread> threads;
     for (int t = 0; t < block; ++t)
       threads.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = b;
         host_warp = warps[t / 32].get();
+        host_block = &barrier;
         kernel(args...);
       });
     for (auto& th : threads) th.join();

@@ -1,15 +1,16 @@
-// SHA-256 on the card, one CUDA thread per message, with two entry points
-// that share the compression (sha256_compress_block):
+// SHA-256 on the card, with three entry points that share the compression
+// (sha256_compress_block):
 //
-// sha256_compress: pre-padded messages. Replaces the Pallas kernel
-// plenum_tpu/ops/sha256_pallas.py::_sha256_kernel (built by _build_sha256,
-// entered through sha256_blocks). Same function: words [B, nblocks, 16]
-// big-endian uint32 (from pad_messages, or built on the card for Merkle
-// node pairs) plus the per-message block count nvalid [B] give the digest
-// state [B, 8] uint32. The TPU kernel ran every row through all `nblocks`
-// blocks and masked the state of rows whose message had ended; here each
-// thread loops over its own min(nvalid[i], nblocks) blocks, which gives the
-// same digest.
+// sha256_compress: pre-padded messages, one thread per message. Replaces
+// the Pallas kernel plenum_tpu/ops/sha256_pallas.py::_sha256_kernel (built
+// by _build_sha256, entered through sha256_blocks). Same function: words
+// [B, nblocks, 16] big-endian uint32 (from pad_messages) plus the
+// per-message block count nvalid [B] give the digest state [B, 8] uint32.
+// The TPU kernel ran every row through all `nblocks` blocks and masked the
+// state of rows whose message had ended; here each thread loops over its
+// own min(nvalid[i], nblocks) blocks, which gives the same digest. Since
+// the Merkle levels moved to sha256_node_levels nothing on the port's
+// paths calls it; it stays as the literal counterpart of the TPU kernel.
 //
 // sha256_ragged: raw messages, padded here. The input is the flat byte
 // buffer of all messages, their offsets [B + 1] and an optional one-byte
@@ -22,7 +23,14 @@
 // __byte_perm to big-endian), 0x80, zeros and the 64-bit bit length, and
 // hashes exactly ceil((prefix + len + 9) / 64) blocks. The bytes reach
 // the threads through shared memory, staged by the warp with coalesced
-// 16-byte loads (see sha256_ragged_kernel).
+// 16-byte loads (see sha256_ragged_kernel). Offsets are checked here, not
+// by a read-back before the launch: a row whose offsets are negative,
+// decreasing or past nbytes sets the error word in the output's 16-byte
+// tail and is hashed as empty; no load leaves data[0:nbytes].
+//
+// sha256_node_levels: the RFC 6962 tree levels above a level of 32-byte
+// digests, up to NODE_LEVELS levels a launch (see
+// sha256_node_levels_kernel).
 //
 // Bound on this card: operations. A compression is ~1,400 32-bit integer
 // instructions (64 rounds of Sigma/Ch/Maj/adds plus 48 schedule words) for
@@ -124,7 +132,7 @@ __device__ __forceinline__ uint4 load16(const uint8_t* data, int64_t a,
 }
 
 // Thread i hashes prefix || data[offsets[i]:offsets[i + 1]] (no prefix when
-// prefix < 0). Byte p of its padded message is data[origin + p] for p in
+// prefix < 0); invalid offsets set *err and hash the row as empty. Byte p of its padded message is data[origin + p] for p in
 // [plen, total). Block by block, the warp first stages the next 80 aligned
 // bytes of each of its 32 messages in shared memory, five lanes to a
 // message with one 16-byte load each, six messages per load instruction:
@@ -134,14 +142,19 @@ __device__ __forceinline__ uint4 load16(const uint8_t* data, int64_t a,
 __global__ void __launch_bounds__(RAGGED_THREADS)
 sha256_ragged_kernel(const uint8_t* __restrict__ data, int64_t nbytes,
                      const int64_t* __restrict__ offsets, int prefix,
-                     uint4* __restrict__ out, int B) {
+                     uint4* __restrict__ out, uint32_t* __restrict__ err,
+                     int B) {
   __shared__ uint4 stage[RAGGED_THREADS][STAGE_VECS];
   const int lane = threadIdx.x & 31;
   const int warp0 = threadIdx.x - lane;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < B;      // lanes past B take part in the staging
-  const int64_t start = live ? offsets[i] : 0;
-  const int64_t end = live ? offsets[i + 1] : 0;
+  int64_t start = live ? offsets[i] : 0;
+  int64_t end = live ? offsets[i + 1] : 0;
+  if (start < 0 || end < start || end > nbytes) {
+    atomicOr(err, 1u);            // reported by the host's copy of the tail
+    start = end = 0;
+  }
   const int64_t plen = prefix >= 0 ? 1 : 0;
   const int64_t total = plen + end - start;    // message bytes hashed
   const int nb = live ? (int)((total + 9 + 63) / 64) : 0;
@@ -205,6 +218,146 @@ sha256_ragged_kernel(const uint8_t* __restrict__ data, int64_t nbytes,
   }
 }
 
+#define NODE_THREADS 256
+#define NODE_LEVELS 9    // levels a launch climbs: a CTA's 512 children → 1
+
+__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
+  return __byte_perm(x, 0, 0x0123);
+}
+
+// The big-endian words of the 32-byte digest at `p` (16-byte aligned).
+__device__ __forceinline__ void load_digest(const uint8_t* p, uint32_t d[8]) {
+  const uint4 a = __ldg((const uint4*)p), b = __ldg((const uint4*)p + 1);
+  d[0] = bswap32(a.x); d[1] = bswap32(a.y); d[2] = bswap32(a.z);
+  d[3] = bswap32(a.w); d[4] = bswap32(b.x); d[5] = bswap32(b.y);
+  d[6] = bswap32(b.z); d[7] = bswap32(b.w);
+}
+
+// The digest state `st` stored as its 32 big-endian bytes at `p`.
+__device__ __forceinline__ void store_digest(uint8_t* p, const uint32_t st[8]) {
+  ((uint4*)p)[0] = make_uint4(bswap32(st[0]), bswap32(st[1]), bswap32(st[2]),
+                              bswap32(st[3]));
+  ((uint4*)p)[1] = make_uint4(bswap32(st[4]), bswap32(st[5]), bswap32(st[6]),
+                              bswap32(st[7]));
+}
+
+// st = H(0x01 || l || r) for the big-endian digest words l and r. Block 1
+// is the prefix byte and the first 63 message bytes, each word shifted by
+// one byte (as plenum_tpu/ops/merkle.py::_node_blocks forms it); block 2
+// is r's last byte, 0x80, zeros and the bit length 520, written as
+// literals so that nvcc folds the zero words out of the rounds and the
+// schedule.
+__device__ __forceinline__ void node_block1(const uint32_t l[8],
+                                            const uint32_t r[8],
+                                            uint32_t w[16]) {
+  w[0] = (0x01u << 24) | (l[0] >> 8);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) w[k] = __funnelshift_r(l[k], l[k - 1], 8);
+  w[8] = __funnelshift_r(r[0], l[7], 8);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) w[8 + k] = __funnelshift_r(r[k], r[k - 1], 8);
+}
+
+__device__ __forceinline__ void sha256_node(const uint32_t l[8],
+                                            const uint32_t r[8],
+                                            uint32_t st[8]) {
+  st[0] = 0x6a09e667; st[1] = 0xbb67ae85; st[2] = 0x3c6ef372;
+  st[3] = 0xa54ff53a; st[4] = 0x510e527f; st[5] = 0x9b05688c;
+  st[6] = 0x1f83d9ab; st[7] = 0x5be0cd19;
+  uint32_t w[16];
+  node_block1(l, r, w);
+  sha256_compress_block(st, w);
+  uint32_t tail[16] = {(r[7] << 24) | 0x00800000u, 0, 0, 0, 0, 0, 0, 0,
+                       0, 0, 0, 0, 0, 0, 0, 65 * 8};
+  sha256_compress_block(st, tail);
+}
+
+// Levels 1..levels (levels <= NODE_LEVELS) above the n digests at `in`
+// ([n, 32] bytes, 16-byte aligned): parent i of a level of m nodes is
+// H(0x01 || child 2i || child 2i + 1) for i < m / 2 (an odd last child has
+// no parent), so level k holds n >> k nodes. `out` receives the levels one
+// after another as 32-byte big-endian digests.
+//
+// Replaces the Merkle level build of the JAX package: the Pallas kernel
+// plenum_tpu/ops/sha256_pallas.py::_sha256_kernel at nblocks = 2, fed by
+// plenum_tpu/ops/merkle.py::_node_blocks / _hash_pairs one level at a
+// time inside _build_levels_from_digest_bytes. The port's first version
+// built the two blocks of every pair as int64 tensors on the card (~2 GB
+// of passes at the 2^19-pair level, about ten times the compression they
+// fed) and launched sha256_compress once per level with a copy in and out
+// each time.
+//
+// Design. A CTA of 256 threads owns 512 consecutive children, so its
+// subtree depends on no other CTA. Thread t reads children 2t and 2t + 1
+// (64 bytes, four 16-byte loads; neighbouring threads read neighbouring
+// spans), forms both blocks in registers and writes parent t to the
+// global output and to shared memory. Then 128 threads hash the next
+// level from shared memory, 64 the one after, and so on up to nine
+// levels: the parents never leave the SM between levels. Shared memory
+// holds the words transposed, sh[word][parent], in two buffers used by
+// turns: a thread reads word j of its two children as one 8-byte load
+// (children 2t and 2t + 1 sit side by side), which a half-warp serves
+// without a bank conflict, and it writes its parent word by word at
+// consecutive addresses. Below 32 parents a level is one warp, which
+// needs only __syncwarp; the other warps return.
+//
+// Bound: operations. A node is two compressions (2 x 1,384 instructions in
+// the fewest Hopper instructions) for 64 bytes read and 32 written. The
+// upper levels of a CTA run on ever fewer threads, and a level's latency
+// (two dependent compressions) is then exposed. The CTAs of one wave
+// reach those levels together, so a launch of many waves would pay that
+// tail once a wave: the wrapper (ops/sha256.py, node_level_split) climbs
+// only two levels a launch while the grid spans more than one wave of
+// resident CTAs, and up to nine once it fits in one. For 2^20 leaves that
+// is levels 1-2, 3-11 and 12-20.
+__global__ void __launch_bounds__(NODE_THREADS)
+sha256_node_levels_kernel(const uint8_t* __restrict__ in, int64_t n,
+                          uint8_t* __restrict__ out, int levels) {
+  __shared__ uint32_t sh[2][8][NODE_THREADS];
+  const int t = threadIdx.x;
+  uint32_t l[8], r[8], st[8];
+  int64_t count = n >> 1;                 // nodes of the level being hashed
+  int64_t p = (int64_t)blockIdx.x * NODE_THREADS + t;
+  if (p < count) {
+    load_digest(in + 64 * p, l);
+    load_digest(in + 64 * p + 32, r);
+    sha256_node(l, r, st);
+    store_digest(out + 32 * p, st);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sh[0][j][t] = st[j];
+  }
+  out += 32 * count;
+  for (int k = 2; k <= levels; ++k) {
+    const int width = NODE_THREADS >> (k - 1);   // this CTA's parents
+    if (2 * width > 32)
+      __syncthreads();            // level k - 1 was written by several warps
+    else
+      __syncwarp();
+    if (width <= 32 && t >= 32) return;   // warp-uniform
+    const int rd = k & 1;                 // level k - 1 sits in sh[rd]
+    count >>= 1;
+    p = (int64_t)blockIdx.x * width + t;
+    if (t < width && p < count) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint2 v = *(const uint2*)&sh[rd][j][2 * t];
+        l[j] = v.x;
+        r[j] = v.y;
+      }
+      sha256_node(l, r, st);
+      store_digest(out + 32 * p, st);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sh[rd ^ 1][j][t] = st[j];
+    }
+    out += 32 * count;
+  }
+}
+
+// CTAs of a sha256_node_levels launch over n children.
+inline int node_levels_grid(int64_t n) {
+  return (int)(((n >> 1) + NODE_THREADS - 1) / NODE_THREADS);
+}
+
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(256)
 sha256_compress_kernel(const uint4* __restrict__ words,
@@ -230,18 +383,51 @@ extern "C" int sha256_compress(const void* words, const void* nvalid,
   return (int)cudaGetLastError();
 }
 
-// data: [nbytes] uint8, 16-byte aligned; offsets: [B + 1] int64, 0 <=
-// offsets[i] <= offsets[i + 1] <= nbytes (the wrapper checks); prefix:
-// -1 or a byte; out: [B, 8] uint32. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// data: [nbytes] uint8, 16-byte aligned; offsets: [B + 1] int64; prefix:
+// -1 or a byte; out: B * 32 digest-state bytes ([B, 8] uint32), then a
+// 16-byte tail whose first uint32 is the error word (zeroed here, then 1
+// if a row's offsets are negative, decreasing or past nbytes). Launches on
+// `stream` without synchronising and returns the CUDA error of the launch
+// (0 on success).
 extern "C" int sha256_ragged(const void* data, int64_t nbytes,
                              const void* offsets, int prefix, void* out,
                              int B, void* stream) {
+  uint32_t* err = (uint32_t*)((uint8_t*)out + 32 * (size_t)(B > 0 ? B : 0));
+  cudaError_t e = cudaMemsetAsync(err, 0, 16, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;
   int blocks = (B + RAGGED_THREADS - 1) / RAGGED_THREADS;
   sha256_ragged_kernel<<<blocks, RAGGED_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)data, nbytes, (const int64_t*)offsets, prefix,
-      (uint4*)out, B);
+      (uint4*)out, err, B);
+  return (int)cudaGetLastError();
+}
+
+// *ctas = the CTAs of sha256_node_levels_kernel that the current device
+// holds at once (one wave). Returns the CUDA error (0 on success).
+extern "C" int sha256_node_levels_wave(int* ctas) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sha256_node_levels_kernel, NODE_THREADS, 0);
+  *ctas = sms * per_sm;
+  return (int)e;
+}
+
+// in: [n, 32] uint8 digests, 16-byte aligned; out: the n >> 1, n >> 2, ...
+// nodes of levels 1..levels (1 <= levels <= NODE_LEVELS), 32 bytes each,
+// one level after another. One launch on `stream`, without synchronising;
+// returns its CUDA error (0 on success).
+extern "C" int sha256_node_levels(const void* in, int64_t n, void* out,
+                                  int levels, void* stream) {
+  if (levels < 1 || levels > NODE_LEVELS) return (int)cudaErrorInvalidValue;
+  if (n < 2) return 0;
+  sha256_node_levels_kernel<<<node_levels_grid(n), NODE_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      (const uint8_t*)in, n, (uint8_t*)out, levels);
   return (int)cudaGetLastError();
 }
 #endif

@@ -45,20 +45,27 @@ def sass_counts(sass: str) -> dict:
     return counts
 
 
-def main() -> int:
+def source_counts(name: str) -> dict:
+    """Build csrc/<name>.cu for sm_90a with the kernels' nvcc flags into
+    plenum_tpu_torch/_build/ as a cubin, disassemble it with cuobjdump
+    -sass → sass_counts of it."""
     nvcc = cuda_lib._nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    cubin = os.path.join(cuda_lib.BUILD_DIR, "fe_mul_forms.cubin")
+    cubin = os.path.join(cuda_lib.BUILD_DIR, name + ".cubin")
     flags = [f for f in cuda_lib.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
     subprocess.run([nvcc] + flags + ["-cubin", "-o", cubin,
                                      os.path.join(cuda_lib.CSRC,
-                                                  "fe_mul_forms.cu")],
+                                                  name + ".cu")],
                    check=True)
     sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                           capture_output=True, text=True).stdout
-    counts = sass_counts(sass)
+    return sass_counts(sass)
+
+
+def main() -> int:
+    counts = source_counts("fe_mul_forms")
     for name in KERNELS:
         print(name, counts[name])
     print(json.dumps({"fe_mul_sass": {

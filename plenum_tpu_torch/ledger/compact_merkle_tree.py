@@ -105,10 +105,10 @@ class CompactMerkleTree:
 
     def extend(self, new_leaves: Sequence[bytes]):
         """Batched append: leaf hashing goes through the device seam;
-        large batches additionally hash interior nodes level-by-level in
-        batches — from empty (_bulk_build) OR onto an existing tree
-        (_bulk_extend): ~2n hashes in ~log n seam dispatches instead of
-        n scalar frontier merges."""
+        large batches additionally hash interior nodes in batches — from
+        empty (_bulk_build, all levels in one seam call) OR onto an
+        existing tree (_bulk_extend, one seam dispatch per level): ~2n
+        hashes instead of n scalar frontier merges."""
         self.extend_hashes(self.hasher.hash_leaves(list(new_leaves)))
 
     def extend_hashes(self, leaf_hashes: List[bytes]):
@@ -124,46 +124,50 @@ class CompactMerkleTree:
             self._append_hash(leaf_hash, want_path=False)
 
     def _bulk_build(self, leaf_hashes: List[bytes]):
-        """Construct the whole tree from scratch with level-wise batched
-        node hashing, persisting every full aligned subtree exactly as
-        the incremental path would (same hash store contents, same
-        frontier)."""
+        """Construct the whole tree from scratch: every level above the
+        leaves in ONE hash_node_levels_array call (on the device backend,
+        one upload and one copy back), then every full aligned subtree
+        persisted exactly as the incremental path would (same hash store
+        contents, same frontier)."""
         assert self._size == 0
+        n = len(leaf_hashes)
         for i, h in enumerate(leaf_hashes):
             self.hash_store.write_leaf(i, h)
+        depth = max(n.bit_length() - 1, 0)     # level `depth` holds one node
+        levels = []
+        if depth:
+            leaves = np.frombuffer(b"".join(leaf_hashes),
+                                   dtype=np.uint8).reshape(n, 32)
+            levels = self.hasher.hash_node_levels_array(leaves, depth)
         frontier_rev: List[Tuple[int, int, bytes]] = []
         level = leaf_hashes
-        height = 0
-        while level:
-            if len(level) == 1:
-                # left-aligned level ⇒ a lone element is index 0,
-                # covering leaves [0, 2^height)
-                frontier_rev.append((0, height, level[0]))
-                break
+        for height in range(depth + 1):
+            if height:
+                level = _array_to_digest_list(levels[height - 1])
+                for i, h in enumerate(level):
+                    self.hash_store.write_subtree(i << height, height, h)
             if len(level) % 2 == 1:
-                start = (len(level) - 1) << height
-                frontier_rev.append((start, height, level[-1]))
-                level = level[:-1]
-            level = self._hash_level_pairs(level)
-            height += 1
-            for i, h in enumerate(level):
-                self.hash_store.write_subtree(i << height, height, h)
+                # the odd tail (at the top, the lone root of
+                # [0, 2^depth)) has no parent: a frontier entry
+                frontier_rev.append(((len(level) - 1) << height, height,
+                                     level[-1]))
         self._frontier = [entry for entry in reversed(frontier_rev)]
-        self._size = len(leaf_hashes)
+        self._size = n
 
     def _hash_level_pairs(self, children: List[bytes]) -> List[bytes]:
         """Pair-hash one level: children[2i], children[2i+1] → parent i.
         Large levels go through the ARRAY seam — one flat join + one
-        dispatch, skipping the ~n per-pair tuple/message objects the
-        list seam would build (the digests here are immediately
-        re-consumed by the next level and the hash store)."""
+        dispatch of one level, skipping the ~n per-pair tuple/message
+        objects the list seam would build (the digests here are
+        immediately re-consumed by the next level and the hash store)."""
         m = len(children) // 2
         hasher = self.hasher
         if m >= getattr(hasher, "_batch_threshold", 1 << 62) \
-                and hasattr(hasher, "hash_node_pairs_array"):
+                and hasattr(hasher, "hash_node_levels_array"):
             arr = np.frombuffer(b"".join(children[:2 * m]),
-                                dtype=np.uint8).reshape(m, 64)
-            return _array_to_digest_list(hasher.hash_node_pairs_array(arr))
+                                dtype=np.uint8).reshape(2 * m, 32)
+            return _array_to_digest_list(
+                hasher.hash_node_levels_array(arr, 1)[0])
         return hasher.hash_node_pairs(
             [(children[i], children[i + 1]) for i in range(0, 2 * m, 2)])
 

@@ -2,10 +2,10 @@
 
 Reference: ledger/tree_hasher.py:7 — leaf hash H(0x00||data), node hash
 H(0x01||left||right). THE hot hash path (SURVEY.md §2.6): the batch entry
-points below are the device seam — `hash_leaves` / `hash_node_pairs` route
-to the CUDA SHA-256 kernel (plenum_tpu_torch.ops.sha256) above a
-configurable batch threshold, with the C-backed hashlib loop as the scalar
-floor.
+points below are the device seam — `hash_leaves` / `hash_node_pairs` /
+`hash_node_levels_array` route to the CUDA SHA-256 kernels
+(plenum_tpu_torch.ops.sha256) above a configurable batch threshold, with
+the C-backed hashlib loop as the scalar floor.
 """
 import hashlib
 from typing import List, Sequence, Tuple
@@ -83,6 +83,26 @@ class TreeHasher:
             out[i] = np.frombuffer(
                 hashfunc(b"\x01" + flat[i * 64:(i + 1) * 64]).digest(),
                 dtype=np.uint8)
+        return out
+
+    def hash_node_levels_array(self, level: 'np.ndarray',
+                               levels: int) -> List['np.ndarray']:
+        """[n, 32] u8 digests → the `levels` tree levels above them,
+        [n >> k, 32] u8 each (parent i = H(0x01 || child 2i || child
+        2i+1); an odd last child has no parent). When level 0 has at least
+        the threshold's pairs and the backend builds levels, the whole
+        chain is one backend call; otherwise level by level through
+        hash_node_pairs_array (hashlib below the threshold)."""
+        level = np.ascontiguousarray(level, dtype=np.uint8).reshape(-1, 32)
+        if (self._batch_backend is not None
+                and level.shape[0] // 2 >= self._batch_threshold
+                and hasattr(self._batch_backend, "node_levels_array")):
+            return self._batch_backend.node_levels_array(level, levels)
+        out = []
+        for _ in range(levels):
+            m = level.shape[0] // 2
+            level = self.hash_node_pairs_array(level[:2 * m].reshape(m, 64))
+            out.append(level)
         return out
 
     # ---- whole-tree hashing (used by verifier and tests) ----

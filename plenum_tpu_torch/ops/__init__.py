@@ -44,6 +44,19 @@ def check_arg(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 RAGGED_OFFSETS_ERROR = ("offsets must be non-decreasing and within the {} "
                         "data bytes")
+TAIL_BYTES = 16          # after a ragged kernel's rows: the error word, zeros
+
+
+def launch_rows(buf: torch.Tensor, nbytes: int) -> np.ndarray:
+    """One device→host copy of a ragged kernel's output `buf` (it waits
+    for the launch) → the bytes before its TAIL_BYTES tail. Raises
+    ValueError, with check_ragged's message for `nbytes` data bytes, when
+    the kernel set the tail's first uint32, its error word (a row's
+    offsets were invalid)."""
+    h = buf.cpu().numpy()
+    if h[-TAIL_BYTES:][:4].view(np.uint32)[0]:
+        raise ValueError(RAGGED_OFFSETS_ERROR.format(nbytes))
+    return h[:-TAIL_BYTES]
 
 
 def check_ragged_layout(data: torch.Tensor, offsets: torch.Tensor,

@@ -1,36 +1,45 @@
 """Batched SHA-256 on the device — the merkle tree's hash path.
 
 Port of plenum_tpu/ops/sha256.py (digest packing, the `TreeHasher` batch
-backend) and plenum_tpu/ops/sha256_pallas.py (the compression kernel, now
-csrc/sha256.cu). uint32 words travel in int32 tensors (the same bit
-patterns): PyTorch's uint32 support is partial.
+backend), of plenum_tpu/ops/sha256_pallas.py (the compression kernel, now
+csrc/sha256.cu) and of the node hashing of plenum_tpu/ops/merkle.py
+(`_node_blocks`, `_hash_pairs`, `_build_levels_from_digest_bytes`). uint32
+words travel in int32 tensors (the same bit patterns): PyTorch's uint32
+support is partial.
 
-Two entries share the kernel's compression:
+Three entries share the kernel's compression:
 
 - `sha256_ragged`: raw messages as one flat uint8 buffer, int64 offsets
   [B + 1] and an optional one-byte domain prefix; the card pads. Leaves,
   node pairs given as bytes and `sha256_many` go through it. The host
   joins the messages once and copies them from a pinned staging buffer.
+  On the card it reads nothing back: the kernel checks the offsets and
+  the result's `host()` raises for invalid ones.
+- `sha256_node_levels`: the RFC 6962 levels above a level of 32-byte
+  digests, up to NODE_LEVELS levels a launch, the levels staying on the
+  card between launches. The Merkle level build goes through it
+  (`sha256_node_levels_array`: one upload, one copy back).
 - `sha256_blocks`: pre-padded [B, nblocks, 16] words and per-message block
-  counts. The Merkle level build feeds it words made on the card from
-  digest pairs (`sha256_node_pairs_array`).
+  counts, the literal counterpart of the TPU kernel; no path of the port
+  calls it.
 
 Each launches its CUDA kernel on CUDA tensors and runs its plain PyTorch
-version (`sha256_ragged_plain`, `sha256_blocks_plain`) on CPU tensors.
-`pad_messages`, the JAX package's host padding, stays for the tests that
-hold the two packages' padded words equal.
+version (`sha256_ragged_plain`, `sha256_node_levels_plain`,
+`sha256_blocks_plain`) on CPU tensors. `pad_messages`, the JAX package's
+host padding, stays for the tests that hold the two packages' padded
+words equal.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from plenum_tpu_torch.ops import (
-    check_arg, check_ragged, cuda_lib, resolve_device, scatter_ragged_rows,
-    to_tensor, u32_as_i32)
+    TAIL_BYTES, check_arg, check_ragged, check_ragged_layout, cuda_lib,
+    launch_rows, resolve_device, scatter_ragged_rows, to_tensor, u32_as_i32)
 
 _IV = np.array([
     0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
@@ -57,6 +66,8 @@ _K = np.array([
 ], dtype=np.uint32)
 
 _M32 = 0xFFFFFFFF
+NODE_LEVELS = 9          # the most levels a sha256_node_levels launch climbs
+NODE_WAVE_LEVELS = 2     # ... while its grid spans more than one wave
 
 
 # ------------------------------------------------- the plain version
@@ -208,23 +219,51 @@ def sha256_ragged_plain(data: torch.Tensor, offsets: torch.Tensor,
     return torch.cat(out)
 
 
+class Sha256Launch:
+    """A sha256_ragged launch in flight: `buf`, its output on the card
+    (B * 32 digest-state bytes, then TAIL_BYTES whose first uint32 is the
+    kernel's error word), and the byte count of the data (for the error's
+    message)."""
+
+    __slots__ = ("buf", "nbytes")
+
+    def __init__(self, buf: torch.Tensor, nbytes: int):
+        self.buf, self.nbytes = buf, nbytes
+
+    @property
+    def digests(self) -> torch.Tensor:
+        """The [B, 8] int32 digest state on the card, unchecked (a row with
+        invalid offsets is hashed as empty)."""
+        return self.buf[:-TAIL_BYTES].view(torch.int32).view(-1, 8)
+
+    def host(self) -> np.ndarray:
+        """One device→host copy (it waits for the launch) → [B, 8] uint32
+        digest state. Raises ValueError, with check_ragged's message, when
+        a row's offsets were invalid."""
+        return launch_rows(self.buf, self.nbytes).view(np.uint32) \
+            .reshape(-1, 8)
+
+
 def sha256_ragged_cuda(data: torch.Tensor, offsets: torch.Tensor,
-                       prefix: int = -1) -> torch.Tensor:
+                       prefix: int = -1) -> Sha256Launch:
     """The CUDA kernel's ragged entry (csrc/sha256.cu, sha256_ragged) on
-    CUDA tensors, same arguments and result as sha256_ragged_plain. Checks
-    the offsets on the card (one reduction, read back), launches on the
-    current stream without synchronising, and counts each launch in
-    `sha256_ragged_cuda.launches`."""
-    B = check_ragged(data, offsets, prefix)
+    CUDA tensors, the function of sha256_ragged_plain. Checks what needs
+    no read-back (the ragged layout, CUDA tensors, data on a 16-byte
+    boundary), launches on the current stream and returns without
+    synchronising; the kernel checks the offsets and the result's host()
+    reports them. Counts each launch in `sha256_ragged_cuda.launches`."""
+    B = check_ragged_layout(data, offsets, prefix)
     dev = data.device
     if dev.type != "cuda":
         raise ValueError("sha256_ragged_cuda needs CUDA tensors, got "
                          "{}".format(dev))
     if data.data_ptr() % 16:
         raise ValueError("data must start on a 16-byte boundary")
-    out = torch.empty((B, 8), dtype=torch.int32, device=dev)
+    nbytes = int(data.shape[0])
     if B == 0:
-        return out
+        return Sha256Launch(torch.zeros((TAIL_BYTES,), dtype=torch.uint8,
+                                        device=dev), nbytes)
+    buf = torch.empty((32 * B + TAIL_BYTES,), dtype=torch.uint8, device=dev)
     fn = cuda_lib.load("sha256").sha256_ragged
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -232,28 +271,181 @@ def sha256_ragged_cuda(data: torch.Tensor, offsets: torch.Tensor,
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(data.data_ptr(), int(data.shape[0]), offsets.data_ptr(),
-                 prefix, out.data_ptr(), B, stream)
+        err = fn(data.data_ptr(), nbytes, offsets.data_ptr(), prefix,
+                 buf.data_ptr(), B, stream)
     if err != 0:
         raise RuntimeError("sha256_ragged launch failed: CUDA error "
                            "{}".format(err))
     sha256_ragged_cuda.launches += 1
-    return out
+    return Sha256Launch(buf, nbytes)
 
 
 sha256_ragged_cuda.launches = 0
 
 
 def sha256_ragged(data: torch.Tensor, offsets: torch.Tensor,
-                  prefix: int = -1) -> torch.Tensor:
-    """Flat bytes + [B + 1] offsets (+ prefix byte) → [B, 8] digest state.
-    CUDA tensors go through the kernel, CPU tensors through the plain
-    version."""
+                  prefix: int = -1) -> Union[Sha256Launch, torch.Tensor]:
+    """Flat bytes + [B + 1] offsets (+ prefix byte) → [B, 8] digest state:
+    a Sha256Launch for CUDA tensors (the kernel), a tensor for CPU tensors
+    (the plain version). `to_host` takes either."""
     if data.device.type == "cuda":
         return sha256_ragged_cuda(data, offsets, prefix)
     if data.device.type == "cpu":
         return sha256_ragged_plain(data, offsets, prefix)
     raise ValueError("unsupported device {}".format(data.device))
+
+
+# ------------------------------------ Merkle levels above 32-byte digests
+
+def _be_words(digests: torch.Tensor) -> torch.Tensor:
+    """[m, 32] uint8 digests → [m, 8] int64 big-endian words."""
+    b = digests.to(torch.int64).view(-1, 8, 4)
+    return (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) \
+        | b[..., 3]
+
+
+def _be_bytes(words: torch.Tensor) -> torch.Tensor:
+    """[m, 8] int64 words (uint32 values) → [m, 32] uint8 big-endian."""
+    parts = [(words >> s) & 0xff for s in (24, 16, 8, 0)]
+    return torch.stack(parts, dim=2).reshape(-1, 32).to(torch.uint8)
+
+
+def _node_blocks(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """[m, 8], [m, 8] int64 digest words → [m, 2, 16] int32 SHA-padded
+    words of H(0x01 || left || right), as plenum_tpu/ops/merkle.py's
+    _node_blocks forms them."""
+    l8, lc = left >> 8, (left & 0xff) << 24
+    r8, rc = right >> 8, (right & 0xff) << 24
+    ws = [(0x01 << 24) | l8[:, 0]]
+    ws += [lc[:, i - 1] | l8[:, i] for i in range(1, 8)]
+    ws.append(lc[:, 7] | r8[:, 0])
+    ws += [rc[:, i - 1] | r8[:, i] for i in range(1, 8)]
+    ws.append(rc[:, 7] | (0x80 << 16))
+    zeros = torch.zeros_like(ws[0])
+    ws += [zeros] * 14 + [torch.full_like(zeros, 65 * 8)]
+    return u32_as_i32(torch.stack(ws, dim=1)).view(-1, 2, 16)
+
+
+def _level_rows(digests: torch.Tensor, levels: int) -> List[int]:
+    """Check a level-build input ([n, 32] contiguous uint8, levels >= 1) →
+    the node counts of levels 1..levels, n >> k."""
+    if digests.dim() != 2:
+        raise ValueError("digests must be [n, 32], got {}".format(
+            tuple(digests.shape)))
+    n = int(digests.shape[0])
+    check_arg(digests, "digests", torch.uint8, (n, 32))
+    if levels < 1:
+        raise ValueError("levels must be at least 1, got {}".format(levels))
+    return [n >> k for k in range(1, levels + 1)]
+
+
+def sha256_node_levels_plain(digests: torch.Tensor,
+                             levels: int) -> torch.Tensor:
+    """Plain PyTorch Merkle levels: [n, 32] uint8 digests → levels
+    1..levels one after another as [sum of n >> k, 32] uint8 digests,
+    parent i of a level being H(0x01 || child 2i || child 2i + 1) (an odd
+    last child has no parent). Forms each level's words as _node_blocks
+    does and runs sha256_blocks_plain."""
+    rows = _level_rows(digests, levels)
+    cur = _be_words(digests)
+    out = []
+    for m in rows:
+        words = _node_blocks(cur[0:2 * m:2], cur[1:2 * m:2])
+        nvalid = torch.full((m,), 2, dtype=torch.int32, device=cur.device)
+        cur = sha256_blocks_plain(words, nvalid).to(torch.int64) & _M32
+        out.append(_be_bytes(cur))
+    return torch.cat(out)
+
+
+def node_level_split(n: int, levels: int, wave: int) -> List[int]:
+    """Levels per sha256_node_levels launch for `levels` levels above n
+    children, `wave` being the CTAs the card holds at once: a launch's
+    CTAs (256 threads, 512 children each) reach their upper levels, where
+    few threads work and a level costs its latency, together, once a wave;
+    so a launch climbs NODE_WAVE_LEVELS while its grid spans more than one
+    wave, and up to NODE_LEVELS once it fits in one. Launches stop at the
+    level of one node. 2^20 leaves, 20 levels, 528 CTAs a wave: [2, 9, 9]."""
+    split, done = [], 0
+    while done < levels and n >> done >= 2:
+        ctas = -(-(n >> done >> 1) // 256)
+        lv = NODE_WAVE_LEVELS if ctas > wave else NODE_LEVELS
+        split.append(min(lv, levels - done))
+        done += split[-1]
+    return split
+
+
+_node_waves = {}        # device index → CTAs of the level kernel in a wave
+
+
+def _node_wave(lib, dev: torch.device) -> int:
+    """CTAs of the level kernel that `dev` holds at once (CUDA's occupancy
+    for its 256 threads, times the SMs), asked once per device."""
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    if index not in _node_waves:
+        ctas = ctypes.c_int(0)
+        fn = lib.sha256_node_levels_wave
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            err = fn(ctypes.byref(ctas))
+        if err != 0 or ctas.value < 1:
+            raise RuntimeError("sha256_node_levels_wave failed: CUDA error "
+                               "{}".format(err))
+        _node_waves[index] = ctas.value
+    return _node_waves[index]
+
+
+def sha256_node_levels_cuda(digests: torch.Tensor,
+                            levels: int) -> torch.Tensor:
+    """The CUDA kernel (csrc/sha256.cu, sha256_node_levels) on a CUDA
+    tensor starting on a 16-byte boundary, the function of
+    sha256_node_levels_plain. Enqueues the launches of node_level_split on
+    the current stream, each fed the last level of the one before inside
+    the output, and returns without synchronising. Counts each launch in
+    `sha256_node_levels_cuda.launches`."""
+    rows = _level_rows(digests, levels)
+    dev = digests.device
+    if dev.type != "cuda":
+        raise ValueError("sha256_node_levels_cuda needs CUDA tensors, got "
+                         "{}".format(dev))
+    if digests.data_ptr() % 16:
+        raise ValueError("digests must start on a 16-byte boundary")
+    out = torch.empty((sum(rows), 32), dtype=torch.uint8, device=dev)
+    lib = cuda_lib.load("sha256")
+    fn = lib.sha256_node_levels
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = int(digests.shape[0])
+    src, n_in, at, done = digests.data_ptr(), n, 0, 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lv in node_level_split(n, levels, _node_wave(lib, dev)):
+            err = fn(src, n_in, out.data_ptr() + 32 * at, lv, stream)
+            if err != 0:
+                raise RuntimeError("sha256_node_levels launch failed: CUDA "
+                                   "error {}".format(err))
+            sha256_node_levels_cuda.launches += 1
+            last = at + sum(rows[done:done + lv - 1])
+            src, n_in = out.data_ptr() + 32 * last, rows[done + lv - 1]
+            at = last + n_in
+            done += lv
+    return out
+
+
+sha256_node_levels_cuda.launches = 0
+
+
+def sha256_node_levels(digests: torch.Tensor, levels: int) -> torch.Tensor:
+    """[n, 32] uint8 digests → levels 1..levels, [sum of n >> k, 32] uint8.
+    CUDA tensors go through the kernel, CPU tensors through the plain
+    version."""
+    if digests.device.type == "cuda":
+        return sha256_node_levels_cuda(digests, levels)
+    if digests.device.type == "cpu":
+        return sha256_node_levels_plain(digests, levels)
+    raise ValueError("unsupported device {}".format(digests.device))
 
 
 class PinnedStaging:
@@ -385,15 +577,20 @@ def digests_to_array(dig: np.ndarray) -> np.ndarray:
     return arr.view(np.uint8).reshape(-1, 32)
 
 
-def _from_device(dig: torch.Tensor) -> np.ndarray:
-    """[B, 8] int32 device digests → [B, 8] u32 numpy (waits for them)."""
-    return dig.cpu().numpy().view(np.uint32)
+def to_host(result: Union[Sha256Launch, torch.Tensor]) -> np.ndarray:
+    """[B, 8] uint32 numpy digest state of a sha256_ragged result: a
+    launch's checked copy (Sha256Launch.host; it waits for the launch), or
+    a tensor's copy."""
+    if isinstance(result, Sha256Launch):
+        return result.host()
+    return result.cpu().numpy().view(np.uint32)
 
 
 def _node_words_from_digest_pairs(pairs: torch.Tensor) -> torch.Tensor:
     """[m, 64] uint8 rows (left||right digest bytes) → [m, 2, 16] int32
     SHA-padded words of H(0x01 || left || right), built on the pairs'
-    device."""
+    device: the level step's words before sha256_node_levels, kept to feed
+    sha256_blocks in the tests and beside the new step on the card."""
     m = int(pairs.shape[0])
     msg = torch.zeros((m, 128), dtype=torch.int64, device=pairs.device)
     msg[:, 0] = 0x01
@@ -407,15 +604,45 @@ def _node_words_from_digest_pairs(pairs: torch.Tensor) -> torch.Tensor:
     return u32_as_i32(words).view(m, 2, 16)
 
 
+def _download(t: torch.Tensor) -> np.ndarray:
+    """One device→host copy of `t` into pinned memory (PyTorch's caching
+    host allocator, so a repeated size costs no new allocation), waited
+    for → a numpy view of it."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return host.numpy()
+
+
+def sha256_node_levels_array(level: np.ndarray, levels: int, device=None,
+                             staging: PinnedStaging = None
+                             ) -> List[np.ndarray]:
+    """[n, 32] u8 digests → [levels 1..levels above them], [n >> k, 32] u8
+    each: on CUDA one upload through the pinned `staging` (or a fresh
+    buffer), the launches of sha256_node_levels and one copy back into
+    pinned memory."""
+    dev = resolve_device(device)
+    level = np.ascontiguousarray(level, dtype=np.uint8).reshape(-1, 32)
+    if dev.type == "cuda":
+        digests = (staging or PinnedStaging()).upload([level], dev)
+        flat = _download(sha256_node_levels(digests.view(-1, 32), levels))
+    else:
+        flat = sha256_node_levels(to_tensor(level, dev), levels).numpy()
+    out, at = [], 0
+    for k in range(1, levels + 1):
+        m = level.shape[0] >> k
+        out.append(flat[at:at + m])
+        at += m
+    return out
+
+
 def sha256_node_pairs_array(pairs: np.ndarray, device=None) -> np.ndarray:
     """[m, 64] u8 rows of left||right digests → [m, 32] u8 node digests
-    H(0x01||l||r). Digest bytes stay in arrays end to end."""
-    dev = resolve_device(device)
-    pairs = np.ascontiguousarray(pairs, dtype=np.uint8).reshape(-1, 64)
-    m = pairs.shape[0]
-    words = _node_words_from_digest_pairs(to_tensor(pairs, dev))
-    nvalid = torch.full((m,), 2, dtype=torch.int32, device=dev)
-    return digests_to_array(_from_device(sha256_blocks(words, nvalid)))
+    H(0x01||l||r): one level of sha256_node_levels_array."""
+    pairs = np.ascontiguousarray(pairs, dtype=np.uint8)
+    return sha256_node_levels_array(pairs.reshape(-1, 32), 1, device)[0]
 
 
 def sha256_many(msgs: Sequence[bytes], device=None,
@@ -441,14 +668,15 @@ def sha256_many_collect(handle) -> List[bytes]:
     """Blocking half: digests of a sha256_many_dispatch launch."""
     if handle is None:
         return []
-    return digests_to_bytes(_from_device(handle))
+    return digests_to_bytes(to_host(handle))
 
 
 class TorchSha256Backend:
     """Batch backend for `TreeHasher` (ledger/tree_hasher.py seam) on one
     device: `device=None` means CUDA. Leaves are hashed as H(0x00 || data)
-    and node pairs as H(0x01 || left || right) by the ragged entry, through
-    one pinned staging buffer that the backend keeps."""
+    and node pairs given as bytes as H(0x01 || left || right) by the ragged
+    entry, node levels given as digest arrays by sha256_node_levels, all
+    through one pinned staging buffer that the backend keeps."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -469,6 +697,15 @@ class TorchSha256Backend:
             [l + r for l, r in pairs], self.device, 0x01, self._staging))
 
     def node_hashes_array(self, pairs: np.ndarray) -> np.ndarray:
-        """[m, 64] u8 (left||right) → [m, 32] u8 — the array seam for
-        level-wise bulk tree building."""
-        return sha256_node_pairs_array(pairs, self.device)
+        """[m, 64] u8 (left||right) → [m, 32] u8: one level of
+        node_levels_array."""
+        pairs = np.ascontiguousarray(pairs, dtype=np.uint8)
+        return self.node_levels_array(pairs.reshape(-1, 32), 1)[0]
+
+    def node_levels_array(self, level: np.ndarray,
+                          levels: int) -> List[np.ndarray]:
+        """[n, 32] u8 digests → the `levels` tree levels above them,
+        [n >> k, 32] u8 each (sha256_node_levels_array through the
+        backend's staging buffer)."""
+        return sha256_node_levels_array(level, levels, self.device,
+                                        self._staging)

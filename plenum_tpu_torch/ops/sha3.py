@@ -33,14 +33,13 @@ import numpy as np
 import torch
 
 from plenum_tpu_torch.ops import (
-    RAGGED_OFFSETS_ERROR, check_arg, check_ragged, check_ragged_layout,
-    cuda_lib, resolve_device)
+    TAIL_BYTES, check_arg, check_ragged, check_ragged_layout, cuda_lib,
+    launch_rows, resolve_device)
 from plenum_tpu_torch.ops.sha256 import upload_ragged
 
 RATE_BYTES = 136          # SHA3-256: r = 1088 bits
 RATE_LANES = RATE_BYTES // 8
 DIGEST_BYTES = 32
-TAIL_BYTES = 16           # after a launch's rows: the error word, zeros
 # Levels of at most this many rows run five lanes per message, larger ones
 # one thread per message (csrc/sha3.cu). Measured crossover on an NVIDIA
 # H100 80GB HBM3 at 700 W, kernel alone on the pool's 2-block state nodes:
@@ -198,10 +197,7 @@ class Sha3Launch:
         """One device→host copy (it waits for the launch) → [B, 32] uint8
         digests or [B] bool verdicts. Raises ValueError, with
         check_ragged's message, when a row's offsets were invalid."""
-        h = self.buf.cpu().numpy()
-        rows = h[:-TAIL_BYTES]
-        if h[-TAIL_BYTES:][:4].view(np.uint32)[0]:
-            raise ValueError(RAGGED_OFFSETS_ERROR.format(self.nbytes))
+        rows = launch_rows(self.buf, self.nbytes)
         if self.verdicts:
             return rows[:self.rows].view(bool)
         return rows.reshape(-1, DIGEST_BYTES)

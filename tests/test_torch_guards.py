@@ -113,6 +113,8 @@ def _entry_points():
         "sha256_many": lambda: sha256.sha256_many([b"abc"]),
         "sha256_node_pairs_array": lambda: sha256.sha256_node_pairs_array(
             np.zeros((1, 64), dtype=np.uint8)),
+        "sha256_node_levels_array": lambda: sha256.sha256_node_levels_array(
+            np.zeros((2, 32), dtype=np.uint8), 1),
         "TorchSha256Backend": lambda: sha256.TorchSha256Backend(),
         "verify_batch": lambda: ed25519.verify_batch(
             [b"m"], [bytes(64)], [bytes(32)]),

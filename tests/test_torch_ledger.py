@@ -2,17 +2,24 @@
 the CPU against plenum_tpu's Ledger over JaxSha256Backend, on the same
 txns, with the TreeHasher threshold lowered so that both the scalar and
 the batch paths run; and carry.ledger_from_arrays, which takes a JAX
-ledger's state across without hashing. Tolerance: none — roots, hash
-store contents and audit paths must be byte-equal."""
+ledger's state across without hashing; and the port's CompactMerkleTree
+bulk build and extend (all levels in one seam call) against the reference
+tree on hashlib. Tolerance: none — roots, hash store contents, frontiers
+and audit paths must be byte-equal."""
+import hashlib
+
 import numpy as np
 import pytest
 
+from plenum_tpu.ledger.compact_merkle_tree import (
+    CompactMerkleTree as JaxCompactMerkleTree)
 from plenum_tpu.ledger.ledger import Ledger as JaxLedger
 from plenum_tpu.ledger.tree_hasher import TreeHasher as JaxTreeHasher
 from plenum_tpu.ops.sha256 import JaxSha256Backend
 from plenum_tpu.storage.kv_memory import (
     KeyValueStorageInMemory as JaxKV)
 from plenum_tpu_torch import carry
+from plenum_tpu_torch.ledger.compact_merkle_tree import CompactMerkleTree
 from plenum_tpu_torch.ledger.ledger import Ledger
 from plenum_tpu_torch.ledger.merkle_verifier import MerkleVerifier
 from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
@@ -132,7 +139,7 @@ def test_carry_ledger_from_arrays_hashes_nothing(ledgers, monkeypatch):
 
     for name in ("hash_leaf", "hash_children", "hash_leaves",
                  "hash_leaves_dispatch", "hash_node_pairs",
-                 "hash_node_pairs_array"):
+                 "hash_node_pairs_array", "hash_node_levels_array"):
         monkeypatch.setattr(TreeHasher, name, refuse)
     port = carry.ledger_from_arrays(_blobs(ref), leaves, nodes,
                                     device="cpu")
@@ -154,3 +161,44 @@ def test_carry_rejects_mismatched_arrays(ledgers):
     with pytest.raises(ValueError):
         carry.ledger_from_arrays(_blobs(ref), leaves[:-1], nodes,
                                  device="cpu")
+
+
+def _leaf_hashes(lo, hi):
+    return [hashlib.sha256(b"\x00leaf %d" % i).digest() for i in range(lo, hi)]
+
+
+@pytest.mark.parametrize("first,then", [(1023, 0), (1024, 0), (1025, 0),
+                                        (4097, 0), (1025, 1025)])
+def test_bulk_build_and_extend_match_reference(first, then, monkeypatch):
+    """A port tree over TorchSha256Backend on the CPU (threshold 64, so the
+    bulk build's levels go to the backend in one call) against the
+    reference tree on hashlib: `first` leaves from empty (_bulk_build),
+    then `then` more (_bulk_extend, one level a call). Roots, frontiers
+    and every leaf and subtree entry of the hash stores are equal; the
+    build makes exactly one hash_node_levels_array call (none below
+    BULK_MIN = 1,024 leaves, which append one by one)."""
+    calls = []
+    levels_array = TreeHasher.hash_node_levels_array
+
+    def counted(self, level, levels):
+        calls.append((level.shape[0], levels))
+        return levels_array(self, level, levels)
+    monkeypatch.setattr(TreeHasher, "hash_node_levels_array", counted)
+    port = CompactMerkleTree(TreeHasher(
+        batch_backend=TorchSha256Backend("cpu"), batch_threshold=THRESHOLD))
+    ref = JaxCompactMerkleTree(JaxTreeHasher())
+    port.extend_hashes(_leaf_hashes(0, first))
+    ref.extend_hashes(_leaf_hashes(0, first))
+    bulk = first >= CompactMerkleTree.BULK_MIN
+    assert calls == ([(first, first.bit_length() - 1)] if bulk else [])
+    if then:
+        port.extend_hashes(_leaf_hashes(first, first + then))
+        ref.extend_hashes(_leaf_hashes(first, first + then))
+        assert calls[1:] and all(levels == 1 for _, levels in calls[1:])
+    size = first + then
+    assert port.tree_size == ref.tree_size == size
+    assert port.root_hash == ref.root_hash
+    assert port._frontier == ref._frontier
+    for got, want in zip(carry.arrays_from_hash_store(port.hash_store, size),
+                         carry.arrays_from_hash_store(ref.hash_store, size)):
+        np.testing.assert_array_equal(got, want)

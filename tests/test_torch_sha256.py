@@ -5,10 +5,16 @@ own body (`sha256_pallas._sha256_kernel`, run on numpy tiles laid out as
 its pallas_call lays them out — the `numpy_field` way of
 tests/test_ed25519_pallas.py, since interpret mode compiles for many
 minutes on the CPU), against `_sha256_blocks`, the XLA twin of the
-kernel, and against hashlib; and the TreeHasher batch backend.
-Tolerance: none — arrays and digests must be equal."""
+kernel, and against hashlib; the TreeHasher batch backend; the Merkle
+level build (`sha256_node_levels`) against hashlib, the JAX package's node
+hashing and merkle._node_blocks; and csrc/sha256.cu's node-level and
+ragged kernels compiled for the host by g++. Tolerance: none — arrays and
+digests must be equal."""
 import hashlib
+import os
 import random
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -16,8 +22,10 @@ import torch
 
 import jax.numpy as jnp
 
+from plenum_tpu.ops import merkle as jmerkle
 from plenum_tpu.ops import sha256 as jsha
 from plenum_tpu.ops import sha256_pallas as sp
+from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
 from plenum_tpu_torch.ops import sha256 as tsha
 
 CAVP = [  # NIST CAVP / FIPS 180-2 known-answer vectors
@@ -201,13 +209,31 @@ def test_ragged_empty_batch():
     assert tsha.sha256_many([], "cpu") == []
 
 
+def _launch_result(digests: np.ndarray, err: int, nbytes: int):
+    """A Sha256Launch as the kernel leaves it, on a CPU buffer: the [B, 8]
+    uint32 digest state, then the tail with the error word."""
+    tail = np.zeros(tsha.TAIL_BYTES, dtype=np.uint8)
+    tail[:4] = np.frombuffer(np.uint32(err).tobytes(), dtype=np.uint8)
+    flat = np.ascontiguousarray(digests, dtype=np.uint32).view(np.uint8)
+    buf = torch.from_numpy(np.concatenate([flat.reshape(-1), tail]))
+    return tsha.Sha256Launch(buf, nbytes)
+
+
 @pytest.mark.parametrize("offsets", [[0, 5, 4], [1, 11], [-1, 2], [0, 3, 12]])
 def test_ragged_rejects_bad_offsets(offsets):
+    """The plain version raises at once (check_ragged). The kernel's
+    wrapper reads no offsets back (on CPU tensors it refuses them for
+    their device alone); its kernel sets the error word, and the result's
+    host copy raises with the same message."""
     data = torch.zeros(10, dtype=torch.uint8)
     off = torch.tensor(offsets, dtype=torch.int64)
-    for fn in (tsha.sha256_ragged, tsha.sha256_ragged_cuda):
-        with pytest.raises(ValueError, match="offsets"):
-            fn(data, off, 0)
+    with pytest.raises(ValueError, match="offsets"):
+        tsha.sha256_ragged(data, off, 0)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tsha.sha256_ragged_cuda(data, off, 0)
+    rows = np.zeros((len(offsets) - 1, 8), dtype=np.uint32)
+    with pytest.raises(ValueError, match="offsets"):
+        tsha.to_host(_launch_result(rows, 1, 10))
 
 
 def test_ragged_cuda_wrapper_rejects_cpu_tensors_and_bad_arguments():
@@ -229,3 +255,181 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):       # CPU tensors never reach the kernel
         tsha.sha256_blocks_cuda(torch.zeros((2, 1, 16), dtype=torch.int32),
                                 torch.ones(2, dtype=torch.int32))
+
+
+def test_ragged_cuda_wrapper_reads_no_offsets_back(monkeypatch):
+    """The CUDA wrapper leaves the offsets to the kernel: it never calls
+    check_ragged, whose read-back would wait for the card."""
+    def read_back(*_):
+        raise AssertionError("check_ragged called")
+    monkeypatch.setattr(tsha, "check_ragged", read_back)
+    data = torch.zeros(16, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tsha.sha256_ragged_cuda(data, torch.tensor([5, 2]), 0x00)
+
+
+def test_collect_raises_on_the_kernels_error_word():
+    """A launch's digests reach the host through one checked copy: the
+    collect of sha256_many, of the backend and of the TreeHasher's staged
+    leaves return them while the error word is 0, and raise check_ragged's
+    message before any digest is used when the kernel set it."""
+    msgs = [b"abc", b"", b"x" * 100]
+    words, _, _ = tsha.pad_messages(msgs)
+    state = np.stack([np.frombuffer(hashlib.sha256(m).digest(), ">u4")
+                      .astype(np.uint32) for m in msgs])
+    backend = tsha.TorchSha256Backend("cpu")
+    hasher = TreeHasher(batch_backend=backend)
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    assert tsha.sha256_many_collect(_launch_result(state, 0, 99)) == want
+    assert backend.leaf_hashes_collect(_launch_result(state, 0, 99)) == want
+    assert hasher.hash_leaves_collect(
+        ("device", _launch_result(state, 0, 99))) == want
+    message = "offsets must be non-decreasing and within the 99 data bytes"
+    for collect in (tsha.sha256_many_collect, backend.leaf_hashes_collect,
+                    lambda h: hasher.hash_leaves_collect(("device", h))):
+        with pytest.raises(ValueError, match=message):
+            collect(_launch_result(state, 1, 99))
+
+
+def _levels_hashlib(digests: np.ndarray, levels: int):
+    """The `levels` levels above `digests` ([n, 32] u8) with hashlib."""
+    out, cur = [], [bytes(r) for r in digests]
+    for _ in range(levels):
+        cur = [hashlib.sha256(b"\x01" + cur[2 * i] + cur[2 * i + 1]).digest()
+               for i in range(len(cur) // 2)]
+        out.append(b"".join(cur))
+    return out
+
+
+def _digests(n, seed):
+    return np.random.RandomState(seed).randint(0, 256, size=(n, 32),
+                                               dtype=np.uint8)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 513])
+def test_node_levels_plain_equals_hashlib(n):
+    """Every level above n digests (levels 1..floor(log2 n), and one for
+    n = 1, which has no parent), from the plain version and through the
+    array entry on the CPU, against hashlib: an odd last child has no
+    parent, and a level of one node ends the chain."""
+    digests = _digests(n, 30 + n)
+    levels = max(n.bit_length() - 1, 1)
+    want = _levels_hashlib(digests, levels)
+    flat = tsha.sha256_node_levels(torch.from_numpy(digests), levels)
+    assert flat.dtype == torch.uint8
+    assert flat.numpy().tobytes() == b"".join(want)
+    got = tsha.sha256_node_levels_array(digests, levels, "cpu")
+    assert [g.shape for g in got] == [(n >> k, 32)
+                                      for k in range(1, levels + 1)]
+    assert [g.tobytes() for g in got] == want
+
+
+def test_node_levels_plain_equals_jax_level_by_level():
+    """At 64 rows, each level of the plain version equals the JAX
+    package's sha256_node_pairs_array on the level below it."""
+    digests = _digests(64, 40)
+    got = tsha.sha256_node_levels_array(digests, 6, "cpu")
+    below = digests
+    for level in got:
+        np.testing.assert_array_equal(
+            level, jsha.sha256_node_pairs_array(below.reshape(-1, 64)))
+        below = level
+    assert got[-1].shape == (1, 32)
+
+
+def test_node_blocks_equal_jax_merkle_node_blocks():
+    """The words of H(0x01 || l || r) equal plenum_tpu/ops/merkle.py's
+    _node_blocks on 16 pairs of digest words."""
+    words = _digests(32, 41).view(">u4").astype(np.uint32).reshape(32, 8)
+    left, right = words[0::2], words[1::2]
+    got = tsha._node_blocks(torch.from_numpy(left.astype(np.int64)),
+                            torch.from_numpy(right.astype(np.int64)))
+    want = np.asarray(jmerkle._node_blocks(jnp.asarray(left),
+                                           jnp.asarray(right)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("n,levels,wave,split", [
+    (1 << 20, 20, 528, [2, 9, 9]),     # an H100's wave: 132 SMs x 4 CTAs
+    (1 << 20, 20, 1 << 20, [9, 9, 2]),
+    (1 << 18, 18, 528, [9, 9]),
+    (1025, 10, 528, [9, 1]),
+    (1025, 10, 1, [2, 8]),
+    (1 << 21, 21, 528, [2, 2, 9, 8]),
+    (5, 4, 528, [4]),                  # levels 3 and 4 hold no node
+    (4, 4, 0, [2]),                    # no launch above a one-node level
+    (1, 1, 528, []),
+])
+def test_node_level_split(n, levels, wave, split):
+    """Two levels a launch while the grid spans more than one wave of
+    CTAs, up to nine once it fits in one; no launch once a level holds one
+    node."""
+    assert tsha.node_level_split(n, levels, wave) == split
+
+
+def test_node_levels_check_their_arguments():
+    """levels >= 1 and [n, 32] uint8 rows; levels past the top are empty;
+    the CUDA wrapper refuses CPU tensors (no kernel on the CPU)."""
+    digests = torch.from_numpy(_digests(5, 42))
+    with pytest.raises(ValueError, match="levels"):
+        tsha.sha256_node_levels(digests, 0)
+    with pytest.raises(ValueError):
+        tsha.sha256_node_levels(digests.view(-1), 1)
+    with pytest.raises(ValueError):
+        tsha.sha256_node_levels(digests.to(torch.int32), 1)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tsha.sha256_node_levels_cuda(digests, 1)
+    got = tsha.sha256_node_levels_array(digests.numpy(), 4, "cpu")
+    assert [g.shape[0] for g in got] == [2, 1, 0, 0]
+
+
+def test_host_build_of_the_kernels_equals_hashlib(tmp_path):
+    """csrc/sha256.cu's node-level kernel, compiled for the host by g++
+    behind cuda_host_shim.h (a std::thread per CUDA thread, __syncthreads
+    and warp collectives through barriers) and chained as the CUDA wrapper
+    chains its launches (node_level_split, with waves of one CTA and of
+    many): every level at 1, 513, 1,025 and 2,049 children (CTA edges at
+    512, launch edges at two and nine levels) against hashlib; and the
+    ragged kernel's digests and its error word for invalid offsets."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernels for the host")
+    csrc = os.path.join(os.path.dirname(tsha.__file__), os.pardir, "csrc")
+    exe = str(tmp_path / "sha256_host")
+    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread",
+                    "-fno-strict-aliasing", "-Wno-unknown-pragmas", "-o", exe,
+                    os.path.join(csrc, "sha256_host.cpp")], check=True)
+    for n in (1, 513, 1025, 2049):
+        digests = _digests(n, 50 + n)
+        levels = max(n.bit_length() - 1, 1)
+        digests.tofile(tmp_path / "in")
+        want = b"".join(_levels_hashlib(digests, levels))
+        # a wave of one CTA: two-level launches while the grid has more
+        for wave in (1, 1 << 20):
+            split = tsha.node_level_split(n, levels, wave) or [levels]
+            subprocess.run([exe, "levels", ",".join(map(str, split)),
+                            str(tmp_path / "in"), str(tmp_path / "out")],
+                           check=True)
+            assert (tmp_path / "out").read_bytes() == want, (n, split)
+
+    msgs = _ragged(40, 51)
+    data, offsets = tsha.ragged_arrays(msgs)
+
+    def ragged(offs):
+        data.tofile(tmp_path / "data")
+        np.asarray(offs, dtype=np.int64).tofile(tmp_path / "offsets")
+        subprocess.run([exe, "ragged", "1", str(tmp_path / "data"),
+                        str(tmp_path / "offsets"), str(tmp_path / "out")],
+                       check=True)
+        out = np.fromfile(tmp_path / "out", dtype=np.uint8)
+        return out[:-16].view(np.uint32).reshape(-1, 8), \
+            int(out[-16:-12].view(np.uint32)[0])
+
+    state, err = ragged(offsets)
+    assert err == 0
+    assert tsha.digests_to_bytes(state) == [
+        hashlib.sha256(b"\x01" + m).digest() for m in msgs]
+    n = int(offsets[-1])
+    for bad in ([-1] + list(offsets[1:]), list(offsets[:-1]) + [n + 1],
+                [0, n, 1] + list(offsets[3:])):
+        assert ragged(bad)[1] == 1
