@@ -68,15 +68,46 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    drawn from them: the kernel alone (CUDA events over 50 back-to-back
    launches, inputs on the card) and the round trip (host clock over the
    ops/trie.py dispatch and collect, its result checked against
-   hashlib at every shape), each beside its bound. Then it prints
-   {"kernels": [...]}, the card line and, last, {"ok": true, "device":
-   {...}}. Every entry's "ms" is cuda_ms, one definition for all five;
-   the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
-   pool's shape.
+   hashlib at every shape), each beside its bound;
+7. drives the headline deployment (bench.py run_multiprocess_pool, through
+   plenum_tpu_torch.testing.mp_pool): four node processes
+   (python -m plenum_tpu_torch.start_node --device cuda) from a pool
+   directory of keys and genesis, over TCP with the encrypted transport,
+   each signing its state roots with BLS (the native C build of
+   csrc/bls12_381.c), order signed NYM writes, the runs in turns:
+   "remote" (4,000 writes; a verify daemon process on the card verifies
+   every node's client signatures with ed25519_verify), "cpu" (1,000;
+   each node verifies on its own, pure-Python RFC 8032), "remote",
+   "cpu", the client sending in bench.py's order (one node all the
+   requests, then the next); then "remote" and "cpu" once more with the
+   client's second order ("broadcast": each request to every node before
+   the next). Before the first
+   remote pool starts, the 16,384-signature set goes through the daemon
+   and its verdicts must equal verify_plain's on the card. Every run must
+   see every node reply to every write, equal domain, audit and state
+   roots on the four nodes (read back from their data directories),
+   domain and state roots equal to a replay of the committed txns on the
+   host (the port's Ledger with hashlib leaves and its host trie, no
+   kernel), and a
+   BLS multi-signature on each node's latest state root that verifies
+   under the pool's keys; each node process must run on the card, and in
+   the remote runs launch sha256_ragged and sha3_ragged, the daemon
+   ed25519_verify. It prints each run's wall and ordered requests/s, the
+   daemon's launches and their sizes and each node process's device and
+   launches; under --profile, node Alpha of the first remote and cpu
+   runs runs under cProfile and its host time is printed by module.
+   Process logs go to chiprun_out/mp_logs/.
+
+Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
+"device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
+six; the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
+pool's shape.
 
 Each path's kernel launch counters are zeroed just before it and read
-just after; every kernel of a path must have launched in it. The
-kernels line gives each kernel's launches over both paths.
+just after; every kernel of a path must have launched in it (a node
+process or the daemon starts at zero, and the daemon's counters are
+zeroed after its check). The kernels line gives each kernel's launches
+over all three paths.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory that holds this
@@ -106,6 +137,11 @@ N_NODES = 4
 TXN_TIME = 1700000000
 POOL_REQS = 4000             # bench.py POOL_REQS
 POOL_BAD = 20                # tampered requests, spread over the chunks
+MP_REQS = 4000               # bench.py POOL_REQS: the deployment's writes
+MP_CPU_REQS = 1000           # the "cpu" side's writes: at 4,000 a node's
+                             # pure-Python verify of one intake batch
+                             # blocks it past the peers' 10 s heartbeat
+MP_TIMEOUT_S = 600
 # the five-lane groups' and the warps' boundaries (six messages a warp of
 # groups, 32 a warp of threads), and a ragged tail of both
 SHA3_BATCHES = (1, 4, 5, 6, 7, 31, 32, 33, 127, 129, 2001)
@@ -229,8 +265,6 @@ def where_the_time_goes(torch, run_main_path, label):
     kernel and the device's idle share of the wall time) and once under
     cProfile (host functions by own time, and own time by package area)."""
     import cProfile
-    import io
-    import pstats
 
     traced, wall_us = device_time(torch, run_main_path)
     busy = {name: us for name, (us, _) in traced.items()}
@@ -248,26 +282,42 @@ def where_the_time_goes(torch, run_main_path, label):
     prof_host.enable()
     run_main_path()
     prof_host.disable()
+    host_table(prof_host, label, depth=2)
+
+
+def host_table(source, label, depth):
+    """Print a cProfile run's (a Profile, or the file it was dumped to)
+    host functions by own time, then its own
+    time by package area: the first `depth` parts of the path under the
+    repository (2: plenum_tpu_torch/<package>, 3: down to the module).
+    Time the process spent waiting in select/epoll is shown apart."""
+    import io
+    import pstats
     out = io.StringIO()
-    stats = pstats.Stats(prof_host, stream=out)
+    stats = pstats.Stats(source, stream=out)
     stats.sort_stats("tottime").print_stats(14)
     log("profile {}: host functions by own time (under cProfile)".format(
         label))
     for line in out.getvalue().splitlines():
         if line.strip():
             log("  " + line.rstrip())
-    areas = {}
-    for (path, _, _), (_, _, tottime, _, _) in stats.stats.items():
+    areas, waiting = {}, 0.0
+    for (path, _, name), (_, _, tottime, _, _) in stats.stats.items():
+        if "poll" in name and ("epoll" in name or "select" in name):
+            waiting += tottime
+            continue
         rel = os.path.relpath(path, REPO) if path.startswith(REPO) else ""
         parts = rel.split(os.sep)
-        area = os.sep.join(parts[:2]) if parts[0] == "plenum_tpu_torch" \
+        area = os.sep.join(parts[:depth]) \
+            if parts[0] == "plenum_tpu_torch" \
             else "other (stdlib, torch, builtins)"
         areas[area] = areas.get(area, 0.0) + tottime
     total = sum(areas.values())
-    log("profile {}: host own time by area, {:.3f} s in all".format(
-        label, total))
-    for area, t in sorted(areas.items(), key=lambda kv: -kv[1])[:10]:
+    log("profile {}: host own time by area, {:.3f} s in all (and {:.3f} s "
+        "waiting in select/epoll)".format(label, total, waiting))
+    for area, t in sorted(areas.items(), key=lambda kv: -kv[1])[:12]:
         log("  {:.3f} s  {:.4f}  {}".format(t, t / total, area))
+    return areas, waiting
 
 
 def sha3_phase(torch, dev):
@@ -844,6 +894,163 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
             "kernels": kernels}
 
 
+def deployment_phase(torch, dev, profile):
+    """Phase 7: the headline deployment (bench.py run_multiprocess_pool,
+    through plenum_tpu_torch.testing.mp_pool): four node processes on the
+    card over TCP, BLS-signing their state roots. "remote" runs a verify
+    daemon process on the card; before its pool starts the 16,384-signature
+    set goes through the daemon (a RemoteVerifier) and its verdicts must
+    equal verify_plain's on the card; then the daemon's counters are
+    zeroed. "cpu" has each node verify on its own (pure-Python RFC 8032).
+    The runs alternate remote, cpu, remote, cpu with the client in
+    bench.py's send order, then remote, cpu in the "broadcast" order.
+    Each run's roots are held against mp_pool.replay_roots, a replay of
+    the committed txns on the host. → {"launches": the
+    kernels' launches in the node processes and the daemon over all runs,
+    "runs": per run its wall and rate}."""
+    from plenum_tpu_torch import testing
+    from plenum_tpu_torch.crypto import bls_ops
+    from plenum_tpu_torch.crypto.remote_verifier import RemoteVerifier
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.ops import to_tensor
+    from plenum_tpu_torch.testing import mp_pool
+
+    check(bls_ops.BACKEND == "native", "the BLS backend is the native C "
+                                       "build")
+    log("deployment: BLS backend {}".format(bls_ops.BACKEND))
+    t0 = time.perf_counter()
+    reqs = mp_pool.make_mp_requests(MP_REQS + 1)
+    msgs, sigs, vks, _ = testing.adversarial_signatures(
+        MICRO_BATCH, SEED, unique=SCALAR_SUBSET)
+    arrays, valid = ed.host_pack(msgs, sigs, vks)
+    plain = (ed.verify_plain(*[to_tensor(a, dev) for a in arrays])
+             .cpu().numpy() & valid).tolist()
+    log("deployment set-up: {} signed requests, the {}-signature check set "
+        "and its plain verdicts in {:.1f} s".format(
+            len(reqs), MICRO_BATCH, time.perf_counter() - t0))
+
+    # the daemon's scalar floor (Config.VERIFY_DAEMON_CPU_FLOOR): one
+    # pure-Python verify against one device round trip at small batches
+    from plenum_tpu_torch.crypto.batch_verifier import (
+        ScalarVerifier, TorchBatchVerifier)
+    items = list(zip(msgs, sigs, vks))[:SCALAR_SUBSET]
+    t = time.perf_counter()
+    ScalarVerifier().verify_batch(items[:32])
+    scalar_ms = (time.perf_counter() - t) * 1e3 / 32
+    batch = TorchBatchVerifier(dev)
+    trips = {}
+    for n in (1, 8, 64, 512):
+        batch.verify_batch(items[:n])
+        t = time.perf_counter()
+        for _ in range(5):
+            batch.verify_batch(items[:n])
+        trips[n] = (time.perf_counter() - t) * 1e3 / 5
+    log("deployment: scalar RFC 8032 verify {:.3f} ms a signature (host); "
+        "device round trip (pack, launch, copy back) {} ms at {} "
+        "signatures".format(scalar_ms,
+                            [round(v, 4) for v in trips.values()],
+                            list(trips)))
+
+    def daemon_check(addr):
+        rv = RemoteVerifier(addr, timeout=600)
+        t = time.perf_counter()
+        got = rv.verify_batch(list(zip(msgs, sigs, vks)))
+        wall = time.perf_counter() - t
+        stats = rv.daemon_stats()
+        rv.close()
+        check(got == plain, "the daemon's verdicts on the {}-signature set "
+                            "equal verify_plain's on the card".format(
+                                MICRO_BATCH))
+        check(stats["kernels"]["ed25519_verify"] > 0,
+              "the daemon verified the check set with the kernel")
+        log("deployment: daemon == verify_plain on {} signatures ({} "
+            "accepted) in {:.3f} s through the socket; its launches {} "
+            "(unique items each: {})".format(
+                MICRO_BATCH, sum(got), wall,
+                stats["kernels"]["ed25519_verify"],
+                [u for u, _ in stats["hub_launches"]]))
+
+    launches, runs = {}, []
+    plan = [("remote", MP_REQS, "by_node"),
+            ("cpu", MP_CPU_REQS, "by_node")] * 2 + [
+        ("remote", MP_REQS, "broadcast"), ("cpu", MP_CPU_REQS, "broadcast")]
+    for i, (provider, n, order) in enumerate(plan):
+        t_run = time.perf_counter()
+        res = mp_pool.run_multiprocess_pool(
+            reqs[:n + 1], provider, device="cuda",
+            log_dir=os.path.join(REPO, "chiprun_out", "mp_logs", str(i)),
+            profile_node="Alpha" if profile and i < 2 else None,
+            before_pool=daemon_check if i == 0 else None,
+            timeout=MP_TIMEOUT_S, order=order)
+        nodes = res["nodes"]
+        provider = "{} ({})".format(provider, order)
+        check(res["ordered"] == res["required"] == n,
+              "{}: every node replied to all {} writes ({} on the slowest)"
+              .format(provider, n, res["ordered"]))
+        for key in ("domain_root", "audit_root", "state_root"):
+            check(len({v[key] for v in nodes.values()}) == 1,
+                  "{}: {}s equal on the four nodes".format(provider, key))
+        t = time.perf_counter()
+        replay = mp_pool.replay_roots(nodes["Alpha"]["domain_txns"])
+        check(all(v["domain_root"] == replay["domain_root"]
+                  and v["state_root"] == replay["state_root"]
+                  for v in nodes.values()),
+              "{}: the four nodes' domain and state roots equal a host "
+              "replay of the committed txns (hashlib leaves, host trie)"
+              .format(provider))
+        replay_s = time.perf_counter() - t
+        check(all(v["multi_sig_ok"] for v in nodes.values()),
+              "{}: each node's latest state root carries a BLS multi-sig "
+              "that verifies under the pool's keys".format(provider))
+        check(all(v["device"].startswith("cuda") for v in nodes.values()),
+              "{}: every node process ran on the card".format(provider))
+        per_node = {name: {k: c for k, c in v["kernels"].items() if c}
+                    for name, v in nodes.items()}
+        if provider.startswith("remote"):
+            check(all(v["kernels"]["sha256_ragged"] > 0
+                      and v["kernels"]["sha3_ragged"] > 0
+                      for v in nodes.values()),
+                  "remote: every node process launched sha256_ragged and "
+                  "sha3_ragged")
+            daemon = res["daemon"]
+            check(daemon["kernels"]["ed25519_verify"] > 0,
+                  "remote: the daemon launched ed25519_verify")
+            log("deployment {} {}: daemon {} items in {} fused batches, "
+                "ed25519_verify launches {} (unique items each: {})".format(
+                    i, provider, daemon["served"], daemon["batches"],
+                    daemon["kernels"]["ed25519_verify"],
+                    [u for u, _ in daemon["hub_launches"]]))
+            for k, c in daemon["kernels"].items():
+                launches[k] = launches.get(k, 0) + c
+        for v in nodes.values():
+            for k, c in v["kernels"].items():
+                launches[k] = launches.get(k, 0) + c
+        log("deployment {} {}: {} writes ordered on every node in {:.3f} s "
+            "wall, {:.1f} ordered requests/s (run with set-up and stop "
+            "{:.1f} s; the client took {:.3f} s to encrypt and queue the "
+            "requests, {:.3f} CPU s in all); roots equal on the four nodes "
+            "and to the host replay of {} txns ({:.1f} s), multi-sigs verify; "
+            "view numbers at stop {}; node processes: {}"
+            .format(i, provider, n, res["elapsed"], res["rate"],
+                    time.perf_counter() - t_run, res["client"]["send_s"],
+                    res["client"]["client_cpu_s"],
+                    len(nodes["Alpha"]["domain_txns"]), replay_s,
+                    [nodes[name]["view_no"] for name in nodes],
+                    {name: (nodes[name]["device"], per_node[name])
+                     for name in nodes}))
+        runs.append({"provider": res["provider"], "order": order,
+                     "writes": n,
+                     "wall_s": res["elapsed"], "req_s": res["rate"],
+                     "view_no": max(v["view_no"] for v in nodes.values()),
+                     "client_cpu_s": res["client"]["client_cpu_s"]})
+        if res["profile"]:
+            host_table(res["profile"],
+                       "node Alpha, deployment {}".format(provider),
+                       depth=3)
+    log("deployment runs: " + json.dumps(runs))
+    return {"launches": launches, "runs": runs}
+
+
 def level_build_phase(torch, dev, leaf_digests, hash_store):
     """The 20 levels above the main path's 2^20 leaf digests ([2^20, 32]
     uint8): sha256_node_levels (the launches of node_level_split) against
@@ -1018,6 +1225,8 @@ def main(argv=None) -> int:
               "ptxas gives the SHA3 kernels no stack frame")
     for name in cuda_lib.SOURCES:
         cuda_lib.load(name)
+    for name in cuda_lib.HOST_SOURCES:   # BLS12-381, for the node processes
+        cuda_lib.load_host(name)
     log("build: {:.1f} s ({} libraries compiled)".format(
         time.perf_counter() - t0, len(built)))
 
@@ -1339,6 +1548,13 @@ def main(argv=None) -> int:
          "kernel_ms_per_launch": levels["kernel_ms_per_launch"],
          "build_wall_ms": levels["build_wall_ms"]},
     ] + pool_result["kernels"]
+
+    t0 = time.perf_counter()
+    deploy = deployment_phase(torch, dev, profile)
+    for entry in kernels:
+        entry["launches"] += deploy["launches"].get(entry["name"], 0)
+    log("deployment launches (node processes and daemon): {} ({:.1f} s)"
+        .format(deploy["launches"], time.perf_counter() - t0))
     log("total: {:.1f} s".format(time.perf_counter() - t_all))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -15,7 +15,8 @@ ledgers always hash through the SHA-256 kernel above
 SHA256_BATCH_THRESHOLD and its states always carry the device engine.
 VERIFIER_PROVIDER names the port's providers, and
 EXEC_MERGED_DEVICE_HASH = "auto" means the node's device (the card
-unless the node was built with device="cpu").
+unless the node was built with device="cpu"). BLS_DEVICE_PAIRING is False
+until the BLS device kernels are ported (ROADMAP A6, device half).
 """
 import os
 
@@ -173,17 +174,22 @@ class Config:
 
     # ---- client-signature verification provider (the device seam;
     # crypto/batch_verifier.py): "torch_hub" (one coalescing hub on the
-    # node's device), "torch_batch" or "cpu" (the scalar RFC 8032 check)
+    # node's device), "torch_batch", "cpu" (the scalar RFC 8032 check) or
+    # "remote" (the verify daemon at VERIFIER_DAEMON_HOST/PORT,
+    # server/verify_daemon.py: one process on the card for every node)
     VERIFIER_PROVIDER = "torch_hub"
     VERIFIER_DAEMON_HOST = "127.0.0.1"
     VERIFIER_DAEMON_PORT = 9988
     # verify-daemon coalescing (server/verify_daemon.py): window seconds
     # a first frame waits for co-resident nodes' frames; device launches
-    # are chunked to exactly BUCKET items (one compiled shape); fused
-    # batches below CPU_FLOOR take the OpenSSL path
+    # are chunked to at most BUCKET items; fused batches below CPU_FLOOR
+    # take the scalar RFC 8032 path. The JAX package's floor is 512: its
+    # scalar path is OpenSSL. The port's is pure Python, slower per
+    # signature than a launch of a few hundred (chip_smoke.py's
+    # deployment phase prints both), so every batch goes to the card.
     VERIFY_DAEMON_WINDOW = 0.002
     VERIFY_DAEMON_BUCKET = 4096
-    VERIFY_DAEMON_CPU_FLOOR = 512
+    VERIFY_DAEMON_CPU_FLOOR = 1
     # seconds a dispatched client-auth batch may stay in flight before
     # the prod loop harvests it blocking (wedged daemon/device fallback)
     CLIENT_AUTH_TIMEOUT = 10.0
@@ -308,13 +314,13 @@ class Config:
     SHA256_TPU_MIN_BATCH = 256
     BLS_PROVIDER = "cpu"
 
-    # ---- device BLS12-381 pairing / MSM (ops/bls381_pairing.py behind
-    # crypto/bls_ops): batches of pairing-product checks run as one
-    # bucketed Miller-loop launch with a SINGLE shared final
-    # exponentiation; below the MIN the native scalar path (prepared
-    # Miller lines, cached decompressions) wins on latency. Env
-    # PLENUM_TPU_BLS_TOWER=native|off forces the host path.
-    BLS_DEVICE_PAIRING = True
+    # ---- device BLS12-381 pairing / MSM (crypto/bls_ops routes batches
+    # of pairing-product checks by these values, which the node passes
+    # down). The device kernels are not ported yet (ROADMAP A6, device
+    # half), so device pairing is off and a node whose config turns it on
+    # raises NotImplementedError; every BLS check runs on the host (the
+    # native scalar path with prepared Miller lines).
+    BLS_DEVICE_PAIRING = False
     BLS_PAIRING_DEVICE_MIN = 4
     BLS_MSM_DEVICE_MIN = 8       # Σ sᵢ·Pᵢ points below this stay host
 

@@ -9,6 +9,8 @@ and dispatch(items) → a pending handle with ready() / collect().
     (ops/ed25519.py); its handle's ready() queries a CUDA event.
   - CoalescingVerifierHub: coalesces the dispatches of co-resident
     consumers into ONE deduplicated launch.
+  - RemoteVerifier ("remote", crypto/remote_verifier.py): offloads to the
+    verify daemon (server/verify_daemon.py) of a multi-process pool.
 """
 from __future__ import annotations
 
@@ -204,22 +206,26 @@ class CoalescingVerifierHub:
         return self.dispatch(items).collect()
 
 
+def _make_remote(**kwargs):
+    from plenum_tpu_torch.crypto.remote_verifier import RemoteVerifier
+    return RemoteVerifier(**kwargs)
+
+
 _PROVIDERS = {
     "cpu": ScalarVerifier,
     "torch_batch": TorchBatchVerifier,
     "torch_hub": lambda device=None, threshold=None: CoalescingVerifierHub(
         batch=TorchBatchVerifier(device), threshold=threshold),
+    "remote": _make_remote,
 }
 
 
 def create_verifier(name: str = "torch_hub", **kwargs):
     """A verification provider by name: "cpu" (the scalar RFC 8032
-    check), "torch_batch" (one launch per dispatch on `device`) or
+    check), "torch_batch" (one launch per dispatch on `device`),
     "torch_hub" (a CoalescingVerifierHub over it; `threshold` defaults
-    to Config.VERIFIER_BATCH_THRESHOLD). `device=None` means CUDA."""
-    if name == "remote":
-        raise NotImplementedError("the remote verifier and its verify "
-                                  "daemon are not ported yet (ROADMAP A4)")
+    to Config.VERIFIER_BATCH_THRESHOLD) or "remote" (the verify daemon
+    at `addr`, crypto/remote_verifier.py). `device=None` means CUDA."""
     try:
         cls = _PROVIDERS[name]
     except KeyError:

@@ -1,7 +1,9 @@
 """Identity signers — the reference's Signer seam.
 
 Reference: `stp_core/crypto/signer.py:9` (Signer ABC),
-`plenum/common/signer_simple.py:13` (SimpleSigner: identifier = b58 verkey).
+`plenum/common/signer_simple.py:13` (SimpleSigner: identifier = b58 verkey),
+`plenum/common/signer_did.py:76` (DidSigner: identifier = b58 of first 16
+bytes of verkey, abbreviated verkey with '~' prefix).
 The port signs with its copy of the pure-Python RFC 8032 code; Ed25519 is
 deterministic, so its signatures are bit-identical to the JAX package's
 OpenSSL-backed ones.
@@ -55,6 +57,36 @@ class SimpleSigner(Signer):
         """Sign a dict (canonical signing serialization) or bytes → b58."""
         data = msg if isinstance(msg, bytes) else serialize_msg_for_signing(msg)
         return b58encode(self.sign_bytes(data))
+
+
+class DidSigner(Signer):
+    """DID-style: identifier = b58(verkey[:16]), abbreviated verkey =
+    '~' + b58(verkey[16:])."""
+
+    def __init__(self, seed: Optional[bytes] = None):
+        self._simple = SimpleSigner(seed)
+        raw = self._simple.verraw
+        self._identifier = b58encode(raw[:16])
+        self._abbreviated = "~" + b58encode(raw[16:])
+
+    @property
+    def seed(self) -> bytes:
+        return self._simple.seed
+
+    @property
+    def identifier(self) -> str:
+        return self._identifier
+
+    @property
+    def verkey(self) -> str:
+        return self._abbreviated
+
+    @property
+    def full_verkey(self) -> str:
+        return self._simple.verstr
+
+    def sign(self, msg) -> str:
+        return self._simple.sign(msg)
 
 
 def verkey_from_identifier(identifier: str, verkey: Optional[str]) -> bytes:

@@ -119,3 +119,22 @@ def scatter_ragged_rows(msgs, width: int):
                - np.repeat(starts, lens))
         flat[dst] = joined
     return out, lens
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """{kernel name: launches} of every kernel wrapper in this process
+    (each wrapper adds one where it launches its kernel); reset=True
+    zeroes the counts after reading them. Node processes and the verify
+    daemon report these, so that a harness sees their launches."""
+    from . import ed25519, sha256, sha3
+    fns = {"ed25519_verify": ed25519.verify_cuda,
+           "sha256_compress": sha256.sha256_blocks_cuda,
+           "sha256_ragged": sha256.sha256_ragged_cuda,
+           "sha256_node_levels": sha256.sha256_node_levels_cuda,
+           "sha3_ragged": sha3.sha3_ragged_cuda,
+           "sha3_ragged_eq": sha3.sha3_ragged_eq_cuda}
+    counts = {name: fn.launches for name, fn in fns.items()}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return counts

@@ -7,6 +7,12 @@ file name carries a hash of the source, so an edited kernel is rebuilt and
 a stale library is never loaded. `build()` starts every missing compile at
 once and waits for all of them. The libraries are loaded with ctypes;
 wrappers pass every pointer and the stream as `c_void_p`.
+
+`load_host()` does the same for the port's host C sources (the BLS12-381
+arithmetic), compiled by the host C compiler. Every compile writes a
+file of its own (the pid in its name) and moves it into place with
+`os.replace`, so processes that build the same library at once (node
+processes, test workers) never load a half-written one.
 """
 import ctypes
 import hashlib
@@ -23,6 +29,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("sha256", "sha3", "ed25519_verify")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_SOURCES = ("bls12_381",)
+HOST_CC_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c11"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -88,4 +97,37 @@ def load(name: str) -> ctypes.CDLL:
         if not os.path.exists(path):
             build([name])
         lib = _loaded[name] = ctypes.CDLL(path)
+    return lib
+
+
+def host_lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(HOST_CC_FLAGS).encode())
+    with open(os.path.join(CSRC, name + ".c"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, "lib{}-host-{}.so".format(
+        name, h.hexdigest()[:16]))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for `csrc/<name>.c`, compiled first with
+    the host C compiler (`$CC`, else `cc`) if it is not built yet.
+    Raises subprocess.CalledProcessError (with the compiler's output)
+    when the compile fails and OSError when the library does not load."""
+    key = "host:" + name
+    lib = _loaded.get(key)
+    if lib is None:
+        path = host_lib_path(name)
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = "{}.{}.tmp".format(path, os.getpid())
+            try:
+                subprocess.run(
+                    [os.environ.get("CC", "cc")] + HOST_CC_FLAGS
+                    + ["-o", tmp, os.path.join(CSRC, name + ".c")],
+                    check=True, capture_output=True)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = _loaded[key] = ctypes.CDLL(path)
     return lib

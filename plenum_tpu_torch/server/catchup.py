@@ -29,6 +29,7 @@ from plenum_tpu_torch.common.constants import (
 from plenum_tpu_torch.common.messages.internal_messages import CatchupFinished
 from plenum_tpu_torch.common.messages.node_messages import (
     CatchupRep, CatchupReq, ConsistencyProof, LedgerStatus)
+from plenum_tpu_torch.common.serializers.serializers import MsgPackSerializer
 from plenum_tpu_torch.consensus.quorums import Quorums
 from plenum_tpu_torch.ledger.ledger import Ledger
 from plenum_tpu_torch.ledger.merkle_verifier import MerkleVerifier
@@ -40,6 +41,15 @@ logger = logging.getLogger(__name__)
 
 CATCHUP_LEDGER_ORDER = [AUDIT_LEDGER_ID, POOL_LEDGER_ID, CONFIG_LEDGER_ID,
                         DOMAIN_LEDGER_ID]
+
+
+# proofs are materialized per group of this many txns: the JAX package's
+# MERKLE_DEVICE_PROOF_MIN, the device Merkle tree's floor (plenum_tpu/
+# common/config.py:139), which the port's Config leaves out until that
+# tree is ported (ROADMAP A3)
+PROOF_GROUP = 2048
+# the node stack's codec (network/stack.py): a catchup rep's frame size
+_WIRE = MsgPackSerializer()
 
 
 class SeederService:
@@ -160,8 +170,7 @@ class SeederService:
         conf = self._config
         chunk = max(1, getattr(conf, "CATCHUP_REP_CHUNK",
                                Config.CATCHUP_REP_CHUNK))
-        group = max(chunk, getattr(conf, "MERKLE_DEVICE_PROOF_MIN",
-                                   Config.MERKLE_DEVICE_PROOF_MIN))
+        group = max(chunk, PROOF_GROUP)
         want_paths = getattr(conf, "CATCHUP_REP_AUDIT_PATHS",
                              Config.CATCHUP_REP_AUDIT_PATHS)
         for glo in range(start, end + 1, group):
@@ -177,9 +186,26 @@ class SeederService:
                         return
                     txns[str(seq)] = txn
                 audit = {k: proofs[k] for k in txns} if proofs else None
-                self._network.send(
-                    CatchupRep(ledgerId=req.ledgerId, txns=txns,
-                               consProof=[], auditPaths=audit), [frm])
+                self._send_reps(req.ledgerId, txns, audit, frm)
+
+    def _send_reps(self, ledger_id: int, txns: dict, audit, frm: str):
+        """One CatchupRep for `txns`, or, where its wire frame would pass
+        MSG_LEN_LIMIT (the sending stack drops such a frame, so the peer
+        would wait for the chunk forever), two halves, each split again as
+        it needs. The JAX package sends the chunk whole: 1,000 NYM txns
+        with their audit paths are ~1 MB (ROADMAP C 8)."""
+        rep = CatchupRep(ledgerId=ledger_id, txns=txns, consProof=[],
+                         auditPaths=audit)
+        limit = getattr(self._config, "MSG_LEN_LIMIT", Config.MSG_LEN_LIMIT)
+        if len(txns) > 1 and \
+                len(_WIRE.serialize(rep.to_dict())) > limit:
+            keys = list(txns)
+            for part in (keys[:len(keys) // 2], keys[len(keys) // 2:]):
+                self._send_reps(ledger_id, {k: txns[k] for k in part},
+                                {k: audit[k] for k in part}
+                                if audit else None, frm)
+            return
+        self._network.send(rep, [frm])
 
 
 class LeecherState(Enum):

@@ -23,8 +23,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from plenum_tpu_torch.common.config import Config
 from plenum_tpu_torch.common.constants import (
-    AUDIT_LEDGER_ID, CONFIG_LEDGER_ID, DOMAIN_LEDGER_ID, GET_TXN, NODE, NYM,
-    POOL_LEDGER_ID, VERKEY)
+    AUDIT_LEDGER_ID, BLS_KEY, CONFIG_LEDGER_ID, DOMAIN_LEDGER_ID, GET_TXN,
+    NODE, NYM, POOL_LEDGER_ID, VERKEY)
 from plenum_tpu_torch.common.exceptions import InvalidClientMessageException
 from plenum_tpu_torch.common.messages.client_request import ClientMessageValidator
 from plenum_tpu_torch.common.messages.message_factory import node_message_factory
@@ -167,11 +167,12 @@ class Node:
         "cpu" runs the kernels' plain PyTorch versions."""
         from plenum_tpu_torch.server.observer import Observable
         self.device = resolve_device(device)
-        if bls_bft_replica is not None or bls_signer is not None:
-            raise NotImplementedError(
-                "BLS multi-signatures are not ported yet (ROADMAP A6)")
         self.name = name
         self.config = config or Config()
+        if getattr(self.config, "BLS_DEVICE_PAIRING", False):
+            raise NotImplementedError(
+                "BLS_DEVICE_PAIRING: the BLS pairing kernels are not "
+                "ported yet (ROADMAP A6, device half)")
         if getattr(self.config, "PIPELINE_ENABLED", False):
             raise NotImplementedError(
                 "PIPELINE_ENABLED: the pipeline runtime is not ported yet "
@@ -251,7 +252,10 @@ class Node:
         if provider:
             from plenum_tpu_torch.crypto.batch_verifier import create_verifier
             kwargs = {}
-            if provider in ("torch_batch", "torch_hub"):
+            if provider == "remote":
+                kwargs["addr"] = (self.config.VERIFIER_DAEMON_HOST,
+                                  self.config.VERIFIER_DAEMON_PORT)
+            elif provider in ("torch_batch", "torch_hub"):
                 kwargs["device"] = self.device
             if provider == "torch_hub":
                 kwargs["threshold"] = getattr(
@@ -325,8 +329,31 @@ class Node:
         # (keys of peers come from pool-ledger NODE txns via the pool
         # manager; the aggregated multi-sigs land in a persistent store
         # that read handlers attach to state proofs)
-        # (not ported: the constructor raised above when one was given)
+        if bls_bft_replica is None and bls_signer is not None:
+            from plenum_tpu_torch.consensus.bls_bft_replica import (
+                BlsBftReplica, BlsKeyRegister, BlsStore)
+            from plenum_tpu_torch.crypto.bls import BlsCryptoVerifierPlenum
+            pool_state = self.db_manager.get_state(POOL_LEDGER_ID)
+            # the batch seams route by this node's config (the JAX
+            # package's bls_ops reads the Config class; ROADMAP C)
+            verifier = BlsCryptoVerifierPlenum(
+                device_pairing=self.config.BLS_DEVICE_PAIRING,
+                pairing_device_min=self.config.BLS_PAIRING_DEVICE_MIN)
+            bls_bft_replica = BlsBftReplica(
+                name, bls_signer, verifier,
+                BlsKeyRegister(lambda n: (self.pool_manager.node_info(n)
+                                          or {}).get(BLS_KEY)),
+                bls_store=BlsStore(make_kv("bls_store")),
+                get_pool_root=lambda: pool_state.committedHeadHash_b58
+                if pool_state is not None else "",
+                defer_share_verify=getattr(
+                    self.config, "BLS_DEFER_SHARE_VERIFY", True))
         self.bls_bft_replica = bls_bft_replica
+        if bls_bft_replica is not None:
+            self.db_manager.bls_store = bls_bft_replica.bls_store
+            # pay the key-dependent verifier setup now (subgroup checks,
+            # prepared pairings), not on the first state-proof verify
+            bls_bft_replica.warm_pool_keys(validators)
 
         self.replica = ReplicaService(
             name, validators, timer, network, executor=self.executor,

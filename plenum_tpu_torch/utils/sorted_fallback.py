@@ -1,7 +1,8 @@
-"""A stdlib SortedList on `bisect`: the one `sortedcontainers` type the
-port uses (runtime/stashing_router.py's SortedStash), with the small API
-it exercises (add/pop/len/iter and a key function). O(n) inserts are
-acceptable at the sizes involved: stash replay queues."""
+"""Stdlib stand-ins on `bisect` for the two `sortedcontainers` types the
+port uses: SortedList (runtime/stashing_router.py's SortedStash: add/pop/
+len/iter and a key function) and SortedDict (storage/kv_file.py's index:
+key-ordered items and irange). O(n) inserts are acceptable at the sizes
+involved: stash replay queues and KV iteration indexes."""
 import bisect
 from typing import Any, Callable, Iterable, Optional
 
@@ -33,3 +34,58 @@ class SortedList:
 
     def __iter__(self):
         return iter(self._items)
+
+
+class SortedDict(dict):
+    """dict with key-ordered iteration, items() and irange()."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._sorted = sorted(super().keys())
+
+    def __setitem__(self, key, value):
+        if key not in self:
+            bisect.insort(self._sorted, key)
+        super().__setitem__(key, value)
+
+    def __delitem__(self, key):
+        super().__delitem__(key)
+        self._sorted.remove(key)
+
+    def pop(self, key, *default):
+        if key in self:
+            self._sorted.remove(key)
+        return super().pop(key, *default)
+
+    def clear(self):
+        super().clear()
+        self._sorted = []
+
+    def setdefault(self, key, default=None):
+        if key not in self:
+            self[key] = default
+            return default
+        return self[key]
+
+    def update(self, *args, **kwargs):
+        for k, v in dict(*args, **kwargs).items():
+            self[k] = v
+
+    def irange(self, minimum=None, maximum=None):
+        lo = 0 if minimum is None \
+            else bisect.bisect_left(self._sorted, minimum)
+        hi = len(self._sorted) if maximum is None \
+            else bisect.bisect_right(self._sorted, maximum)
+        return iter(self._sorted[lo:hi])
+
+    def keys(self):
+        return list(self._sorted)
+
+    def items(self):
+        return [(k, self[k]) for k in self._sorted]
+
+    def values(self):
+        return [self[k] for k in self._sorted]
+
+    def __iter__(self):
+        return iter(self._sorted)

@@ -2,7 +2,8 @@
 import neither jax nor plenum_tpu and load no native extension of the JAX
 package, every entry point that touches the device raises when CUDA is
 absent and the caller did not ask for the CPU, the Node raises
-NotImplementedError on the branches that are not ported, and
+NotImplementedError on the branches that are not ported, no port source
+names the JAX package's native directory, and
 chip_smoke.py refuses to report without a card or without the package
 beside it."""
 import ast
@@ -94,9 +95,18 @@ def _entry_points():
     from plenum_tpu_torch.state.device_state import DeviceStateEngine
     from plenum_tpu_torch.state.pruning_state import PruningState
     from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
-    from plenum_tpu_torch.testing import pool
+    from plenum_tpu_torch import bootstrap, start_node
+    from plenum_tpu_torch.server.verify_daemon import VerifyDaemon
+    from plenum_tpu_torch.testing import mp_pool, pool
     empty = np.zeros((0, 32), dtype=np.uint8)
     return {
+        "build_networked_node": lambda: bootstrap.build_networked_node(
+            "Alpha", "no-such-pool"),
+        "start_node": lambda: start_node.main(
+            ["--name", "Alpha", "--base-dir", "no-such-pool"]),
+        "VerifyDaemon": lambda: VerifyDaemon(backend="torch_hub"),
+        "run_multiprocess_pool": lambda: mp_pool.run_multiprocess_pool(
+            [], "remote"),
         "sha3_256_many": lambda: sha3.sha3_256_many([b"abc"]),
         "hash_nodes": lambda: trie.hash_nodes([b"abc"]),
         "dispatch_node_verify_batch": lambda: trie.dispatch_node_verify_batch(
@@ -160,20 +170,44 @@ def test_sha3_cuda_wrappers_refuse_cpu_tensors():
                                  torch.zeros((1, 32), dtype=torch.uint8))
 
 
-@pytest.mark.parametrize("branch", ["bls_signer", "bls_bft_replica",
+@pytest.mark.parametrize("branch", ["BLS_DEVICE_PAIRING",
                                     "MERKLE_DEVICE_PROOFS",
-                                    "PIPELINE_ENABLED", "remote_verifier"])
+                                    "PIPELINE_ENABLED"])
 def test_node_raises_on_branches_not_ported(branch):
     from plenum_tpu_torch.common.config import Config
-    kw = {"device": "cpu"}
-    if branch.startswith("bls"):
-        kw[branch] = object()
-    elif branch == "remote_verifier":
-        kw["config"] = Config(VERIFIER_PROVIDER="remote")
-    else:
-        kw["config"] = Config(**{branch: True})
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        _node(**kw)
+        _node(device="cpu", config=Config(**{branch: True}))
+
+
+def test_networked_node_raises_on_the_info_dump():
+    from plenum_tpu_torch.network.keys import NodeKeys
+    from plenum_tpu_torch.network.stack import HA
+    from plenum_tpu_torch.server.networked_node import NetworkedNode
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        NetworkedNode("Alpha", {}, NodeKeys(b"\x01" * 32),
+                      HA("127.0.0.1", 0), HA("127.0.0.1", 0),
+                      info_dir="info", device="cpu")
+
+
+def _port_files():
+    out = []
+    for root, _, files in os.walk(os.path.join(REPO, "plenum_tpu_torch")):
+        if os.path.basename(root) in ("_build", "__pycache__"):
+            continue
+        out.extend(os.path.join(root, f) for f in files
+                   if f.endswith((".py", ".c", ".cu", ".cpp", ".h")))
+    return sorted(out + [os.path.join(REPO, "chip_smoke.py")])
+
+
+def test_port_names_no_path_of_the_jax_packages_native_code():
+    """The port builds its own copies of C sources (csrc/); nothing in it
+    points at the JAX package's plenum_tpu/native/ directory."""
+    offenders = []
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            if "plenum_tpu/native" in f.read():
+                offenders.append(os.path.relpath(path, REPO))
+    assert offenders == []
 
 
 def _run_smoke(cwd, script):
