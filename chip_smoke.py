@@ -19,7 +19,12 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    (sha256_node_levels) on every level above 1, 2, 3, 511, 512, 513,
    1,023, 1,024, 1,025, 4,095, 4,097 and 2^18 ± 1 digests (across its
    CTAs' 512 children and its launches' nine levels) against its plain
-   version and hashlib; SHA-256's ragged and level wrappers called under
+   version and hashlib; the append entry (sha256_append_levels, through
+   DeviceMerkleTree.append_leaf_hashes) on appends of 1, 2, 3, 255, 256,
+   257, 1,023, 1,025 and 4,097 leaves onto trees of 2^12 ± 1 leaves with
+   K = 1 and K = 4 levels a launch, every complete node against its plain
+   version (the same append on the CPU from the same levels) and hashlib;
+   SHA-256's ragged, level and append wrappers called under
    torch.cuda.set_sync_debug_mode("error"), and invalid offsets raising
    ValueError at the ragged entry's host copy;
    The SHA3-256 kernel's two entries (digests, and the fused compare
@@ -75,7 +80,8 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    directory of keys and genesis, over TCP with the encrypted transport,
    each signing its state roots with BLS (the native C build of
    csrc/bls12_381.c), order signed NYM writes, the runs in turns:
-   "remote" (4,000 writes; a verify daemon process on the card verifies
+   "remote" (3,000 writes, bench.py's 4,000 cut so that phase 8 fits the
+   script's time; a verify daemon process on the card verifies
    every node's client signatures with ed25519_verify), "cpu" (1,000;
    each node verifies on its own, pure-Python RFC 8032), "remote",
    "cpu", the client sending in bench.py's order (one node all the
@@ -97,17 +103,37 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    launches; under --profile, node Alpha of the first remote and cpu
    runs runs under cProfile and its host time is printed by module.
    Process logs go to chiprun_out/mp_logs/.
+8. drives catchup seeding from the card: the ledger path's 2^20 NYM txns
+   recovered into a new domain ledger, its device Merkle tree attached
+   with warm=True (one build of the 2^20 leaf digests on the card), a
+   CatchupReq for its last 2,048 txns (the first serving call: it
+   mirrors the top levels on the host), then 1,706 txns (the pool's
+   clamped 3PC batch) staged and committed one by one, and a CatchupReq
+   for the last 32,768 txns up to 2^20 + 1,706 served by the port's
+   SeederService: its sync appends the 1,706 leaves (capacity 2^20 →
+   2^21, mirrors kept; sha256_append_levels) and its 16 groups of 2,048
+   proofs go through ProofPipeline. Every rep of both requests must be
+   byte-equal (msgpack) to a second seeder's whose ledger has no engine
+   (the host memo path), every audit path verify under MerkleVerifier
+   against the root at 2^20 + 1,706, and the device tree's root equal the
+   host tree's; the append's launches equal their plain version and
+   hashlib. It prints the warm build's wall, proofs per second on the
+   device path and the host memo path timed in turns (device, host, host,
+   device), the append's kernel-alone time beside its bound and the
+   latency of one level, the proof gather's device time, the tree's
+   dispatch stats and the launches.
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
-six; the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
-pool's shape.
+seven; the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
+pool's shape, sha256_append_levels "kernel_ms" and "level_latency_ms" at
+phase 8's append.
 
 Each path's kernel launch counters are zeroed just before it and read
 just after; every kernel of a path must have launched in it (a node
 process or the daemon starts at zero, and the daemon's counters are
 zeroed after its check). The kernels line gives each kernel's launches
-over all three paths.
+over all four paths.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory that holds this
@@ -137,7 +163,9 @@ N_NODES = 4
 TXN_TIME = 1700000000
 POOL_REQS = 4000             # bench.py POOL_REQS
 POOL_BAD = 20                # tampered requests, spread over the chunks
-MP_REQS = 4000               # bench.py POOL_REQS: the deployment's writes
+MP_REQS = 3000               # the deployment's writes (bench.py POOL_REQS
+                             # is 4,000; cut so that phase 8 fits the
+                             # script's time)
 MP_CPU_REQS = 1000           # the "cpu" side's writes: at 4,000 a node's
                              # pure-Python verify of one intake batch
                              # blocks it past the peers' 10 s heartbeat
@@ -154,6 +182,12 @@ SHA3_WIDE_ROWS = 65536
 NODE_LEVEL_COUNTS = (1, 2, 3, 511, 512, 513, 1023, 1024, 1025, 4095, 4097,
                      (1 << 18) - 1, (1 << 18) + 1)
 LEDGER_LEVELS = LEDGER_TXNS.bit_length() - 1
+# appends held against the plain version and hashlib: around a warp, a
+# CTA's 256 level-1 parents and its 512 children, onto 2^12 +- 1 leaves
+APPEND_BASES = ((1 << 12) - 1, (1 << 12) + 1)
+APPEND_BATCHES = (1, 2, 3, 255, 256, 257, 1023, 1025, 4097)
+COMMIT_BATCH = 1706          # the pool's 3PC batch, clamped by the frame
+CATCHUP_TAIL = 32768         # txns a lagging node asks a seeder for
 
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bandwidth,
 # and 32-bit integer instructions over all 128 lanes of the 132 SMs at
@@ -429,14 +463,25 @@ def node_levels_phase(torch, dev):
     return err
 
 
+def _launch_append(sha, tree, groups, fn=None):
+    """The append launches of `groups` (ops/merkle.py append_groups) on
+    `tree`'s levels in place, through `fn` (the wrapper by default)."""
+    for h, group in groups:
+        (fn or sha.sha256_append_levels_cuda)(
+            tree._level(h), [tree._level(lv) for lv, _, _ in group],
+            [(p0, cnt) for _, p0, cnt in group])
+
+
 def sha256_sync_phase(torch, dev):
-    """Neither sha256_ragged_cuda nor sha256_node_levels_cuda
-    synchronises (set_sync_debug_mode "error"); offsets that are
-    negative, decreasing or past the data raise ValueError at the ragged
-    entry's host copy, after which a good launch still equals hashlib."""
+    """Neither sha256_ragged_cuda, sha256_node_levels_cuda nor
+    sha256_append_levels_cuda synchronises (set_sync_debug_mode "error");
+    offsets that are negative, decreasing or past the data raise
+    ValueError at the ragged entry's host copy, after which a good launch
+    still equals hashlib."""
     import numpy as np
     from plenum_tpu_torch.ops import sha256 as sha
     from plenum_tpu_torch.ops import to_tensor
+    from plenum_tpu_torch.ops.merkle import DeviceMerkleTree, append_groups
     rng = np.random.RandomState(SEED + 6)
     msgs = [rng.randint(0, 256, size=int(rng.randint(300)),
                         dtype=np.uint8).tobytes() for _ in range(1025)]
@@ -444,17 +489,31 @@ def sha256_sync_phase(torch, dev):
     digests = rng.randint(0, 256, size=(1025, 32), dtype=np.uint8)
     data, offsets = sha.upload_ragged(msgs, dev)
     d = to_tensor(digests, dev)
+    # 800 leaves, then 224 more placed in level 0: the append's launches
+    tree = DeviceMerkleTree(device=dev)
+    tree.build_from_leaf_hashes(digests[:800])
+    tree._level(0)[800:1024].copy_(d[800:1024])
+    leaves = torch.zeros((1027, 32), dtype=torch.uint8, device=dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         rag = sha.sha256_ragged_cuda(data, offsets, 0x00)
+        be = sha.sha256_ragged_cuda(data, offsets, 0x00,
+                                    out=leaves[1:1026])
         lv = sha.sha256_node_levels_cuda(d, 10)
+        _launch_append(sha, tree, append_groups(800, 1024, 4))
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    top = tree._buf[1024:].cpu().numpy().tobytes()
     check(sha.digests_to_bytes(sha.to_host(rag)) == want
+          and be.host().shape == (0, 8)
+          and leaves.cpu().numpy().tobytes() == bytes(32) + b"".join(want)
+          + bytes(32)
           and lv.cpu().numpy().tobytes() == b"".join(
-              hashlib_levels(digests, 10)),
-          "the launches made under the sync check are right")
+              hashlib_levels(digests, 10))
+          and top == b"".join(hashlib_levels(digests[:1024], 10)),
+          "the launches made under the sync check are right (the ragged "
+          "entry's big-endian store among them)")
     n = len(msgs)
     cases = {"negative": [-1] + [0] * n,
              "decreasing": [0] * (n - 1) + [data.shape[0], 0],
@@ -472,10 +531,54 @@ def sha256_sync_phase(torch, dev):
     check(sha.digests_to_bytes(sha.to_host(sha.sha256_ragged_cuda(
         data, offsets, 0x00))) == want,
         "a good launch after the bad offsets equals hashlib")
-    log("sha256: neither the ragged nor the level wrapper synchronises "
-        "(sync debug mode \"error\"); {} offsets raise ValueError at the "
-        "ragged entry's host copy, and the card stays usable".format(
-            ", ".join(cases)))
+    log("sha256: neither the ragged, the level nor the append wrapper "
+        "synchronises (sync debug mode \"error\"); {} offsets raise "
+        "ValueError at the ragged entry's host copy, and the card stays "
+        "usable".format(", ".join(cases)))
+
+
+def append_levels_phase(torch, dev):
+    """sha256_append_levels (through DeviceMerkleTree.append_leaf_hashes)
+    against its plain version and hashlib: appends of APPEND_BATCHES leaves
+    onto trees of APPEND_BASES leaves, K = 1 and K = 4 levels a launch; the
+    plain version appends on the CPU from the card tree's levels before the
+    append, and every complete node of every level must be equal. → the
+    largest digest byte difference between kernel and plain version."""
+    import numpy as np
+    from plenum_tpu_torch.ops.merkle import DeviceMerkleTree
+    rng = np.random.RandomState(SEED + 7)
+    err = 0
+    for n0 in APPEND_BASES:
+        base = rng.randint(0, 256, size=(n0, 32), dtype=np.uint8)
+        for b in APPEND_BATCHES:
+            app = rng.randint(0, 256, size=(b, 32), dtype=np.uint8)
+            n1 = n0 + b
+            depth = (n1 - 1).bit_length()
+            # the new leaves, then every level's complete nodes
+            want = [app.tobytes()] + hashlib_levels(
+                np.concatenate([base, app]), depth)
+            for k in (1, 4):
+                card_t = DeviceMerkleTree(device=dev, fused_levels=k)
+                card_t.build_from_leaf_hashes(base)
+                plain_t = DeviceMerkleTree(device="cpu", fused_levels=k)
+                plain_t.load_levels(card_t._buf.cpu().numpy(), n0)
+                card_t.append_leaf_hashes(app)
+                plain_t.append_leaf_hashes(app)
+                got = card_t._buf.cpu()
+                for h in range(depth + 1):
+                    o, m = card_t._offset(h), n1 >> h
+                    lo = o + (n0 if h == 0 else 0)
+                    a, p = got[lo:o + m], plain_t._buf[lo:o + m]
+                    if m:
+                        err = max(err, int((a.int() - p.int()).abs().max()))
+                    check(a.numpy().tobytes() == want[h],
+                          "sha256_append_levels equals hashlib at level {} "
+                          "of {} + {} leaves, K = {}".format(h, n0, b, k))
+    check(err == 0, "sha256_append_levels equals its plain version")
+    log("sha256_append_levels: kernel == plain == hashlib on every level "
+        "of appends of {} leaves onto {} leaves, K = 1 and 4".format(
+            APPEND_BATCHES, APPEND_BASES))
+    return err
 
 
 def kernel_ms(torch, fn, reps=50):
@@ -1173,6 +1276,248 @@ def level_build_phase(torch, dev, leaf_digests, hash_store):
             "build_wall_ms": {k: sorted(v) for k, v in walls.items()}}
 
 
+def catchup_phase(torch, dev, blobs, profile):
+    """Phase 8: catchup seeding from the card (see the module docstring).
+    → {"launches", "entry": the kernels line's sha256_append_levels
+    numbers but its launches, "err"}."""
+    import numpy as np
+    from plenum_tpu_torch import testing
+    from plenum_tpu_torch.common.config import Config
+    from plenum_tpu_torch.common.constants import DOMAIN_LEDGER_ID
+    from plenum_tpu_torch.common.messages.node_messages import CatchupReq
+    from plenum_tpu_torch.common.serializers.serializers import (
+        MsgPackSerializer)
+    from plenum_tpu_torch.ledger.compact_merkle_tree import CompactMerkleTree
+    from plenum_tpu_torch.ledger.ledger import Ledger, _seq_key
+    from plenum_tpu_torch.ledger.merkle_verifier import MerkleVerifier
+    from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
+    from plenum_tpu_torch.ops import launch_counts
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops.merkle import append_groups
+    from plenum_tpu_torch.server.catchup import SeederService
+    from plenum_tpu_torch.server.database_manager import DatabaseManager
+
+    conf = Config()
+    wire = MsgPackSerializer()
+
+    class Net:
+        """The seeder's network: subscriptions dropped, reps captured."""
+
+        def __init__(self):
+            self.sent = []
+
+        def subscribe(self, *args):
+            pass
+
+        def send(self, msg, dst=None):
+            self.sent.append(msg.to_dict())
+
+    def serve(ledger, lo, hi, till):
+        """(reps, host seconds) of one CatchupReq for txns lo..hi proved
+        against the size-`till` tree, served by a SeederService of
+        `ledger`."""
+        db = DatabaseManager()
+        db.register_new_database(DOMAIN_LEDGER_ID, ledger, None)
+        net = Net()
+        seeder = SeederService(db, net, name="Alpha", config=conf)
+        t = time.perf_counter()
+        seeder.process_catchup_req(CatchupReq(
+            ledgerId=DOMAIN_LEDGER_ID, seqNoStart=lo, seqNoEnd=hi,
+            catchupTill=till), "Beta")
+        torch.cuda.synchronize()
+        return net.sent, time.perf_counter() - t
+
+    def host_ledger():
+        """The same committed txns and hash store, no engine: the seeder
+        of the host memo path."""
+        return Ledger(tree=CompactMerkleTree(ledger.hasher,
+                                             ledger.tree.hash_store),
+                      txn_store=ledger._store)
+
+    def same_reps(a, b, what):
+        check(len(a) == len(b) and all(
+            wire.serialize(x) == wire.serialize(y) for x, y in zip(a, b)),
+            "{}: the device seeder's {} reps are byte-equal to the host "
+            "memo seeder's".format(what, len(a)))
+
+    t0 = time.perf_counter()
+    ledger = Ledger(tree_hasher=TreeHasher(
+        batch_backend=sha.TorchSha256Backend(dev)))
+    ledger._store.setBatch((_seq_key(i + 1), b) for i, b in enumerate(blobs))
+    ledger.recoverTreeFromTxnLog()
+    commit = [ledger.txn_serializer.deserialize(b) for b in
+              testing.nym_txn_blobs(COMMIT_BATCH, SEED + 8, TXN_TIME)]
+    log("phase 8 set-up: domain ledger of {} txns recovered, {} txns to "
+        "commit ({:.1f} s)".format(LEDGER_TXNS, len(commit),
+                                   time.perf_counter() - t0))
+
+    # ---- the path: attach (warm build), serve, commit, serve
+    launch_counts(reset=True)
+    t = time.perf_counter()
+    eng = ledger.tree.attach_device_engine(
+        proof_min=conf.MERKLE_DEVICE_PROOF_MIN,
+        chunk=conf.MERKLE_DEVICE_PROOF_CHUNK,
+        pipeline_depth=conf.MERKLE_DEVICE_PIPELINE_DEPTH,
+        fused_levels=conf.MERKLE_FUSED_LEVELS, warm=True, device=dev)
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t)
+    first, first_s = serve(ledger, LEDGER_TXNS - 2047, LEDGER_TXNS,
+                           LEDGER_TXNS)
+    ledger.append_txns_metadata(commit, txn_time=TXN_TIME)
+    ledger.stage_txns_collect(ledger.stage_txns_dispatch(commit))
+    ledger.commitTxns(len(commit))
+    till = LEDGER_TXNS + COMMIT_BATCH
+    lagged = eng.tree_size
+    lo = till - CATCHUP_TAIL + 1
+    reps, serve_s = serve(ledger, lo, till, till)
+    launches = launch_counts()
+    stats = dict(eng.dispatch_stats)
+    log("phase 8 launches: {} | warm build of {} leaf digests {:.3f} ms; "
+        "CatchupReq of 2,048 txns {:.3f} s; of {} txns up to {} (engine "
+        "synced from {}) {:.3f} s".format(
+            launches, LEDGER_TXNS, warm_ms, first_s, CATCHUP_TAIL, till,
+            lagged, serve_s))
+    log("phase 8 dispatch stats: {}".format(json.dumps(stats)))
+
+    # ---- checks
+    t0 = time.perf_counter()
+    check(stats["build_dispatches"] == 1 and lagged == LEDGER_TXNS
+          and eng.tree_size == till and eng._cap == 2 * LEDGER_TXNS,
+          "one warm build; the commit left the engine behind; the catchup's "
+          "sync appended {} leaves and doubled the capacity".format(
+              COMMIT_BATCH))
+    groups = append_groups(LEDGER_TXNS, till, eng.fused_levels)
+    check(launches["sha256_append_levels"] == len(groups)
+          and launches["sha256_node_levels"] > 0
+          and launches["sha256_ragged"] > 0,
+          "the path launched sha256_append_levels ({} groups), "
+          "sha256_node_levels and sha256_ragged".format(len(groups)))
+    host = host_ledger()
+    same_reps(first, serve(host_ledger(), LEDGER_TXNS - 2047, LEDGER_TXNS,
+                           LEDGER_TXNS)[0], "2,048 txns")
+    host_reps, host_s = serve(host, lo, till, till)
+    same_reps(reps, host_reps, "{} txns".format(CATCHUP_TAIL))
+    root = ledger.tree.root_hash
+    check(eng.root_hash == root == host.tree.root_hash
+          == ledger.tree.merkle_tree_hash(0, till),
+          "the device tree's root equals the host tree's")
+    verifier = MerkleVerifier(TreeHasher())
+    served = 0
+    for rep in reps:
+        for seq, txn in rep["txns"].items():
+            served += 1
+            check(verifier.verify_leaf_inclusion(
+                ledger.serialize_for_tree(txn), int(seq) - 1,
+                [ledger.strToHash(h) for h in rep["auditPaths"][seq]],
+                till, root), "the audit path of txn {} verifies".format(seq))
+    check(served == CATCHUP_TAIL, "every txn of the range was served")
+
+    # the append of the sync again, on the tree's own levels with the new
+    # nodes blanked: the kernel, and its plain version on the CPU, against
+    # the engine's nodes and the host tree's hash store
+    new_rows = np.concatenate([
+        np.arange(eng._offset(lv) + p0, eng._offset(lv) + p0 + cnt)
+        for _, group in groups for lv, p0, cnt in group])
+    done = eng._buf.clone()
+    eng._buf[torch.from_numpy(new_rows).to(dev)] = 0
+    blank = eng._buf.cpu()
+    _launch_append(sha, eng, groups)
+    check(torch.equal(eng._buf, done),
+          "the append's launches equal the synced tree")
+    plain = type(eng)(device="cpu", fused_levels=eng.fused_levels)
+    plain._buf, plain._cap = blank, eng._cap
+    _launch_append(sha, plain, groups, sha.sha256_append_levels_plain)
+    got = done.cpu()[torch.from_numpy(new_rows)]
+    err = int((got.int() - plain._buf[torch.from_numpy(new_rows)].int())
+              .abs().max())
+    want = b"".join(ledger.tree.hash_store.read_subtree((p0 + i) << lv, lv)
+                    for _, group in groups for lv, p0, cnt in group
+                    for i in range(cnt))
+    check(err == 0 and got.numpy().tobytes() == want,
+          "sha256_append_levels equals its plain version and hashlib at "
+          "the catchup's append ({} nodes)".format(new_rows.shape[0]))
+    log("phase 8 checks: reps byte-equal to the host memo seeder's; {} "
+        "audit paths verify; roots equal; the append's {} nodes == plain "
+        "== hashlib ({:.1f} s)".format(served, new_rows.shape[0],
+                                       time.perf_counter() - t0))
+
+    # ---- times
+    nodes = int(new_rows.shape[0])
+    ms, _ = cuda_ms(torch, lambda: _launch_append(sha, eng, groups), 20)
+    plain_ms, _ = cuda_ms(torch, lambda: _launch_append(
+        sha, eng, groups, sha.sha256_append_levels_plain), 1)
+    alone = kernel_ms(torch, lambda: _launch_append(sha, eng, groups))
+    top = [(groups[-1][0] + len(groups[-1][1]) - 1,
+            [groups[-1][1][-1]])]          # the last level: one node
+    level_ms = kernel_ms(torch, lambda: _launch_append(sha, eng, top))
+    check(torch.equal(eng._buf, done), "the timed launches changed nothing")
+    # leaves read, new nodes written, once each
+    b_ms, b_by = bound(2 * nodes * SHA256_OPS_PER_BLOCK,
+                       32 * (COMMIT_BATCH + nodes))
+    log("sha256_append_levels at the catchup's append ({} leaves onto {}: "
+        "{} nodes on {} levels in {} launches of K = {}): kernel alone "
+        "{:.5f} ms, bound {:.6f} ms ({}), {:.3%} of it; one level of one "
+        "node (latency) {:.5f} ms; wrapper (cuda_ms) {:.5f} ms; plain "
+        "version {:.3f} ms".format(
+            COMMIT_BATCH, LEDGER_TXNS, nodes, sum(len(g) for _, g in groups),
+            len(groups), eng.fused_levels, alone, b_ms, b_by, b_ms / alone,
+            level_ms, ms, plain_ms))
+
+    idx = np.arange(lo - 1, lo - 1 + conf.MERKLE_DEVICE_PROOF_MIN)
+    g = min(eng._n_low(), till.bit_length() - 1)
+    rows = eng._upload(eng.sibling_rows(idx, g))
+    gather_ms = kernel_ms(torch, lambda: eng._buf.index_select(0, rows))
+    log("proof gather (index_select of {} leaves x {} levels, {} bytes): "
+        "{:.5f} ms on the card".format(idx.shape[0], g, 32 * rows.shape[0],
+                                       gather_ms))
+
+    spans = [(glo - 1, min(glo + conf.MERKLE_DEVICE_PROOF_MIN - 1, till))
+             for glo in range(lo, till + 1, conf.MERKLE_DEVICE_PROOF_MIN)]
+
+    def proofs(tree):
+        for a, b in spans:
+            tree.inclusion_proofs_batch(list(range(a, b)), till)
+        torch.cuda.synchronize()
+
+    walls = {"device": [], "host": []}
+    for which in ("device", "host", "host", "device"):
+        tree = ledger.tree if which == "device" else host.tree
+        t = time.perf_counter()
+        proofs(tree)
+        walls[which].append(time.perf_counter() - t)
+    pps = {k: [CATCHUP_TAIL / w for w in v] for k, v in walls.items()}
+    log("proofs of the {} txns in {} groups, in turns device, host, host, "
+        "device: device {} s ({} proofs/s), host memo {} s ({} proofs/s)"
+        .format(CATCHUP_TAIL, len(spans),
+                " / ".join("{:.4f}".format(w) for w in walls["device"]),
+                " / ".join("{:.0f}".format(p) for p in pps["device"]),
+                " / ".join("{:.4f}".format(w) for w in walls["host"]),
+                " / ".join("{:.0f}".format(p) for p in pps["host"])))
+    if profile:
+        # the device's share of a proofs turn: its busy time under
+        # torch.profiler against the unprofiled turns' wall (the profiler
+        # slows the host many times over)
+        busy, _ = device_time(torch, lambda: proofs(ledger.tree))
+        total = sum(us for us, _ in busy.values()) / 1e3
+        wall = 1e3 * min(walls["device"])
+        log("device proof path under torch.profiler: device busy {:.3f} ms "
+            "against {:.3f} ms of unprofiled wall, idle share {:.6f}".format(
+                total, wall, 1 - total / wall) if busy else
+            "device proof path: device time not measured (no device "
+            "events traced)")
+        for name, (us, count) in sorted(busy.items(),
+                                        key=lambda kv: -kv[1][0])[:6]:
+            log("  device {:.4f} ms  x{}  {}".format(us / 1e3, count,
+                                                      name[:90]))
+        where_the_time_goes(torch, lambda: serve(ledger, lo, till, till),
+                            "catchup seeding")
+    return {"launches": launches, "err": err, "entry": {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "kernel_ms": alone, "level_latency_ms": level_ms,
+        "gather_ms": gather_ms, "warm_build_ms": warm_ms,
+        "proofs_per_s": pps}}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1314,6 +1659,7 @@ def main(argv=None) -> int:
         "entry == plain == hashlib there and on {} node pairs".format(
             SHA_RAGGED_BATCHES, SHA_BOUNDARY_LENGTHS, NODE_PAIRS))
     node_err = node_levels_phase(torch, dev)
+    append_err = append_levels_phase(torch, dev)
     sha256_sync_phase(torch, dev)
     sha3_errs = sha3_phase(torch, dev)
     log("phase 2: {:.1f} s".format(time.perf_counter() - t0))
@@ -1513,11 +1859,17 @@ def main(argv=None) -> int:
 
     pool_result = pool_path(torch, dev, signer, profile, sha3_errs)
 
+    t0 = time.perf_counter()
+    catchup = catchup_phase(torch, dev, blobs, profile)
+    log("phase 8: {:.1f} s".format(time.perf_counter() - t0))
+
     pool_launches = pool_result["launches"]
     ed_err = max(ed_err, pool_result["ed_err"])
     rag_err = max(rag_err, pool_result["rag_err"])
     launches = {k: launches.get(k, 0) + pool_launches.get(k, 0)
-                for k in set(launches) | set(pool_launches)}
+                + catchup["launches"].get(k, 0)
+                for k in set(launches) | set(pool_launches)
+                | set(catchup["launches"])}
     kernels = [
         {"name": "ed25519_verify", "route": "cuda",
          "source": "plenum_tpu_torch/csrc/ed25519_verify.cu",
@@ -1547,6 +1899,12 @@ def main(argv=None) -> int:
          "kernel_ms": levels["kernel_ms"],
          "kernel_ms_per_launch": levels["kernel_ms_per_launch"],
          "build_wall_ms": levels["build_wall_ms"]},
+        dict({"name": "sha256_append_levels", "route": "cuda",
+              "source": "plenum_tpu_torch/csrc/sha256.cu",
+              "replaces": "plenum_tpu/ops/sha256_pallas.py:74",
+              "launches": launches["sha256_append_levels"],
+              "max_abs_err": max(append_err, catchup["err"]),
+              "library_ms": None}, **catchup["entry"]),
     ] + pool_result["kernels"]
 
     t0 = time.perf_counter()

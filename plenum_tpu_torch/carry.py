@@ -1,11 +1,12 @@
-"""Carry a ledger, a state trie and a verkey registry across from the JAX
-package.
+"""Carry a ledger, a device Merkle tree, a state trie and a verkey
+registry across from the JAX package.
 
 plenum_tpu has no weights: its state is the ledger (committed serialized
-txns plus the hash store's leaf and node digests), the MPT state (the
-trie's hash → RLP node blobs and its head root) and the verkey registry
-the authenticator reads. These functions build the port's objects from
-that state as plain data, recomputing nothing.
+txns plus the hash store's leaf and node digests), the device Merkle
+tree's levels, the MPT state (the trie's hash → RLP node blobs and its
+head root) and the verkey registry the authenticator reads. These
+functions build the port's objects from that state as plain data,
+recomputing nothing.
 """
 from typing import Dict, Iterable, Sequence, Tuple, Union
 
@@ -17,7 +18,8 @@ from plenum_tpu_torch.ledger.compact_merkle_tree import CompactMerkleTree
 from plenum_tpu_torch.ledger.hash_store import MemoryHashStore
 from plenum_tpu_torch.ledger.ledger import Ledger, _seq_key
 from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
-from plenum_tpu_torch.ops.sha256 import TorchSha256Backend
+from plenum_tpu_torch.ops.merkle import DeviceMerkleTree
+from plenum_tpu_torch.ops.sha256 import TorchSha256Backend, digests_to_array
 from plenum_tpu_torch.server.client_authn import CoreAuthNr
 from plenum_tpu_torch.state.pruning_state import PruningState
 from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
@@ -73,6 +75,28 @@ def ledger_from_arrays(txn_blobs: Sequence[bytes], leaf_hashes: np.ndarray,
     hasher = TreeHasher(batch_backend=TorchSha256Backend(device))
     return Ledger(tree=CompactMerkleTree(hasher, hash_store),
                   txn_store=store)
+
+
+def merkle_tree_from_levels(levels: Sequence[np.ndarray], size: int,
+                            device=None,
+                            fused_levels: int = None) -> DeviceMerkleTree:
+    """The port's DeviceMerkleTree holding a JAX DeviceMerkleTree's node
+    hashes: `levels` its level arrays, leaves first (numpy [cap >> h, 8]
+    uint32 digest words, np.asarray of each of its `_levels`), `size` its
+    tree_size; nothing is hashed. The tree lives on `device` (None means
+    CUDA); an empty list gives an empty tree."""
+    tree = DeviceMerkleTree(device=device, fused_levels=fused_levels)
+    if not levels:
+        return tree
+    cap = int(levels[0].shape[0])
+    if len(levels) != cap.bit_length() or any(
+            np.shape(lv) != (cap >> h, 8) for h, lv in enumerate(levels)):
+        raise ValueError("expected levels of [cap >> h, 8] words for "
+                         "h = 0..log2(cap), got {}".format(
+                             [np.shape(lv) for lv in levels]))
+    tree.load_levels(np.concatenate([digests_to_array(lv) for lv in levels]),
+                     size)
+    return tree
 
 
 def authnr_from_registry(registry: Dict[str, str], verifier=None,

@@ -6,8 +6,7 @@ assignment (tests use the `tconf` fixture pattern); layered file/env
 loading via Config.load (reference plenum/common/config_util.py).
 
 A copy of the JAX package's Config. Left out until the port has their
-code: the device Merkle tree's MERKLE_* keys (ROADMAP A3), the device
-mesh's MESH_* keys (A5), the XLA-only SHA256_CPU_TILE and
+code: the device mesh's MESH_* keys (A5), the XLA-only SHA256_CPU_TILE and
 SHA256_PALLAS_MIN_BATCH, and the device circuit breaker's
 BREAKER_COOLDOWN_S (the port has no step-down from a kernel to the
 host), and the SHA256_BACKEND and STATE_DEVICE_ENGINE switches: a node's
@@ -16,7 +15,11 @@ SHA256_BATCH_THRESHOLD and its states always carry the device engine.
 VERIFIER_PROVIDER names the port's providers, and
 EXEC_MERGED_DEVICE_HASH = "auto" means the node's device (the card
 unless the node was built with device="cpu"). BLS_DEVICE_PAIRING is False
-until the BLS device kernels are ported (ROADMAP A6, device half).
+until the BLS device kernels are ported (ROADMAP A6, device half). The
+MERKLE_* keys keep the JAX package's values: every ledger of a node
+carries a device Merkle tree (ops/merkle.py), and the node hands its own
+values of these keys to the tree, its proof pipeline and the catchup
+seeder.
 """
 import os
 
@@ -128,6 +131,18 @@ class Config:
 
     # ---- merkle hashing (TreeHasher device seam, ledger/tree_hasher.py)
     SHA256_BATCH_THRESHOLD = 512  # below this, hashlib wins on latency
+    # incremental device tree append (ops/merkle.py): the new parents of
+    # this many tree levels per sha256_append_levels launch, so an append
+    # of b leaves costs 1 + ceil(levels / K) dispatches, not 1 + levels
+    MERKLE_FUSED_LEVELS = 4
+
+    # ---- device merkle proof engine (ops/merkle.py + ledger routing):
+    # large reply-proof / catchup-proof batches are served from the
+    # device-resident tree; small batches keep the host memo path
+    MERKLE_DEVICE_PROOFS = True
+    MERKLE_DEVICE_PROOF_MIN = 2048   # below this the host memo path wins
+    MERKLE_DEVICE_PROOF_CHUNK = 4096  # pipelined sub-batch size
+    MERKLE_DEVICE_PIPELINE_DEPTH = 2  # gathers kept in flight
 
     # ---- device MPT state engine (state/device_state.py behind
     # PruningState): batched multi-key get / batch apply / batched SPV

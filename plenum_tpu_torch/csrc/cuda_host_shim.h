@@ -149,6 +149,10 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+template <class T>
+T __ldcg(const T* p) {
+  return *p;
+}
 inline uint32_t atomicOr(uint32_t* p, uint32_t v) {
   return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
 }

@@ -26,11 +26,17 @@
 // 16-byte loads (see sha256_ragged_kernel). Offsets are checked here, not
 // by a read-back before the launch: a row whose offsets are negative,
 // decreasing or past nbytes sets the error word in the output's 16-byte
-// tail and is hashed as empty; no load leaves data[0:nbytes].
+// tail and is hashed as empty; no load leaves data[0:nbytes]. With
+// big_endian it writes each digest as its 32 big-endian bytes instead (the
+// leaf level of a device Merkle tree, in place).
 //
 // sha256_node_levels: the RFC 6962 tree levels above a level of 32-byte
 // digests, up to NODE_LEVELS levels a launch (see
 // sha256_node_levels_kernel).
+//
+// sha256_append_levels: the new parents of up to APPEND_LEVELS_MAX levels
+// of a growing tree, written in place, windows at any offset (see
+// sha256_append_levels_kernel).
 //
 // Bound on this card: operations. A compression is ~1,400 32-bit integer
 // instructions (64 rounds of Sigma/Ch/Maj/adds plus 48 schedule words) for
@@ -115,6 +121,26 @@ __device__ __forceinline__ void sha256_message(const uint4* words, int nvalid,
   }
 }
 
+__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
+  return __byte_perm(x, 0, 0x0123);
+}
+
+// The big-endian words of the 32-byte digest at `p` (16-byte aligned).
+__device__ __forceinline__ void load_digest(const uint8_t* p, uint32_t d[8]) {
+  const uint4 a = __ldg((const uint4*)p), b = __ldg((const uint4*)p + 1);
+  d[0] = bswap32(a.x); d[1] = bswap32(a.y); d[2] = bswap32(a.z);
+  d[3] = bswap32(a.w); d[4] = bswap32(b.x); d[5] = bswap32(b.y);
+  d[6] = bswap32(b.z); d[7] = bswap32(b.w);
+}
+
+// The digest state `st` stored as its 32 big-endian bytes at `p`.
+__device__ __forceinline__ void store_digest(uint8_t* p, const uint32_t st[8]) {
+  ((uint4*)p)[0] = make_uint4(bswap32(st[0]), bswap32(st[1]), bswap32(st[2]),
+                              bswap32(st[3]));
+  ((uint4*)p)[1] = make_uint4(bswap32(st[4]), bswap32(st[5]), bswap32(st[6]),
+                              bswap32(st[7]));
+}
+
 #define RAGGED_THREADS 256
 #define STAGE_VECS 5       // 80 bytes: one block's 64 bytes at any 16-byte phase
 
@@ -132,7 +158,11 @@ __device__ __forceinline__ uint4 load16(const uint8_t* data, int64_t a,
 }
 
 // Thread i hashes prefix || data[offsets[i]:offsets[i + 1]] (no prefix when
-// prefix < 0); invalid offsets set *err and hash the row as empty. Byte p of its padded message is data[origin + p] for p in
+// prefix < 0) into row i of `out`: the digest state's 8 words, or with
+// big_endian its 32 big-endian bytes (a digest as the Merkle levels hold
+// it, so that a tree's leaf level is written in place); invalid offsets set
+// *err and hash the row as empty. Byte p of its padded message is
+// data[origin + p] for p in
 // [plen, total). Block by block, the warp first stages the next 80 aligned
 // bytes of each of its 32 messages in shared memory, five lanes to a
 // message with one 16-byte load each, six messages per load instruction:
@@ -143,7 +173,7 @@ __global__ void __launch_bounds__(RAGGED_THREADS)
 sha256_ragged_kernel(const uint8_t* __restrict__ data, int64_t nbytes,
                      const int64_t* __restrict__ offsets, int prefix,
                      uint4* __restrict__ out, uint32_t* __restrict__ err,
-                     int B) {
+                     int B, int big_endian) {
   __shared__ uint4 stage[RAGGED_THREADS][STAGE_VECS];
   const int lane = threadIdx.x & 31;
   const int warp0 = threadIdx.x - lane;
@@ -212,7 +242,9 @@ sha256_ragged_kernel(const uint8_t* __restrict__ data, int64_t nbytes,
     }
     __syncwarp();
   }
-  if (live) {
+  if (live && big_endian) {
+    store_digest((uint8_t*)(out + 2 * (size_t)i), st);
+  } else if (live) {
     out[2 * (size_t)i] = make_uint4(st[0], st[1], st[2], st[3]);
     out[2 * (size_t)i + 1] = make_uint4(st[4], st[5], st[6], st[7]);
   }
@@ -220,26 +252,6 @@ sha256_ragged_kernel(const uint8_t* __restrict__ data, int64_t nbytes,
 
 #define NODE_THREADS 256
 #define NODE_LEVELS 9    // levels a launch climbs: a CTA's 512 children → 1
-
-__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
-  return __byte_perm(x, 0, 0x0123);
-}
-
-// The big-endian words of the 32-byte digest at `p` (16-byte aligned).
-__device__ __forceinline__ void load_digest(const uint8_t* p, uint32_t d[8]) {
-  const uint4 a = __ldg((const uint4*)p), b = __ldg((const uint4*)p + 1);
-  d[0] = bswap32(a.x); d[1] = bswap32(a.y); d[2] = bswap32(a.z);
-  d[3] = bswap32(a.w); d[4] = bswap32(b.x); d[5] = bswap32(b.y);
-  d[6] = bswap32(b.z); d[7] = bswap32(b.w);
-}
-
-// The digest state `st` stored as its 32 big-endian bytes at `p`.
-__device__ __forceinline__ void store_digest(uint8_t* p, const uint32_t st[8]) {
-  ((uint4*)p)[0] = make_uint4(bswap32(st[0]), bswap32(st[1]), bswap32(st[2]),
-                              bswap32(st[3]));
-  ((uint4*)p)[1] = make_uint4(bswap32(st[4]), bswap32(st[5]), bswap32(st[6]),
-                              bswap32(st[7]));
-}
 
 // st = H(0x01 || l || r) for the big-endian digest words l and r. Block 1
 // is the prefix byte and the first 63 message bytes, each word shifted by
@@ -358,6 +370,103 @@ inline int node_levels_grid(int64_t n) {
   return (int)(((n >> 1) + NODE_THREADS - 1) / NODE_THREADS);
 }
 
+#define APPEND_LEVELS_MAX 16   // parent levels one append launch climbs
+
+// The windows of one append launch: level[0] is the child level, level[j]
+// (1 <= j <= levels) the parent level j above it, each [rows, 32] bytes of
+// big-endian digests; the new parents of level j are [p0[j], end[j]). A
+// CTA owns `slots` consecutive level-`levels` ancestors from slot0 + slots
+// * blockIdx.x on: every new parent below them, at every level.
+struct AppendWindows {
+  uint8_t* level[APPEND_LEVELS_MAX + 1];
+  int64_t p0[APPEND_LEVELS_MAX + 1];
+  int64_t end[APPEND_LEVELS_MAX + 1];
+  int64_t slot0;
+  int levels, slots;
+};
+
+// The big-endian words of the 32-byte digest at `p` (16-byte aligned),
+// read through L2: the digest may have been written by another thread of
+// the block in this launch, which the read-only path (__ldg) would not see.
+__device__ __forceinline__ void load_digest_cg(const uint8_t* p, uint32_t d[8]) {
+  const uint4 a = __ldcg((const uint4*)p), b = __ldcg((const uint4*)p + 1);
+  d[0] = bswap32(a.x); d[1] = bswap32(a.y); d[2] = bswap32(a.z);
+  d[3] = bswap32(a.w); d[4] = bswap32(b.x); d[5] = bswap32(b.y);
+  d[6] = bswap32(b.z); d[7] = bswap32(b.w);
+}
+
+// Appends the new parents of up to APPEND_LEVELS_MAX tree levels in one
+// launch, each written in place into its level: parent p of level j is
+// H(0x01 || child 2p || child 2p + 1) of level j - 1.
+//
+// Replaces the incremental append of the JAX package: the Pallas kernel
+// plenum_tpu/ops/sha256_pallas.py::_sha256_kernel at nblocks = 2, fed by
+// plenum_tpu/ops/merkle.py::_append_levels_fused (K levels a dispatch,
+// each level's new nodes gathered from the one below and scattered into
+// its level array) and _append_level_step (one level).
+//
+// Design. An append's windows are not aligned at 0: when a level's
+// window starts at an odd index, the left child of its first parent is a
+// stored node that no thread of this launch writes, and is read from the
+// child level as it is. Every other child of a new parent is new at the
+// level below, and lies under the same level-K ancestor; so a CTA that
+// owns a run of level-K ancestors owns every new node below them and
+// climbs its levels alone: hash its parents of level j, __syncthreads,
+// hash those of level j + 1 from them. Between levels the digests go
+// through global memory (read back through L2: L1 and the read-only path
+// are not coherent with other threads' stores), since an append's windows
+// are small and its levels few. A CTA owns 256 >> (K - 1) ancestors, 256
+// parents of level 1 (one a thread), more for K > 9.
+//
+// Bound: operations, 2 x 1,384 instructions a node. An append of a 3PC
+// batch is far below a wave of the card (1,706 leaves onto 2^20: 1,700
+// nodes on 10 levels, a bound of 0.00014 ms), so the latency of a level
+// (two dependent compressions and their loads) times the levels of a
+// launch sets its time: 0.0424 ms for that append's three launches, one
+// level of one node 0.0053 ms (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py phase 8).
+__global__ void __launch_bounds__(NODE_THREADS)
+sha256_append_levels_kernel(AppendWindows a) {
+  const int64_t s_lo = a.slot0 + (int64_t)blockIdx.x * a.slots;
+  const int64_t s_hi = s_lo + a.slots;
+  for (int j = 1; j <= a.levels; ++j) {
+    if (j > 1) __syncthreads();           // level j - 1 was written above
+    const int up = a.levels - j;          // parent p lies under p >> up
+    const int64_t lo = max(a.p0[j], s_lo << up);
+    const int64_t hi = min(a.end[j], s_hi << up);
+    const uint8_t* child = a.level[j - 1];
+    uint8_t* parent = a.level[j];
+    for (int64_t p = lo + threadIdx.x; p < hi; p += blockDim.x) {
+      uint32_t l[8], r[8], st[8];
+      load_digest_cg(child + 64 * p, l);
+      load_digest_cg(child + 64 * p + 32, r);
+      sha256_node(l, r, st);
+      store_digest(parent + 32 * p, st);
+    }
+  }
+}
+
+// The launch parameters of an append of `levels` parent levels above
+// `child`: parents[j - 1] is level j, whose new parents are p0s[j - 1] and
+// the cnts[j - 1] after it. → the CTAs of the launch (0: nothing to do).
+inline int append_windows(const void* child, const void* const* parents,
+                          const int64_t* p0s, const int64_t* cnts,
+                          int levels, AppendWindows* a) {
+  a->level[0] = (uint8_t*)child;
+  for (int j = 1; j <= levels; ++j) {
+    a->level[j] = (uint8_t*)parents[j - 1];
+    a->p0[j] = p0s[j - 1];
+    a->end[j] = p0s[j - 1] + cnts[j - 1];
+  }
+  a->levels = levels;
+  if (cnts[0] <= 0) return 0;
+  const int up = levels - 1;
+  a->slots = up < 8 ? NODE_THREADS >> up : 1;
+  a->slot0 = a->p0[1] >> up;
+  const int64_t slots = ((a->end[1] - 1) >> up) - a->slot0 + 1;
+  return (int)((slots + a->slots - 1) / a->slots);
+}
+
 #ifdef __CUDACC__
 __global__ void __launch_bounds__(256)
 sha256_compress_kernel(const uint4* __restrict__ words,
@@ -384,22 +493,23 @@ extern "C" int sha256_compress(const void* words, const void* nvalid,
 }
 
 // data: [nbytes] uint8, 16-byte aligned; offsets: [B + 1] int64; prefix:
-// -1 or a byte; out: B * 32 digest-state bytes ([B, 8] uint32), then a
-// 16-byte tail whose first uint32 is the error word (zeroed here, then 1
-// if a row's offsets are negative, decreasing or past nbytes). Launches on
-// `stream` without synchronising and returns the CUDA error of the launch
-// (0 on success).
+// -1 or a byte; out: [B, 32] bytes, 16-byte aligned: each row the digest
+// state ([8] uint32) or, with big_endian, the digest's 32 big-endian bytes
+// (a device Merkle tree's leaf level, in place); err: 16 bytes whose first
+// uint32 is the error word (zeroed here, then 1 if a row's offsets are
+// negative, decreasing or past nbytes). Launches on `stream` without
+// synchronising and returns the CUDA error of the launch (0 on success).
 extern "C" int sha256_ragged(const void* data, int64_t nbytes,
                              const void* offsets, int prefix, void* out,
-                             int B, void* stream) {
-  uint32_t* err = (uint32_t*)((uint8_t*)out + 32 * (size_t)(B > 0 ? B : 0));
+                             void* err, int B, int big_endian,
+                             void* stream) {
   cudaError_t e = cudaMemsetAsync(err, 0, 16, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;
   int blocks = (B + RAGGED_THREADS - 1) / RAGGED_THREADS;
   sha256_ragged_kernel<<<blocks, RAGGED_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)data, nbytes, (const int64_t*)offsets, prefix,
-      (uint4*)out, err, B);
+      (uint4*)out, (uint32_t*)err, B, big_endian);
   return (int)cudaGetLastError();
 }
 
@@ -428,6 +538,27 @@ extern "C" int sha256_node_levels(const void* in, int64_t n, void* out,
   sha256_node_levels_kernel<<<node_levels_grid(n), NODE_THREADS, 0,
                               (cudaStream_t)stream>>>(
       (const uint8_t*)in, n, (uint8_t*)out, levels);
+  return (int)cudaGetLastError();
+}
+
+// child: [*, 32] digests of the level below the first parent level;
+// parents: `levels` device pointers (1 <= levels <= APPEND_LEVELS_MAX), the
+// parent levels, each [*, 32]; p0s, cnts: host arrays, the window of new
+// parents of each (cnts[0] >= cnts[1] >= ..., each window's children in
+// the window below or stored before it). Every pointer 16-byte aligned.
+// One launch on `stream`, without synchronising; returns its CUDA error
+// (0 on success).
+extern "C" int sha256_append_levels(const void* child,
+                                    const void* const* parents,
+                                    const int64_t* p0s, const int64_t* cnts,
+                                    int levels, void* stream) {
+  if (levels < 1 || levels > APPEND_LEVELS_MAX)
+    return (int)cudaErrorInvalidValue;
+  AppendWindows a;
+  const int grid = append_windows(child, parents, p0s, cnts, levels, &a);
+  if (grid == 0) return 0;
+  sha256_append_levels_kernel<<<grid, NODE_THREADS, 0,
+                                (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 #endif

@@ -4,6 +4,8 @@
 //   g++ -std=c++20 -O1 -pthread -o sha256_host sha256_host.cpp
 //   sha256_host levels SPLIT IN OUT
 //   sha256_host ragged PREFIX DATA OFFSETS OUT
+//   sha256_host ragged_be PREFIX DATA OFFSETS OUT
+//   sha256_host append SPEC TREE OUT
 //
 // levels: IN holds n 32-byte digests; SPLIT the levels of each launch,
 // comma-separated (ops/sha256.py::node_level_split); OUT receives the
@@ -11,7 +13,12 @@
 // them, one after another, each launch fed the last level of the one
 // before. ragged: DATA holds the raw bytes, OFFSETS B + 1 int64,
 // PREFIX -1 or a byte; OUT receives B * 32 digest-state bytes, then the
-// 16-byte tail with the error word.
+// 16-byte tail with the error word; ragged_be, B * 32 big-endian digest
+// bytes, then the 16 bytes of the error word. append: TREE holds rows of
+// 32-byte digests; SPEC is C:R1:P1:N1[:R2:P2:N2...], the first row of the
+// child level, then for each parent level its first row and its window of
+// new parents (first, count); OUT receives TREE after one launch of the
+// append kernel, as ops/sha256.py::sha256_append_levels_cuda makes it.
 #include <cstdio>
 #include <cstdlib>
 #include <string>
@@ -81,7 +88,8 @@ static int levels_main(const char* split_arg, const char* in_path,
 }
 
 static int ragged_main(int prefix, const char* data_path,
-                       const char* offsets_path, const char* out_path) {
+                       const char* offsets_path, const char* out_path,
+                       int big_endian) {
   std::vector<uint8_t> data = read_file(data_path);
   std::vector<uint8_t> off_bytes = read_file(offsets_path);
   std::vector<int64_t> offsets(off_bytes.size() / 8);
@@ -95,21 +103,58 @@ static int ragged_main(int prefix, const char* data_path,
   std::memcpy(d, data.data(), data.size());
   host_launch((B + RAGGED_THREADS - 1) / RAGGED_THREADS, RAGGED_THREADS,
               sha256_ragged_kernel, (const uint8_t*)d, (int64_t)data.size(),
-              (const int64_t*)offsets.data(), prefix, out.data(), err, B);
+              (const int64_t*)offsets.data(), prefix, out.data(), err, B,
+              big_endian);
   delete[] d;
   return write_file(out_path, (const uint8_t*)out.data(),
                     32 * (size_t)B + 16);
+}
+
+static int append_main(const char* spec, const char* tree_path,
+                       const char* out_path) {
+  std::vector<int64_t> v;
+  for (const char* p = spec; *p;) {
+    char* end;
+    v.push_back(std::strtoll(p, &end, 10));
+    if (end == p) return 2;
+    p = *end == ':' ? end + 1 : end;
+  }
+  const int levels = (int)(v.size() - 1) / 3;
+  if (levels < 1 || levels > APPEND_LEVELS_MAX ||
+      v.size() != (size_t)(1 + 3 * levels))
+    return 2;
+  std::vector<uint8_t> tree = read_file(tree_path);
+  uint8_t* buf = new uint8_t[tree.size() + 1];
+  std::memcpy(buf, tree.data(), tree.size());
+  const void* parents[APPEND_LEVELS_MAX];
+  int64_t p0s[APPEND_LEVELS_MAX], cnts[APPEND_LEVELS_MAX];
+  for (int j = 0; j < levels; ++j) {
+    parents[j] = buf + 32 * v[1 + 3 * j];
+    p0s[j] = v[2 + 3 * j];
+    cnts[j] = v[3 + 3 * j];
+  }
+  AppendWindows a;
+  const int grid = append_windows(buf + 32 * v[0], parents, p0s, cnts,
+                                  levels, &a);
+  if (grid > 0) host_launch(grid, NODE_THREADS, sha256_append_levels_kernel, a);
+  const int rc = write_file(out_path, buf, tree.size());
+  delete[] buf;
+  return rc;
 }
 
 int main(int argc, char** argv) {
   const std::string mode = argc > 1 ? argv[1] : "";
   if (mode == "levels" && argc == 5)
     return levels_main(argv[2], argv[3], argv[4]);
-  if (mode == "ragged" && argc == 6)
-    return ragged_main(std::atoi(argv[2]), argv[3], argv[4], argv[5]);
+  if ((mode == "ragged" || mode == "ragged_be") && argc == 6)
+    return ragged_main(std::atoi(argv[2]), argv[3], argv[4], argv[5],
+                       mode == "ragged_be");
+  if (mode == "append" && argc == 5)
+    return append_main(argv[2], argv[3], argv[4]);
   std::fprintf(stderr,
                "usage: %s levels SPLIT IN OUT\n"
-               "       %s ragged PREFIX DATA OFFSETS OUT\n",
-               argv[0], argv[0]);
+               "       %s ragged|ragged_be PREFIX DATA OFFSETS OUT\n"
+               "       %s append SPEC TREE OUT\n",
+               argv[0], argv[0], argv[0]);
   return 2;
 }

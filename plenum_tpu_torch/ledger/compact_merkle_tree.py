@@ -6,14 +6,19 @@ full aligned subtrees are persisted by (start, height) in the HashStore, so
 `merkle_tree_hash(start, end)` resolves any range in O(log² n) lookups and
 the RFC 6962 proof algorithms (§2.1.1/§2.1.2) read straight from storage.
 Bulk builds and extends hash their leaves and levels through the
-TreeHasher device seam.
+TreeHasher device seam. An attached device engine (ops/merkle.py,
+DeviceMerkleTree) serves proof batches of proof_min or more and advances
+with bulk extends; a failing device call raises, there is no step down to
+the host memo path.
 """
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from plenum_tpu_torch.common.config import Config as _Config
 from plenum_tpu_torch.ledger.hash_store import HashStore, MemoryHashStore, NullHashStore
 from plenum_tpu_torch.ledger.tree_hasher import TreeHasher, _largest_pow2_lt
+
 
 def _array_to_digest_list(arr: 'np.ndarray') -> List[bytes]:
     """[B, 32] u8 → 32-byte bytes objects via ONE flat copy (hash-store
@@ -24,8 +29,16 @@ def _array_to_digest_list(arr: 'np.ndarray') -> List[bytes]:
 
 class CompactMerkleTree:
     # batches at/above this go level-wise instead of scalar frontier
-    # merges (extend)
+    # merges (extend), and advance an attached device engine
     BULK_MIN = 1024
+    # proof batches below this stay on the host memo path, which wins for
+    # small batches (per-batch device latency is the floor). The class
+    # defaults come from Config; attach_device_engine takes a node's own.
+    _device_proof_min = _Config.MERKLE_DEVICE_PROOF_MIN
+    _device_proof_chunk = _Config.MERKLE_DEVICE_PROOF_CHUNK
+    _device_pipeline_depth = _Config.MERKLE_DEVICE_PIPELINE_DEPTH
+    _device_engine = None
+
     def __init__(self, hasher: TreeHasher = None,
                  hash_store: HashStore = None):
         self.hasher = hasher or TreeHasher()
@@ -117,6 +130,12 @@ class CompactMerkleTree:
         if len(leaf_hashes) >= self.BULK_MIN:
             if self._size == 0:
                 self._bulk_build(leaf_hashes)
+                eng = self._device_engine
+                if eng is not None and eng.tree_size == 0:
+                    # keep the engine warm through the big growth event
+                    # (recovery, catchup): one build now, so a later proof
+                    # batch only syncs the scalar appends after it
+                    eng.build_from_leaf_hashes(leaf_hashes)
             else:
                 self._bulk_extend(leaf_hashes)
             return
@@ -174,7 +193,8 @@ class CompactMerkleTree:
     def _bulk_extend(self, leaf_hashes: List[bytes]):
         """Level-wise batched append onto a NON-empty tree: the same
         ~2n node hashes the scalar frontier merges would compute, one
-        seam dispatch per level, with identical hash-store contents and
+        seam dispatch per level (or the attached device engine's
+        incremental append), with identical hash-store contents and
         frontier. At height h the only pre-existing child a new parent
         can need is the old frontier entry at h (the odd tail node)."""
         old_n = self._size
@@ -185,19 +205,36 @@ class CompactMerkleTree:
         write_subtree = self.hash_store.write_subtree
         fr = {height: value for _, height, value in self._frontier}
         new_levels = {0: leaf_hashes}
-        level_vals = leaf_hashes
-        h = 0
-        while True:
-            o1, c1 = old_n >> (h + 1), new_n >> (h + 1)
-            if c1 == o1:
-                break
-            children = ([fr[h]] if (old_n >> h) & 1 else []) + level_vals
-            parents = self._hash_level_pairs(children[:2 * (c1 - o1)])
-            for i, ph in enumerate(parents):
-                write_subtree((o1 + i) << (h + 1), h + 1, ph)
-            new_levels[h + 1] = parents
-            level_vals = parents
-            h += 1
+        eng = self._device_engine
+        if eng is not None and eng.tree_size == old_n:
+            # the device-resident append: ~2b hashes in 1 + ceil(levels /
+            # K) dispatches; the new complete nodes come back as arrays
+            # and are persisted at the same (start, height) keys
+            nodes = eng.append_leaf_hashes(
+                np.frombuffer(b"".join(leaf_hashes), dtype=np.uint8)
+                .reshape(-1, 32), return_nodes=True)
+            for height, pos, rows in nodes:
+                if height == 0:
+                    continue  # leaves were written above
+                vals = _array_to_digest_list(rows)
+                for i, v in enumerate(vals):
+                    write_subtree((pos + i) << height, height, v)
+                new_levels[height] = vals
+        else:
+            level_vals = leaf_hashes
+            h = 0
+            while True:
+                o1, c1 = old_n >> (h + 1), new_n >> (h + 1)
+                if c1 == o1:
+                    break
+                children = ([fr[h]] if (old_n >> h) & 1 else []) \
+                    + level_vals
+                parents = self._hash_level_pairs(children[:2 * (c1 - o1)])
+                for i, ph in enumerate(parents):
+                    write_subtree((o1 + i) << (h + 1), h + 1, ph)
+                new_levels[h + 1] = parents
+                level_vals = parents
+                h += 1
         frontier = []
         for height in range(new_n.bit_length() - 1, -1, -1):
             if not (new_n >> height) & 1:
@@ -210,6 +247,68 @@ class CompactMerkleTree:
             frontier.append((idx << height, height, value))
         self._frontier = frontier
         self._size = new_n
+
+    # ------------------------------------------- device proof engine
+
+    def attach_device_engine(self, engine=None, proof_min: int = None,
+                             chunk: int = None, pipeline_depth: int = None,
+                             fused_levels: int = None, warm: bool = False,
+                             device=None):
+        """Route large inclusion-proof batches and large extends through a
+        device-resident tree (ops/merkle.DeviceMerkleTree on `device`,
+        None meaning CUDA; `fused_levels` its levels per append launch).
+        Batches below `proof_min` keep the host memo path; the engine
+        catches up lazily from the hash store, so scalar appends stay
+        O(1). warm=True syncs a non-empty tree now, keeping the one-time
+        build off the first serving call. A node passes its own config's
+        values for all of these."""
+        if engine is None:
+            from plenum_tpu_torch.ops.merkle import DeviceMerkleTree
+            engine = DeviceMerkleTree(self.hasher, device=device,
+                                      fused_levels=fused_levels)
+        self._device_engine = engine
+        if proof_min is not None:
+            self._device_proof_min = proof_min
+        if chunk is not None:
+            self._device_proof_chunk = chunk
+        if pipeline_depth is not None:
+            self._device_pipeline_depth = pipeline_depth
+        if warm and self._size and not isinstance(self.hash_store,
+                                                  NullHashStore):
+            self._device_sync()
+        return engine
+
+    def _device_sync(self):
+        """Catch the attached engine up to the committed tree by appending
+        the missing leaf digests from the hash store: complete RFC 6962
+        nodes are immutable, so catch-up after b scalar appends costs ~2b
+        device hashes, never a rebuild (a first sync builds)."""
+        eng = self._device_engine
+        if eng.tree_size > self._size:
+            eng.reset()  # the host tree was reset/reloaded under us
+        if eng.tree_size < self._size:
+            missing = self.hash_store.read_leaves(eng.tree_size,
+                                                  self._size)
+            if eng.tree_size == 0:
+                eng.build_from_leaf_hashes(missing)
+            else:
+                eng.append_leaf_hashes(missing)
+
+    def _device_proofs_batch(self, ms, n: int) -> Optional[List[List[bytes]]]:
+        """Serve a proof batch of proof_min or more from the device engine
+        (synced first, then ProofPipeline in the configured chunks and
+        depth), or None for the host memo path (no engine, a small batch,
+        no hash store to sync from)."""
+        if (self._device_engine is None
+                or len(ms) < self._device_proof_min
+                or isinstance(self.hash_store, NullHashStore)
+                or self.hash_store.leaf_count < self._size):
+            return None
+        from plenum_tpu_torch.ops.merkle import ProofPipeline
+        self._device_sync()
+        return ProofPipeline(self._device_engine,
+                             depth=self._device_pipeline_depth,
+                             chunk=self._device_proof_chunk).run(ms, n=n)
 
     def __copy__(self):
         other = CompactMerkleTree(self.hasher, NullHashStore())
@@ -277,6 +376,9 @@ class CompactMerkleTree:
         if not (0 <= min(ms) and max(ms) < n <= self._size):
             raise IndexError("invalid inclusion proof batch ({}, {}) "
                              "for size {}".format(min(ms), n, self._size))
+        device = self._device_proofs_batch(ms, n)
+        if device is not None:
+            return device
         memo = {}
         hash_children = self.hasher.hash_children
         read_leaf = self.hash_store.read_leaf
@@ -367,6 +469,8 @@ class CompactMerkleTree:
         self._size = 0
         self._frontier = []
         self._root_cache = None  # size alone can't invalidate a shrink
+        if self._device_engine is not None:
+            self._device_engine.reset()
         self.hash_store.reset()
 
     def __repr__(self):

@@ -204,26 +204,46 @@ def _pad_ragged(data: torch.Tensor, offsets: torch.Tensor, prefix: int
     return u32_as_i32(words), need[:, 0].to(torch.int32)
 
 
+def _check_out(out: torch.Tensor, rows: int, device) -> None:
+    """Raise unless `out` is a contiguous [rows, 32] uint8 tensor on
+    `device` starting on a 16-byte boundary: where a kernel writes 32-byte
+    big-endian digests in place."""
+    check_arg(out, "out", torch.uint8, (rows, 32))
+    if out.device != device:
+        raise ValueError("out lies on {}, the input on {}".format(
+            out.device, device))
+    if out.data_ptr() % 16:
+        raise ValueError("out must start on a 16-byte boundary")
+
+
 def sha256_ragged_plain(data: torch.Tensor, offsets: torch.Tensor,
-                        prefix: int = -1) -> torch.Tensor:
+                        prefix: int = -1,
+                        out: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch SHA-256 of prefix || data[offsets[i]:offsets[i + 1]]
     (no prefix when prefix is -1): data [n] uint8, offsets [B + 1] int64 →
-    digest state [B, 8] int32. Pads with torch, a chunk of messages at a
-    time, and runs sha256_blocks_plain."""
+    digest state [B, 8] int32; or, given `out` ([B, 32] uint8), the digests'
+    big-endian bytes written into it, and `out` returned. Pads with torch,
+    a chunk of messages at a time, and runs sha256_blocks_plain."""
     B = check_ragged(data, offsets, prefix)
-    out = [torch.empty((0, 8), dtype=torch.int32, device=data.device)]
+    if out is not None:
+        _check_out(out, B, data.device)
+    parts = [torch.empty((0, 8), dtype=torch.int32, device=data.device)]
     for lo in range(0, B, _PAD_CHUNK):
         hi = min(lo + _PAD_CHUNK, B)
-        out.append(sha256_blocks_plain(*_pad_ragged(data, offsets[lo:hi + 1],
-                                                    prefix)))
-    return torch.cat(out)
+        parts.append(sha256_blocks_plain(
+            *_pad_ragged(data, offsets[lo:hi + 1], prefix)))
+    state = torch.cat(parts)
+    if out is None:
+        return state
+    out.copy_(_be_bytes(state.to(torch.int64) & _M32))
+    return out
 
 
 class Sha256Launch:
     """A sha256_ragged launch in flight: `buf`, its output on the card
     (B * 32 digest-state bytes, then TAIL_BYTES whose first uint32 is the
-    kernel's error word), and the byte count of the data (for the error's
-    message)."""
+    kernel's error word; the tail alone when the digests went to an `out`
+    tensor), and the byte count of the data (for the error's message)."""
 
     __slots__ = ("buf", "nbytes")
 
@@ -245,13 +265,17 @@ class Sha256Launch:
 
 
 def sha256_ragged_cuda(data: torch.Tensor, offsets: torch.Tensor,
-                       prefix: int = -1) -> Sha256Launch:
+                       prefix: int = -1,
+                       out: torch.Tensor = None) -> Sha256Launch:
     """The CUDA kernel's ragged entry (csrc/sha256.cu, sha256_ragged) on
     CUDA tensors, the function of sha256_ragged_plain. Checks what needs
     no read-back (the ragged layout, CUDA tensors, data on a 16-byte
     boundary), launches on the current stream and returns without
     synchronising; the kernel checks the offsets and the result's host()
-    reports them. Counts each launch in `sha256_ragged_cuda.launches`."""
+    reports them. Given `out` ([B, 32] uint8 on the card), the kernel
+    writes the digests' big-endian bytes there (a tree's leaf level in
+    place) and the launch's buf is the error tail alone.
+    Counts each launch in `sha256_ragged_cuda.launches`."""
     B = check_ragged_layout(data, offsets, prefix)
     dev = data.device
     if dev.type != "cuda":
@@ -259,20 +283,28 @@ def sha256_ragged_cuda(data: torch.Tensor, offsets: torch.Tensor,
                          "{}".format(dev))
     if data.data_ptr() % 16:
         raise ValueError("data must start on a 16-byte boundary")
+    if out is not None:
+        _check_out(out, B, dev)
     nbytes = int(data.shape[0])
     if B == 0:
         return Sha256Launch(torch.zeros((TAIL_BYTES,), dtype=torch.uint8,
                                         device=dev), nbytes)
-    buf = torch.empty((32 * B + TAIL_BYTES,), dtype=torch.uint8, device=dev)
+    if out is None:
+        buf = torch.empty((32 * B + TAIL_BYTES,), dtype=torch.uint8,
+                          device=dev)
+        rows, tail = buf.data_ptr(), buf.data_ptr() + 32 * B
+    else:
+        buf = torch.empty((TAIL_BYTES,), dtype=torch.uint8, device=dev)
+        rows, tail = out.data_ptr(), buf.data_ptr()
     fn = cuda_lib.load("sha256").sha256_ragged
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(data.data_ptr(), nbytes, offsets.data_ptr(), prefix,
-                 buf.data_ptr(), B, stream)
+        err = fn(data.data_ptr(), nbytes, offsets.data_ptr(), prefix, rows,
+                 tail, B, int(out is not None), stream)
     if err != 0:
         raise RuntimeError("sha256_ragged launch failed: CUDA error "
                            "{}".format(err))
@@ -284,14 +316,16 @@ sha256_ragged_cuda.launches = 0
 
 
 def sha256_ragged(data: torch.Tensor, offsets: torch.Tensor,
-                  prefix: int = -1) -> Union[Sha256Launch, torch.Tensor]:
-    """Flat bytes + [B + 1] offsets (+ prefix byte) → [B, 8] digest state:
-    a Sha256Launch for CUDA tensors (the kernel), a tensor for CPU tensors
+                  prefix: int = -1, out: torch.Tensor = None
+                  ) -> Union[Sha256Launch, torch.Tensor]:
+    """Flat bytes + [B + 1] offsets (+ prefix byte) → [B, 8] digest state
+    (or, given `out`, the big-endian digests written into it): a
+    Sha256Launch for CUDA tensors (the kernel), a tensor for CPU tensors
     (the plain version). `to_host` takes either."""
     if data.device.type == "cuda":
-        return sha256_ragged_cuda(data, offsets, prefix)
+        return sha256_ragged_cuda(data, offsets, prefix, out)
     if data.device.type == "cpu":
-        return sha256_ragged_plain(data, offsets, prefix)
+        return sha256_ragged_plain(data, offsets, prefix, out)
     raise ValueError("unsupported device {}".format(data.device))
 
 
@@ -339,22 +373,36 @@ def _level_rows(digests: torch.Tensor, levels: int) -> List[int]:
     return [n >> k for k in range(1, levels + 1)]
 
 
-def sha256_node_levels_plain(digests: torch.Tensor,
-                             levels: int) -> torch.Tensor:
+def _hash_pairs_plain(left: torch.Tensor, right: torch.Tensor
+                      ) -> torch.Tensor:
+    """[m, 8] int64 digest words of left and right children → [m, 8]
+    int64 words of their parents H(0x01 || left || right), through
+    _node_blocks and sha256_blocks_plain."""
+    nvalid = torch.full((left.shape[0],), 2, dtype=torch.int32,
+                        device=left.device)
+    return sha256_blocks_plain(_node_blocks(left, right),
+                               nvalid).to(torch.int64) & _M32
+
+
+def sha256_node_levels_plain(digests: torch.Tensor, levels: int,
+                             out: torch.Tensor = None) -> torch.Tensor:
     """Plain PyTorch Merkle levels: [n, 32] uint8 digests → levels
     1..levels one after another as [sum of n >> k, 32] uint8 digests,
     parent i of a level being H(0x01 || child 2i || child 2i + 1) (an odd
-    last child has no parent). Forms each level's words as _node_blocks
-    does and runs sha256_blocks_plain."""
+    last child has no parent), written into `out` when it is given. Forms
+    each level's words as _node_blocks does and runs sha256_blocks_plain."""
     rows = _level_rows(digests, levels)
+    if out is not None:
+        _check_out(out, sum(rows), digests.device)
     cur = _be_words(digests)
-    out = []
+    parts = []
     for m in rows:
-        words = _node_blocks(cur[0:2 * m:2], cur[1:2 * m:2])
-        nvalid = torch.full((m,), 2, dtype=torch.int32, device=cur.device)
-        cur = sha256_blocks_plain(words, nvalid).to(torch.int64) & _M32
-        out.append(_be_bytes(cur))
-    return torch.cat(out)
+        cur = _hash_pairs_plain(cur[0:2 * m:2], cur[1:2 * m:2])
+        parts.append(_be_bytes(cur))
+    if out is None:
+        return torch.cat(parts)
+    out.copy_(torch.cat(parts))
+    return out
 
 
 def node_level_split(n: int, levels: int, wave: int) -> List[int]:
@@ -396,11 +444,12 @@ def _node_wave(lib, dev: torch.device) -> int:
     return _node_waves[index]
 
 
-def sha256_node_levels_cuda(digests: torch.Tensor,
-                            levels: int) -> torch.Tensor:
+def sha256_node_levels_cuda(digests: torch.Tensor, levels: int,
+                            out: torch.Tensor = None) -> torch.Tensor:
     """The CUDA kernel (csrc/sha256.cu, sha256_node_levels) on a CUDA
     tensor starting on a 16-byte boundary, the function of
-    sha256_node_levels_plain. Enqueues the launches of node_level_split on
+    sha256_node_levels_plain (into `out` when it is given, [sum of n >> k,
+    32] uint8 on the card). Enqueues the launches of node_level_split on
     the current stream, each fed the last level of the one before inside
     the output, and returns without synchronising. Counts each launch in
     `sha256_node_levels_cuda.launches`."""
@@ -411,7 +460,10 @@ def sha256_node_levels_cuda(digests: torch.Tensor,
                          "{}".format(dev))
     if digests.data_ptr() % 16:
         raise ValueError("digests must start on a 16-byte boundary")
-    out = torch.empty((sum(rows), 32), dtype=torch.uint8, device=dev)
+    if out is None:
+        out = torch.empty((sum(rows), 32), dtype=torch.uint8, device=dev)
+    else:
+        _check_out(out, sum(rows), dev)
     lib = cuda_lib.load("sha256")
     fn = lib.sha256_node_levels
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
@@ -437,15 +489,125 @@ def sha256_node_levels_cuda(digests: torch.Tensor,
 sha256_node_levels_cuda.launches = 0
 
 
-def sha256_node_levels(digests: torch.Tensor, levels: int) -> torch.Tensor:
-    """[n, 32] uint8 digests → levels 1..levels, [sum of n >> k, 32] uint8.
-    CUDA tensors go through the kernel, CPU tensors through the plain
-    version."""
+def sha256_node_levels(digests: torch.Tensor, levels: int,
+                       out: torch.Tensor = None) -> torch.Tensor:
+    """[n, 32] uint8 digests → levels 1..levels, [sum of n >> k, 32] uint8
+    (written into `out` when it is given). CUDA tensors go through the
+    kernel, CPU tensors through the plain version."""
     if digests.device.type == "cuda":
-        return sha256_node_levels_cuda(digests, levels)
+        return sha256_node_levels_cuda(digests, levels, out)
     if digests.device.type == "cpu":
-        return sha256_node_levels_plain(digests, levels)
+        return sha256_node_levels_plain(digests, levels, out)
     raise ValueError("unsupported device {}".format(digests.device))
+
+
+# ------------------------------- appends: new parents of a growing tree
+
+APPEND_LEVELS_MAX = 16   # parent levels one sha256_append_levels launch climbs
+
+
+def _append_windows(child: torch.Tensor, parents: Sequence[torch.Tensor],
+                    windows: Sequence[Tuple[int, int]]) -> None:
+    """Raise unless `child` and `parents` are contiguous [rows, 32] uint8
+    tensors on one device and `windows` [(p0, cnt)], one per parent
+    level, an append's: cnt >= 1 at the first level, each window's
+    children inside the window below or stored before it (p0 >= p0 below
+    >> 1, 2 (p0 + cnt) <= p0 + cnt below), every row inside its level."""
+    if not 1 <= len(parents) == len(windows) <= APPEND_LEVELS_MAX:
+        raise ValueError("expected 1 to {} parent levels with a window "
+                         "each, got {} and {}".format(
+                             APPEND_LEVELS_MAX, len(parents), len(windows)))
+    below_p0 = below_end = 0
+    for j, t in enumerate([child] + list(parents)):
+        if t.dim() != 2:
+            raise ValueError("levels must be [rows, 32], got {}".format(
+                tuple(t.shape)))
+        check_arg(t, "level {}".format(j), torch.uint8, (t.shape[0], 32))
+        if t.device != child.device:
+            raise ValueError("the levels lie on {} and {}".format(
+                child.device, t.device))
+        if j == 0:
+            below_end = int(t.shape[0])
+            continue
+        p0, cnt = (int(v) for v in windows[j - 1])
+        end = p0 + cnt
+        if cnt < (1 if j == 1 else 0) or p0 < below_p0 >> 1 \
+                or 2 * end > below_end or end > t.shape[0]:
+            raise ValueError("window {} of level {} is not an append's "
+                             "above [{}, {})".format(
+                                 (p0, cnt), j, below_p0, below_end))
+        below_p0, below_end = p0, end
+
+
+def sha256_append_levels_plain(child: torch.Tensor,
+                               parents: Sequence[torch.Tensor],
+                               windows: Sequence[Tuple[int, int]]) -> None:
+    """Plain PyTorch append: for each parent level j (parents[j - 1], with
+    its window (p0, cnt)), parents p0 .. p0 + cnt - 1 are H(0x01 || child
+    2p || child 2p + 1) of the level below (`child` for the first),
+    written in place, each level's new nodes feeding the next. The words
+    are formed by _node_blocks and hashed by sha256_blocks_plain, as
+    plenum_tpu/ops/merkle.py::_append_levels_fused does."""
+    _append_windows(child, parents, windows)
+    below = child
+    for parent, (p0, cnt) in zip(parents, windows):
+        if cnt:
+            pairs = _be_words(below[2 * p0:2 * (p0 + cnt)])
+            parent[p0:p0 + cnt] = _be_bytes(_hash_pairs_plain(
+                pairs[0::2], pairs[1::2]))
+        below = parent
+
+
+def sha256_append_levels_cuda(child: torch.Tensor,
+                              parents: Sequence[torch.Tensor],
+                              windows: Sequence[Tuple[int, int]]) -> None:
+    """The CUDA kernel (csrc/sha256.cu, sha256_append_levels) on CUDA
+    tensors starting on 16-byte boundaries (views into one tree buffer
+    are the rule), the function of sha256_append_levels_plain: one launch
+    for all the levels, on the current stream, without synchronising (the
+    windows are host integers). Counts each launch in
+    `sha256_append_levels_cuda.launches`."""
+    _append_windows(child, parents, windows)
+    dev = child.device
+    if dev.type != "cuda":
+        raise ValueError("sha256_append_levels_cuda needs CUDA tensors, got "
+                         "{}".format(dev))
+    levels = [child] + list(parents)
+    if any(t.data_ptr() % 16 for t in levels):
+        raise ValueError("every level must start on a 16-byte boundary")
+    k = len(parents)
+    fn = cuda_lib.load("sha256").sha256_append_levels
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_int64),
+                   ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in parents])
+    p0s = (ctypes.c_int64 * k)(*[int(p) for p, _ in windows])
+    cnts = (ctypes.c_int64 * k)(*[int(c) for _, c in windows])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(child.data_ptr(), ptrs, p0s, cnts, k, stream)
+    if err != 0:
+        raise RuntimeError("sha256_append_levels launch failed: CUDA error "
+                           "{}".format(err))
+    sha256_append_levels_cuda.launches += 1
+
+
+sha256_append_levels_cuda.launches = 0
+
+
+def sha256_append_levels(child: torch.Tensor,
+                         parents: Sequence[torch.Tensor],
+                         windows: Sequence[Tuple[int, int]]) -> None:
+    """The new parents of up to APPEND_LEVELS_MAX levels of a growing
+    tree, written in place (see sha256_append_levels_plain). CUDA tensors
+    go through the kernel, CPU tensors through the plain version."""
+    if child.device.type == "cuda":
+        return sha256_append_levels_cuda(child, parents, windows)
+    if child.device.type == "cpu":
+        return sha256_append_levels_plain(child, parents, windows)
+    raise ValueError("unsupported device {}".format(child.device))
 
 
 class PinnedStaging:
@@ -604,16 +766,27 @@ def _node_words_from_digest_pairs(pairs: torch.Tensor) -> torch.Tensor:
     return u32_as_i32(words).view(m, 2, 16)
 
 
-def _download(t: torch.Tensor) -> np.ndarray:
-    """One device→host copy of `t` into pinned memory (PyTorch's caching
-    host allocator, so a repeated size costs no new allocation), waited
-    for → a numpy view of it."""
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(t.device))
-    done.synchronize()
-    return host.numpy()
+class Download:
+    """A device→host copy of a tensor in flight: on CUDA into pinned memory
+    (PyTorch's caching host allocator, so a repeated size costs no new
+    allocation) with non_blocking=True, an event marking its end; on the
+    CPU a copy. `wait()` → a numpy view of the host copy."""
+
+    __slots__ = ("host", "done")
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host, self.done = t.clone(), None
+
+    def wait(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
 
 
 def sha256_node_levels_array(level: np.ndarray, levels: int, device=None,
@@ -627,7 +800,8 @@ def sha256_node_levels_array(level: np.ndarray, levels: int, device=None,
     level = np.ascontiguousarray(level, dtype=np.uint8).reshape(-1, 32)
     if dev.type == "cuda":
         digests = (staging or PinnedStaging()).upload([level], dev)
-        flat = _download(sha256_node_levels(digests.view(-1, 32), levels))
+        flat = Download(sha256_node_levels(digests.view(-1, 32),
+                                           levels)).wait()
     else:
         flat = sha256_node_levels(to_tensor(level, dev), levels).numpy()
     out, at = [], 0

@@ -43,11 +43,6 @@ CATCHUP_LEDGER_ORDER = [AUDIT_LEDGER_ID, POOL_LEDGER_ID, CONFIG_LEDGER_ID,
                         DOMAIN_LEDGER_ID]
 
 
-# proofs are materialized per group of this many txns: the JAX package's
-# MERKLE_DEVICE_PROOF_MIN, the device Merkle tree's floor (plenum_tpu/
-# common/config.py:139), which the port's Config leaves out until that
-# tree is ported (ROADMAP A3)
-PROOF_GROUP = 2048
 # the node stack's codec (network/stack.py): a catchup rep's frame size
 _WIRE = MsgPackSerializer()
 
@@ -136,7 +131,10 @@ class SeederService:
         try:
             paths = ledger.tree.inclusion_proofs_batch(
                 list(range(start - 1, end)), till)
-        except Exception:
+        except (IndexError, KeyError, ValueError):
+            # the host tree cannot prove the range (the JAX package
+            # catches every exception here; a failing device call is not
+            # caught, so it cannot pass as reps without audit paths)
             logger.warning("%s cannot build catchup audit paths "
                            "%s..%s@%s", self.name, start, end, till,
                            exc_info=True)
@@ -170,7 +168,7 @@ class SeederService:
         conf = self._config
         chunk = max(1, getattr(conf, "CATCHUP_REP_CHUNK",
                                Config.CATCHUP_REP_CHUNK))
-        group = max(chunk, PROOF_GROUP)
+        group = max(chunk, conf.MERKLE_DEVICE_PROOF_MIN)
         want_paths = getattr(conf, "CATCHUP_REP_AUDIT_PATHS",
                              Config.CATCHUP_REP_AUDIT_PATHS)
         for glo in range(start, end + 1, group):

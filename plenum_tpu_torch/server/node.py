@@ -86,10 +86,6 @@ class NodeBootstrap:
         state engines' SHA3-256 kernels."""
         make_kv = storage_factory or (lambda name: KeyValueStorageInMemory())
         conf = config or Config()
-        if getattr(conf, "MERKLE_DEVICE_PROOFS", False):
-            raise NotImplementedError(
-                "MERKLE_DEVICE_PROOFS: the device Merkle tree is not "
-                "ported yet (ROADMAP A3)")
         dm = DatabaseManager()
         for lid, name in ((POOL_LEDGER_ID, "pool"),
                           (DOMAIN_LEDGER_ID, "domain"),
@@ -98,6 +94,19 @@ class NodeBootstrap:
             ledger = Ledger(txn_store=make_kv(name + "_ledger"),
                             tree_hasher=NodeBootstrap.make_tree_hasher(
                                 config, device))
+            if conf.MERKLE_DEVICE_PROOFS:
+                # large reply/catchup proof batches route to the
+                # device-resident tree; below MERKLE_DEVICE_PROOF_MIN the
+                # host memo path keeps winning and nothing changes. The
+                # tree takes this node's values (the JAX package's reads
+                # MERKLE_FUSED_LEVELS and its pipeline's default chunk
+                # from the Config class; ROADMAP C).
+                ledger.tree.attach_device_engine(
+                    proof_min=conf.MERKLE_DEVICE_PROOF_MIN,
+                    chunk=conf.MERKLE_DEVICE_PROOF_CHUNK,
+                    pipeline_depth=conf.MERKLE_DEVICE_PIPELINE_DEPTH,
+                    fused_levels=conf.MERKLE_FUSED_LEVELS,
+                    warm=True, device=device)  # recovered ledgers sync now
             state = None
             if lid != AUDIT_LEDGER_ID:
                 state = PruningState(make_kv(name + "_state"))

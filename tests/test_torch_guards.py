@@ -90,7 +90,7 @@ def _entry_points():
     from plenum_tpu_torch.crypto.batch_verifier import (
         CoalescingVerifierHub, TorchBatchVerifier, create_verifier)
     from plenum_tpu_torch.ops import ed25519, resolve_device, sha256, sha3
-    from plenum_tpu_torch.ops import trie
+    from plenum_tpu_torch.ops import merkle, trie
     from plenum_tpu_torch.server.client_authn import CoreAuthNr
     from plenum_tpu_torch.state.device_state import DeviceStateEngine
     from plenum_tpu_torch.state.pruning_state import PruningState
@@ -133,6 +133,9 @@ def _entry_points():
         "CoreAuthNr": lambda: CoreAuthNr(),
         "ledger_from_arrays": lambda: carry.ledger_from_arrays(
             [], empty, empty),
+        "DeviceMerkleTree": lambda: merkle.DeviceMerkleTree(),
+        "merkle_tree_from_levels": lambda: carry.merkle_tree_from_levels(
+            [], 0),
         "authnr_from_registry": lambda: carry.authnr_from_registry({}),
     }
 
@@ -171,7 +174,6 @@ def test_sha3_cuda_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("branch", ["BLS_DEVICE_PAIRING",
-                                    "MERKLE_DEVICE_PROOFS",
                                     "PIPELINE_ENABLED"])
 def test_node_raises_on_branches_not_ported(branch):
     from plenum_tpu_torch.common.config import Config
