@@ -20,13 +20,19 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    1,023, 1,024, 1,025, 4,095, 4,097 and 2^18 ± 1 digests (across its
    CTAs' 512 children and its launches' nine levels) against its plain
    version and hashlib; the append entry (sha256_append_levels, through
-   DeviceMerkleTree.append_leaf_hashes) on appends of 1, 2, 3, 255, 256,
-   257, 1,023, 1,025 and 4,097 leaves onto trees of 2^12 ± 1 leaves with
-   K = 1 and K = 4 levels a launch, every complete node against its plain
-   version (the same append on the CPU from the same levels) and hashlib;
-   SHA-256's ragged, level and append wrappers called under
-   torch.cuda.set_sync_debug_mode("error"), and invalid offsets raising
-   ValueError at the ragged entry's host copy;
+   DeviceMerkleTree.append_leaf_hashes, one sha256_append_groups call an
+   append) on appends of 1, 2, 3, 255, 256, 257, 1,023, 1,025 and 4,097
+   leaves onto trees of 2^12 ± 1 leaves with K = 1, 4, 9 and 16 levels a
+   group (16: groups split into launches of nine), every complete node
+   against its plain version (the same append on the CPU from the same
+   levels) and hashlib; SHA-256's ragged, level, append and compress
+   wrappers called under torch.cuda.set_sync_debug_mode("error"), and
+   invalid offsets raising ValueError at the ragged entry's host copy;
+   then the ceilings of plenum_tpu_torch/sha256_ceilings.py measured on
+   the card (the compression's integer mix with its adds as IADD3 and as
+   IMAD, each opcode's rate alone, one node hash's latency, an empty
+   launch, sha256_compress in both routings of its adds and its SASS by
+   pipe), printed as one JSON line;
    The SHA3-256 kernel's two entries (digests, and the fused compare
    against refs), each in both layouts (five lanes and one lane per
    message), against their plain version and hashlib at B = 1, 4, 5, 6,
@@ -83,7 +89,7 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    "remote" (3,000 writes, bench.py's 4,000 cut so that phase 8 fits the
    script's time; a verify daemon process on the card verifies
    every node's client signatures with ed25519_verify), "cpu" (1,000;
-   each node verifies on its own, pure-Python RFC 8032), "remote",
+   each node verifies on its own, RFC 8032 on the host), "remote",
    "cpu", the client sending in bench.py's order (one node all the
    requests, then the next); then "remote" and "cpu" once more with the
    client's second order ("broadcast": each request to every node before
@@ -119,15 +125,19 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    host tree's; the append's launches equal their plain version and
    hashlib. It prints the warm build's wall, proofs per second on the
    device path and the host memo path timed in turns (device, host, host,
-   device), the append's kernel-alone time beside its bound and the
-   latency of one level, the proof gather's device time, the tree's
-   dispatch stats and the launches.
+   device), the append's kernel-alone time beside its bound and its
+   latency floor (its levels times one node hash's latency, plus its
+   launches times an empty launch's, both from the ceilings), the latency
+   of one level, the proof gather's device time, the tree's dispatch
+   stats and the launches.
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
 seven; the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
-pool's shape, sha256_append_levels "kernel_ms" and "level_latency_ms" at
-phase 8's append.
+pool's shape, sha256_append_levels "kernel_ms", "floor_ms" and
+"level_latency_ms" at phase 8's append, sha256_compress, sha256_ragged and
+ed25519_verify "kernel_ms" at their timed shapes (the kernel alone, as
+kernel_ms times it).
 
 Each path's kernel launch counters are zeroed just before it and read
 just after; every kernel of a path must have launched in it (a node
@@ -165,10 +175,13 @@ POOL_REQS = 4000             # bench.py POOL_REQS
 POOL_BAD = 20                # tampered requests, spread over the chunks
 MP_REQS = 3000               # the deployment's writes (bench.py POOL_REQS
                              # is 4,000; cut so that phase 8 fits the
-                             # script's time)
+                             # script's time; at 1,500 a node's batches can
+                             # all stay below SHA256_BATCH_THRESHOLD, off
+                             # the card)
 MP_CPU_REQS = 1000           # the "cpu" side's writes: at 4,000 a node's
-                             # pure-Python verify of one intake batch
-                             # blocks it past the peers' 10 s heartbeat
+                             # verify of one intake batch, then in pure
+                             # Python, blocked it past the peers' 10 s
+                             # heartbeat
 MP_TIMEOUT_S = 600
 # the five-lane groups' and the warps' boundaries (six messages a warp of
 # groups, 32 a warp of threads), and a ragged tail of both
@@ -186,6 +199,7 @@ LEDGER_LEVELS = LEDGER_TXNS.bit_length() - 1
 # CTA's 256 level-1 parents and its 512 children, onto 2^12 +- 1 leaves
 APPEND_BASES = ((1 << 12) - 1, (1 << 12) + 1)
 APPEND_BATCHES = (1, 2, 3, 255, 256, 257, 1023, 1025, 4097)
+APPEND_GROUP_LEVELS = (1, 4, 9, 16)   # K: 16 splits a group into launches
 COMMIT_BATCH = 1706          # the pool's 3PC batch, clamped by the frame
 CATCHUP_TAIL = 32768         # txns a lagging node asks a seeder for
 
@@ -250,6 +264,20 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, first
+
+
+def once_ms(torch, fn):
+    """(device milliseconds of one call of fn, from CUDA events; its
+    result): the plain versions' time, which is no yardstick of speed,
+    taken once and cold."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def bound(ops, nbytes):
@@ -463,18 +491,20 @@ def node_levels_phase(torch, dev):
     return err
 
 
-def _launch_append(sha, tree, groups, fn=None):
-    """The append launches of `groups` (ops/merkle.py append_groups) on
-    `tree`'s levels in place, through `fn` (the wrapper by default)."""
-    for h, group in groups:
-        (fn or sha.sha256_append_levels_cuda)(
-            tree._level(h), [tree._level(lv) for lv, _, _ in group],
-            [(p0, cnt) for _, p0, cnt in group])
+def _launch_append(sha, tree, groups, k, fn=None):
+    """The append launches of `groups` (ops/merkle.py append_groups, k
+    levels a group) on `tree`'s levels in place, in one call of `fn` (the
+    grouped CUDA wrapper by default). → its launches."""
+    parents = [w for _, group in groups for w in group]
+    return (fn or sha.sha256_append_groups_cuda)(
+        tree._level(groups[0][0]), [tree._level(lv) for lv, _, _ in parents],
+        [(p0, cnt) for _, p0, cnt in parents], k)
 
 
 def sha256_sync_phase(torch, dev):
-    """Neither sha256_ragged_cuda, sha256_node_levels_cuda nor
-    sha256_append_levels_cuda synchronises (set_sync_debug_mode "error");
+    """None of sha256_ragged_cuda, sha256_node_levels_cuda,
+    sha256_append_groups_cuda and sha256_blocks_cuda synchronises
+    (set_sync_debug_mode "error");
     offsets that are negative, decreasing or past the data raise
     ValueError at the ragged entry's host copy, after which a good launch
     still equals hashlib."""
@@ -494,6 +524,8 @@ def sha256_sync_phase(torch, dev):
     tree.build_from_leaf_hashes(digests[:800])
     tree._level(0)[800:1024].copy_(d[800:1024])
     leaves = torch.zeros((1027, 32), dtype=torch.uint8, device=dev)
+    words, nvalid, _ = sha.pad_messages(msgs)
+    w, nv = to_tensor(words, dev), to_tensor(nvalid, dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -501,7 +533,8 @@ def sha256_sync_phase(torch, dev):
         be = sha.sha256_ragged_cuda(data, offsets, 0x00,
                                     out=leaves[1:1026])
         lv = sha.sha256_node_levels_cuda(d, 10)
-        _launch_append(sha, tree, append_groups(800, 1024, 4))
+        _launch_append(sha, tree, append_groups(800, 1024, 4), 4)
+        blocks = sha.sha256_blocks_cuda(w, nv)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     top = tree._buf[1024:].cpu().numpy().tobytes()
@@ -511,7 +544,9 @@ def sha256_sync_phase(torch, dev):
           + bytes(32)
           and lv.cpu().numpy().tobytes() == b"".join(
               hashlib_levels(digests, 10))
-          and top == b"".join(hashlib_levels(digests[:1024], 10)),
+          and top == b"".join(hashlib_levels(digests[:1024], 10))
+          and sha.digests_to_bytes(blocks.cpu().numpy().view(np.uint32))
+          == [hashlib.sha256(m).digest() for m in msgs],
           "the launches made under the sync check are right (the ragged "
           "entry's big-endian store among them)")
     n = len(msgs)
@@ -531,7 +566,7 @@ def sha256_sync_phase(torch, dev):
     check(sha.digests_to_bytes(sha.to_host(sha.sha256_ragged_cuda(
         data, offsets, 0x00))) == want,
         "a good launch after the bad offsets equals hashlib")
-    log("sha256: neither the ragged, the level nor the append wrapper "
+    log("sha256: none of the ragged, level, append and compress wrappers "
         "synchronises (sync debug mode \"error\"); {} offsets raise "
         "ValueError at the ragged entry's host copy, and the card stays "
         "usable".format(", ".join(cases)))
@@ -540,10 +575,11 @@ def sha256_sync_phase(torch, dev):
 def append_levels_phase(torch, dev):
     """sha256_append_levels (through DeviceMerkleTree.append_leaf_hashes)
     against its plain version and hashlib: appends of APPEND_BATCHES leaves
-    onto trees of APPEND_BASES leaves, K = 1 and K = 4 levels a launch; the
-    plain version appends on the CPU from the card tree's levels before the
-    append, and every complete node of every level must be equal. → the
-    largest digest byte difference between kernel and plain version."""
+    onto trees of APPEND_BASES leaves, APPEND_GROUP_LEVELS levels a group;
+    the plain version appends on the CPU from the card tree's levels
+    before the append (once: its result does not depend on K), and every
+    complete node of every level must be equal. → the largest digest byte
+    difference between kernel and plain version."""
     import numpy as np
     from plenum_tpu_torch.ops.merkle import DeviceMerkleTree
     rng = np.random.RandomState(SEED + 7)
@@ -557,13 +593,15 @@ def append_levels_phase(torch, dev):
             # the new leaves, then every level's complete nodes
             want = [app.tobytes()] + hashlib_levels(
                 np.concatenate([base, app]), depth)
-            for k in (1, 4):
+            plain_t = None
+            for k in APPEND_GROUP_LEVELS:
                 card_t = DeviceMerkleTree(device=dev, fused_levels=k)
                 card_t.build_from_leaf_hashes(base)
-                plain_t = DeviceMerkleTree(device="cpu", fused_levels=k)
-                plain_t.load_levels(card_t._buf.cpu().numpy(), n0)
+                if plain_t is None:       # its result does not depend on K
+                    plain_t = DeviceMerkleTree(device="cpu", fused_levels=k)
+                    plain_t.load_levels(card_t._buf.cpu().numpy(), n0)
+                    plain_t.append_leaf_hashes(app)
                 card_t.append_leaf_hashes(app)
-                plain_t.append_leaf_hashes(app)
                 got = card_t._buf.cpu()
                 for h in range(depth + 1):
                     o, m = card_t._offset(h), n1 >> h
@@ -576,8 +614,8 @@ def append_levels_phase(torch, dev):
                           "of {} + {} leaves, K = {}".format(h, n0, b, k))
     check(err == 0, "sha256_append_levels equals its plain version")
     log("sha256_append_levels: kernel == plain == hashlib on every level "
-        "of appends of {} leaves onto {} leaves, K = 1 and 4".format(
-            APPEND_BATCHES, APPEND_BASES))
+        "of appends of {} leaves onto {} leaves, K = {}".format(
+            APPEND_BATCHES, APPEND_BASES, APPEND_GROUP_LEVELS))
     return err
 
 
@@ -676,7 +714,7 @@ def sha3_times(torch, dev, blobs, vblobs, vrefs):
                     b_ms / k_ms))
             if shape == "pool":
                 ms, _ = cuda_ms(torch, kernel, 20)
-                plain_ms, _ = cuda_ms(torch, lambda: plain(*args), 1)
+                plain_ms, _ = once_ms(torch, lambda: plain(*args))
                 log("{} at {} rows: {:.5f} ms a call (cuda_ms, the host's "
                     "enqueueing included, as for every kernel's \"ms\")"
                     .format(name, len(rows), ms))
@@ -1004,7 +1042,7 @@ def deployment_phase(torch, dev, profile):
     daemon process on the card; before its pool starts the 16,384-signature
     set goes through the daemon (a RemoteVerifier) and its verdicts must
     equal verify_plain's on the card; then the daemon's counters are
-    zeroed. "cpu" has each node verify on its own (pure-Python RFC 8032).
+    zeroed. "cpu" has each node verify on its own (RFC 8032 on the host).
     The runs alternate remote, cpu, remote, cpu with the client in
     bench.py's send order, then remote, cpu in the "broadcast" order.
     Each run's roots are held against mp_pool.replay_roots, a replay of
@@ -1033,7 +1071,7 @@ def deployment_phase(torch, dev, profile):
             len(reqs), MICRO_BATCH, time.perf_counter() - t0))
 
     # the daemon's scalar floor (Config.VERIFY_DAEMON_CPU_FLOOR): one
-    # pure-Python verify against one device round trip at small batches
+    # host verify against one device round trip at small batches
     from plenum_tpu_torch.crypto.batch_verifier import (
         ScalarVerifier, TorchBatchVerifier)
     items = list(zip(msgs, sigs, vks))[:SCALAR_SUBSET]
@@ -1207,8 +1245,8 @@ def level_build_phase(torch, dev, leaf_digests, hash_store):
     d = to_tensor(leaf_digests, dev)
     ms, dk = cuda_ms(
         torch, lambda: sha.sha256_node_levels_cuda(d, LEDGER_LEVELS), 10)
-    plain_ms, dp = cuda_ms(
-        torch, lambda: sha.sha256_node_levels_plain(d, LEDGER_LEVELS), 1)
+    plain_ms, dp = once_ms(
+        torch, lambda: sha.sha256_node_levels_plain(d, LEDGER_LEVELS))
     err = int((dk.int() - dp.int()).abs().max().item())
     check(err == 0 and dk.cpu().numpy().tobytes()
           == b"".join(a.tobytes() for a in new_levels),
@@ -1276,8 +1314,9 @@ def level_build_phase(torch, dev, leaf_digests, hash_store):
             "build_wall_ms": {k: sorted(v) for k, v in walls.items()}}
 
 
-def catchup_phase(torch, dev, blobs, profile):
-    """Phase 8: catchup seeding from the card (see the module docstring).
+def catchup_phase(torch, dev, blobs, profile, ceilings):
+    """Phase 8: catchup seeding from the card (see the module docstring);
+    the append's latency floor from `ceilings` (sha256_ceilings.measure).
     → {"launches", "entry": the kernels line's sha256_append_levels
     numbers but its launches, "err"}."""
     import numpy as np
@@ -1421,12 +1460,13 @@ def catchup_phase(torch, dev, blobs, profile):
     done = eng._buf.clone()
     eng._buf[torch.from_numpy(new_rows).to(dev)] = 0
     blank = eng._buf.cpu()
-    _launch_append(sha, eng, groups)
+    k = eng.fused_levels
+    _launch_append(sha, eng, groups, k)
     check(torch.equal(eng._buf, done),
           "the append's launches equal the synced tree")
     plain = type(eng)(device="cpu", fused_levels=eng.fused_levels)
     plain._buf, plain._cap = blank, eng._cap
-    _launch_append(sha, plain, groups, sha.sha256_append_levels_plain)
+    _launch_append(sha, plain, groups, k, sha.sha256_append_groups_plain)
     got = done.cpu()[torch.from_numpy(new_rows)]
     err = int((got.int() - plain._buf[torch.from_numpy(new_rows)].int())
               .abs().max())
@@ -1443,25 +1483,33 @@ def catchup_phase(torch, dev, blobs, profile):
 
     # ---- times
     nodes = int(new_rows.shape[0])
-    ms, _ = cuda_ms(torch, lambda: _launch_append(sha, eng, groups), 20)
-    plain_ms, _ = cuda_ms(torch, lambda: _launch_append(
-        sha, eng, groups, sha.sha256_append_levels_plain), 1)
-    alone = kernel_ms(torch, lambda: _launch_append(sha, eng, groups))
+    ms, _ = cuda_ms(torch, lambda: _launch_append(sha, eng, groups, k), 20)
+    plain_ms, _ = once_ms(torch, lambda: _launch_append(
+        sha, eng, groups, k, sha.sha256_append_groups_plain))
+    alone = kernel_ms(torch, lambda: _launch_append(sha, eng, groups, k))
     top = [(groups[-1][0] + len(groups[-1][1]) - 1,
             [groups[-1][1][-1]])]          # the last level: one node
-    level_ms = kernel_ms(torch, lambda: _launch_append(sha, eng, top))
+    level_ms = kernel_ms(torch, lambda: _launch_append(sha, eng, top, 1))
     check(torch.equal(eng._buf, done), "the timed launches changed nothing")
     # leaves read, new nodes written, once each
     b_ms, b_by = bound(2 * nodes * SHA256_OPS_PER_BLOCK,
                        32 * (COMMIT_BATCH + nodes))
+    levels = sum(len(g) for _, g in groups)
+    n_launch = len(sha.append_launches([len(g) for _, g in groups]))
+    floor_ms = levels * ceilings["node"]["per_node_ms"] \
+        + n_launch * ceilings["empty_launch_ms"]
     log("sha256_append_levels at the catchup's append ({} leaves onto {}: "
-        "{} nodes on {} levels in {} launches of K = {}): kernel alone "
-        "{:.5f} ms, bound {:.6f} ms ({}), {:.3%} of it; one level of one "
-        "node (latency) {:.5f} ms; wrapper (cuda_ms) {:.5f} ms; plain "
-        "version {:.3f} ms".format(
-            COMMIT_BATCH, LEDGER_TXNS, nodes, sum(len(g) for _, g in groups),
-            len(groups), eng.fused_levels, alone, b_ms, b_by, b_ms / alone,
-            level_ms, ms, plain_ms))
+        "{} nodes on {} levels in {} launches of K = {}, one call): kernel "
+        "alone {:.5f} ms, bound {:.6f} ms ({}), {:.3%} of it; latency "
+        "floor {:.5f} ms ({} levels x one node hash {:.5f} ms + {} "
+        "launches x an empty launch {:.5f} ms), the kernel {:.2f}x it; "
+        "one level of one node (latency) {:.5f} ms; wrapper (cuda_ms, one "
+        "call) {:.5f} ms; plain version {:.3f} ms".format(
+            COMMIT_BATCH, LEDGER_TXNS, nodes, levels, n_launch, k, alone,
+            b_ms, b_by, b_ms / alone, floor_ms, levels,
+            ceilings["node"]["per_node_ms"], n_launch,
+            ceilings["empty_launch_ms"], alone / floor_ms, level_ms, ms,
+            plain_ms))
 
     idx = np.arange(lo - 1, lo - 1 + conf.MERKLE_DEVICE_PROOF_MIN)
     g = min(eng._n_low(), till.bit_length() - 1)
@@ -1513,7 +1561,7 @@ def catchup_phase(torch, dev, blobs, profile):
                             "catchup seeding")
     return {"launches": launches, "err": err, "entry": {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "kernel_ms": alone, "level_latency_ms": level_ms,
+        "kernel_ms": alone, "floor_ms": floor_ms, "level_latency_ms": level_ms,
         "gather_ms": gather_ms, "warm_build_ms": warm_ms,
         "proofs_per_s": pps}}
 
@@ -1529,7 +1577,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
-    from plenum_tpu_torch import testing
+    from plenum_tpu_torch import sha256_ceilings, testing
     from plenum_tpu_torch.common.config import Config
     from plenum_tpu_torch.common.request import Request
     from plenum_tpu_torch.common.txn_util import reqToTxn
@@ -1570,7 +1618,7 @@ def main(argv=None) -> int:
               "ptxas gives the SHA3 kernels no stack frame")
     for name in cuda_lib.SOURCES:
         cuda_lib.load(name)
-    for name in cuda_lib.HOST_SOURCES:   # BLS12-381, for the node processes
+    for name in cuda_lib.HOST_SOURCES:   # built once for the node processes
         cuda_lib.load_host(name)
     log("build: {:.1f} s ({} libraries compiled)".format(
         time.perf_counter() - t0, len(built)))
@@ -1662,6 +1710,11 @@ def main(argv=None) -> int:
     append_err = append_levels_phase(torch, dev)
     sha256_sync_phase(torch, dev)
     sha3_errs = sha3_phase(torch, dev)
+    t1 = time.perf_counter()
+    ceilings = sha256_ceilings.measure(dev)
+    log(json.dumps({"sha256_ceilings": ceilings}))
+    log("sha256 ceilings measured in {:.1f} s".format(
+        time.perf_counter() - t1))
     log("phase 2: {:.1f} s".format(time.perf_counter() - t0))
 
     # --------------------------------------------------- 3. the main path
@@ -1779,14 +1832,14 @@ def main(argv=None) -> int:
     arrays, _ = ed.host_pack(*[list(c) for c in zip(*items)])
     ed_main = [to_tensor(a, dev) for a in arrays]
     ed_ms, ok_kernel = cuda_ms(torch, lambda: ed.verify_cuda(*ed_main), 20)
-    ed_plain_ms, ok_plain = cuda_ms(torch,
-                                    lambda: ed.verify_plain(*ed_main), 1)
+    ed_plain_ms, ok_plain = once_ms(torch, lambda: ed.verify_plain(*ed_main))
     ed_err = max(ed_err, int((ok_kernel.int() - ok_plain.int()).abs().max()
                              .item()))
     check(ed_err == 0, "ed25519 kernel verdicts equal the plain version's "
                        "at the main path's {} signatures".format(len(items)))
     ed_bound_ms, ed_bound_by = bound(len(items) * ED25519_MULS_PER_VERIFY,
                                      len(items) * ED25519_BYTES_PER_SIG)
+    ed_alone = kernel_ms(torch, lambda: ed.verify_cuda(*ed_main))
     ed_micro_ms, _ = cuda_ms(torch, lambda: ed.verify_cuda(*ed_in), 10)
     ed_micro_bound_ms, _ = bound(MICRO_BATCH * ED25519_MULS_PER_VERIFY,
                                  MICRO_BATCH * ED25519_BYTES_PER_SIG)
@@ -1795,8 +1848,10 @@ def main(argv=None) -> int:
     leaf_in = [to_tensor(leaf_data, dev), to_tensor(leaf_off, dev)]
     rag_ms, dk = cuda_ms(
         torch, lambda: sha.sha256_ragged_cuda(*leaf_in, 0x00), 10)
-    rag_plain_ms, dp = cuda_ms(
-        torch, lambda: sha.sha256_ragged_plain(*leaf_in, 0x00), 1)
+    rag_alone = kernel_ms(
+        torch, lambda: sha.sha256_ragged_cuda(*leaf_in, 0x00), 20)
+    rag_plain_ms, dp = once_ms(
+        torch, lambda: sha.sha256_ragged_plain(*leaf_in, 0x00))
     rag_err = max(rag_err, u32_max_abs_err(torch, dk.digests, dp))
     leaf_digests = sha.digests_to_array(sha.to_host(dk))
     check(leaf_digests.tobytes() == b"".join(
@@ -1814,13 +1869,29 @@ def main(argv=None) -> int:
              torch.full((LEDGER_TXNS // 2,), 2, dtype=torch.int32,
                         device=dev)]
     sha_ms, dk = cuda_ms(torch, lambda: sha.sha256_blocks_cuda(*level), 10)
-    sha_plain_ms, dp = cuda_ms(
-        torch, lambda: sha.sha256_blocks_plain(*level), 1)
+    sha_plain_ms, dp = once_ms(
+        torch, lambda: sha.sha256_blocks_plain(*level))
     sha_err = max(sha_err, u32_max_abs_err(torch, dk, dp))
+    pair_bytes = leaf_digests.tobytes()
+    check(sha.digests_to_array(dk.cpu().numpy().view(np.uint32)).tobytes()
+          == b"".join(hashlib.sha256(b"\x01" + pair_bytes[i:i + 64]).digest()
+                      for i in range(0, len(pair_bytes), 64)),
+          "SHA-256 kernel equals hashlib on the first tree level")
+    sha_alone = kernel_ms(torch, lambda: sha.sha256_blocks_cuda(*level))
     # each hashed block read once, nvalid read and the digest written once
     sha_bound_ms, sha_bound_by = bound(
         LEDGER_TXNS * SHA256_OPS_PER_BLOCK,
         LEDGER_TXNS * 64 + (4 + 32) * (LEDGER_TXNS // 2))
+    adds = sha256_ceilings.COMPRESS_ADDS
+    sha_ceiling_ms = ceilings["compress"]["ceiling_ms_by_adds"][adds]
+    log("sha256_compress at the first tree level ({} messages x 2 blocks, "
+        "adds routed as {}): kernel alone {:.5f} ms, bound {:.5f} ms ({}), "
+        "{:.2%} of it; the measured ceiling of its own instructions at its "
+        "mix's rate {:.5f} ms, the kernel {:.2%} of it; wrapper (cuda_ms) "
+        "{:.5f} ms; == plain == hashlib".format(
+            LEDGER_TXNS // 2, adds, sha_alone, sha_bound_ms, sha_bound_by,
+            sha_bound_ms / sha_alone, sha_ceiling_ms,
+            sha_ceiling_ms / sha_alone, sha_ms))
     levels = level_build_phase(torch, dev, leaf_digests,
                                ledger.tree.hash_store)
     staged = []
@@ -1849,10 +1920,13 @@ def main(argv=None) -> int:
     log("plain version, not a yardstick: ed25519 {:.3f} ms, sha256_ragged "
         "{:.3f} ms, sha256_compress {:.3f} ms — card {}".format(
             ed_plain_ms, rag_plain_ms, sha_plain_ms, card))
-    log("ed25519_verify: {} signatures {:.4f} ms (bound {:.5f} ms), {} "
-        "signatures {:.4f} ms (bound {:.5f} ms)".format(
-            len(items), ed_ms, ed_bound_ms, MICRO_BATCH, ed_micro_ms,
-            ed_micro_bound_ms))
+    log("ed25519_verify: {} signatures {:.4f} ms, kernel alone {:.4f} ms "
+        "(bound {:.5f} ms), {} signatures {:.4f} ms (bound {:.5f} ms); "
+        "sha256_ragged at the 2^20 leaves {:.4f} ms, kernel alone {:.4f} "
+        "ms (bound {:.5f} ms)".format(
+            len(items), ed_ms, ed_alone, ed_bound_ms, MICRO_BATCH,
+            ed_micro_ms, ed_micro_bound_ms, rag_ms, rag_alone,
+            rag_bound_ms))
 
     if profile:
         where_the_time_goes(torch, run_main_path, "ledger path")
@@ -1860,7 +1934,7 @@ def main(argv=None) -> int:
     pool_result = pool_path(torch, dev, signer, profile, sha3_errs)
 
     t0 = time.perf_counter()
-    catchup = catchup_phase(torch, dev, blobs, profile)
+    catchup = catchup_phase(torch, dev, blobs, profile, ceilings)
     log("phase 8: {:.1f} s".format(time.perf_counter() - t0))
 
     pool_launches = pool_result["launches"]
@@ -1876,19 +1950,21 @@ def main(argv=None) -> int:
          "replaces": "plenum_tpu/ops/ed25519_pallas.py:339",
          "launches": launches["ed25519_verify"], "max_abs_err": ed_err,
          "ms": ed_ms, "plain_ms": ed_plain_ms, "bound_ms": ed_bound_ms,
-         "bound_by": ed_bound_by, "library_ms": None},
+         "bound_by": ed_bound_by, "library_ms": None, "kernel_ms": ed_alone},
         {"name": "sha256_compress", "route": "cuda",
          "source": "plenum_tpu_torch/csrc/sha256.cu",
          "replaces": "plenum_tpu/ops/sha256_pallas.py:74",
          "launches": launches["sha256_compress"], "max_abs_err": sha_err,
          "ms": sha_ms, "plain_ms": sha_plain_ms, "bound_ms": sha_bound_ms,
-         "bound_by": sha_bound_by, "library_ms": None},
+         "bound_by": sha_bound_by, "library_ms": None,
+         "kernel_ms": sha_alone, "ceiling_ms": sha_ceiling_ms},
         {"name": "sha256_ragged", "route": "cuda",
          "source": "plenum_tpu_torch/csrc/sha256.cu",
          "replaces": "plenum_tpu/ops/sha256_pallas.py:74",
          "launches": launches["sha256_ragged"], "max_abs_err": rag_err,
          "ms": rag_ms, "plain_ms": rag_plain_ms, "bound_ms": rag_bound_ms,
-         "bound_by": rag_bound_by, "library_ms": None},
+         "bound_by": rag_bound_by, "library_ms": None,
+         "kernel_ms": rag_alone},
         {"name": "sha256_node_levels", "route": "cuda",
          "source": "plenum_tpu_torch/csrc/sha256.cu",
          "replaces": "plenum_tpu/ops/sha256_pallas.py:74",

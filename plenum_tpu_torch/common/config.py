@@ -199,9 +199,11 @@ class Config:
     # a first frame waits for co-resident nodes' frames; device launches
     # are chunked to at most BUCKET items; fused batches below CPU_FLOOR
     # take the scalar RFC 8032 path. The JAX package's floor is 512: its
-    # scalar path is OpenSSL. The port's is pure Python, slower per
-    # signature than a launch of a few hundred (chip_smoke.py's
-    # deployment phase prints both), so every batch goes to the card.
+    # scalar path is OpenSSL. The port's floor of 1 sends every batch to
+    # the card; it was set when the port's scalar path was pure Python,
+    # slower per signature than a launch of a few hundred. That path now
+    # checks the points in C (csrc/ed25519_host.c); chip_smoke.py's
+    # deployment phase prints one host verify beside the round trips.
     VERIFY_DAEMON_WINDOW = 0.002
     VERIFY_DAEMON_BUCKET = 4096
     VERIFY_DAEMON_CPU_FLOOR = 1

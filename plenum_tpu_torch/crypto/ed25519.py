@@ -7,12 +7,19 @@ bulk verification runs on the CUDA kernel behind
 plenum_tpu_torch.ops.ed25519, which this module cross-checks.
 
 Implementation is textbook RFC 8032 over extended twisted-Edwards
-coordinates; speed is secondary here (the hot path is the device batch).
+coordinates. Signing and key generation are rare, so their speed is
+secondary. One verification is not: a node verifies every request its
+peers relay before its own client's copy arrives, one at a time on its
+prod loop (server/node.py's propagate gate), so `verify` runs the curve
+arithmetic in C (csrc/ed25519_host.c, built by ops/cuda_lib.load_host at
+first use) and falls back to the Python below, its reference, when no C
+compiler is available.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 P = 2 ** 255 - 19
 L = 2 ** 252 + 27742317777372353535851937790883648493
@@ -147,17 +154,53 @@ def sign(msg: bytes, seed: bytes) -> bytes:
     return R + s.to_bytes(32, "little")
 
 
-def verify(msg: bytes, sig: bytes, verkey: bytes) -> bool:
-    """Cofactorless verification: [S]B == R + [k]A."""
-    if len(sig) != 64 or len(verkey) != 32:
-        return False
+def _load_native_check() -> Optional[Callable[[bytes, bytes, bytes, bytes],
+                                              int]]:
+    """csrc/ed25519_host.c's check of [S]B == R + [k]A on the encodings of
+    A and R and the scalars S and k, or None when it does not build or
+    load."""
+    from plenum_tpu_torch.ops.cuda_lib import try_load_host
+    lib = try_load_host("ed25519_host")
+    if lib is None:
+        return None
+    fn = lib.ed25519_verify_host
+    fn.argtypes = [ctypes.c_char_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_check_impl: Optional[Callable[[bytes, bytes, bytes, bytes], int]] = None
+
+
+def _check_python(a: bytes, r: bytes, s: bytes, k: bytes) -> bool:
     try:
-        A = _pt_decompress(verkey)
-        R = _pt_decompress(sig[:32])
+        A = _pt_decompress(a)
+        R = _pt_decompress(r)
     except ValueError:
         return False
-    s = int.from_bytes(sig[32:], "little")
-    if s >= L:
+    return _pt_equal(_pt_mul(int.from_bytes(s, "little"), _G_EXT),
+                     _pt_add(R, _pt_mul(int.from_bytes(k, "little"), A)))
+
+
+def _verify_with(check, msg: bytes, sig: bytes, verkey: bytes) -> bool:
+    if len(sig) != 64 or len(verkey) != 32:
         return False
-    k = _sha512_int(sig[:32], verkey, msg) % L
-    return _pt_equal(_pt_mul(s, _G_EXT), _pt_add(R, _pt_mul(k, A)))
+    if int.from_bytes(sig[32:], "little") >= L:
+        return False
+    k = (_sha512_int(sig[:32], verkey, msg) % L).to_bytes(32, "little")
+    return bool(check(bytes(verkey), bytes(sig[:32]), bytes(sig[32:]), k))
+
+
+def verify(msg: bytes, sig: bytes, verkey: bytes) -> bool:
+    """Cofactorless verification: [S]B == R + [k]A, the points checked in
+    C once it is built, else in Python (_check_python)."""
+    global _check_impl
+    if _check_impl is None:
+        _check_impl = _load_native_check() or _check_python
+    return _verify_with(_check_impl, msg, sig, verkey)
+
+
+def verify_python(msg: bytes, sig: bytes, verkey: bytes) -> bool:
+    """`verify` with the points checked in Python: the reference that
+    csrc/ed25519_host.c is held against."""
+    return _verify_with(_check_python, msg, sig, verkey)

@@ -8,15 +8,19 @@ the port uses only these, since the card's machine has no `cryptography`.
 The wire behaviour is identical, so a port stack talks to a JAX stack.
 The API mirrors exactly the slice of `cryptography.hazmat` that
 network/crypto_channel.py, network/keys.py and network/stack.py consume.
-Scalar Python speed is acceptable there: handshake messages and consensus
-frames are small, and bulk client-signature verification has its own
-batched device path (crypto/batch_verifier)."""
+Scalar Python speed is acceptable for the handshake, and bulk
+client-signature verification has its own batched device path
+(crypto/batch_verifier). The traffic cipher is not: every frame on the
+wire passes through ChaCha20, so its keystream runs in C (csrc/chacha20.c,
+built by ops/cuda_lib.load_host at first use) and falls back to the
+Python loop below, its reference, when no C compiler is available."""
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import hmac as _hmac
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 from plenum_tpu_torch.crypto import ed25519 as _ed
 
@@ -257,6 +261,46 @@ def _chacha20_xor(key: bytes, counter: int, nonce: bytes,
     return bytes(out)
 
 
+def _load_native_xor() -> Optional[Callable[[bytes, int, bytes, bytes],
+                                             bytes]]:
+    """csrc/chacha20.c's chacha20_xor behind _chacha20_xor's signature, or
+    None when it does not build or load."""
+    from plenum_tpu_torch.ops.cuda_lib import try_load_host
+    lib = try_load_host("chacha20")
+    if lib is None:
+        return None
+    fn = lib.chacha20_xor
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_uint32, ctypes.c_char_p,
+                   ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+    fn.restype = None
+
+    def native_xor(key: bytes, counter: int, nonce: bytes,
+                   data: bytes) -> bytes:
+        if len(key) != 32 or len(nonce) != 12:
+            raise ValueError("chacha20 takes a 32-byte key and a 12-byte "
+                             "nonce")
+        data = bytes(data)
+        out = ctypes.create_string_buffer(len(data))
+        fn(key, counter & 0xFFFFFFFF, nonce, data, out, len(data))
+        return out.raw
+
+    return native_xor
+
+
+_xor_impl: Optional[Callable[[bytes, int, bytes, bytes], bytes]] = None
+
+
+def chacha20_xor(key: bytes, counter: int, nonce: bytes,
+                 data: bytes) -> bytes:
+    """`data` XOR the ChaCha20 keystream of (key, nonce) from block
+    `counter` on: the C keystream once it is built, else the Python loop
+    (_chacha20_xor)."""
+    global _xor_impl
+    if _xor_impl is None:
+        _xor_impl = _load_native_xor() or _chacha20_xor
+    return _xor_impl(key, counter, nonce, data)
+
+
 def _poly1305(msg: bytes, key: bytes) -> bytes:
     r = int.from_bytes(key[:16], "little") \
         & 0x0FFFFFFC0FFFFFFC0FFFFFFC0FFFFFFF
@@ -281,12 +325,7 @@ class ChaCha20Poly1305:
         self._key = bytes(key)
 
     def _tag(self, nonce: bytes, ct: bytes, aad: bytes) -> bytes:
-        otk = _chacha20_block(
-            [int.from_bytes(self._key[i:i + 4], "little")
-             for i in range(0, 32, 4)],
-            0,
-            [int.from_bytes(nonce[i:i + 4], "little")
-             for i in range(0, 12, 4)])[:32]
+        otk = chacha20_xor(self._key, 0, nonce, bytes(32))
         mac_data = (aad + _pad16(aad) + ct + _pad16(ct)
                     + len(aad).to_bytes(8, "little")
                     + len(ct).to_bytes(8, "little"))
@@ -295,7 +334,7 @@ class ChaCha20Poly1305:
     def encrypt(self, nonce: bytes, plaintext: bytes,
                 aad: Optional[bytes]) -> bytes:
         aad = aad or b""
-        ct = _chacha20_xor(self._key, 1, nonce, plaintext)
+        ct = chacha20_xor(self._key, 1, nonce, plaintext)
         return ct + self._tag(nonce, ct, aad)
 
     def decrypt(self, nonce: bytes, ciphertext: bytes,
@@ -306,4 +345,4 @@ class ChaCha20Poly1305:
         ct, tag = ciphertext[:-16], ciphertext[-16:]
         if not _hmac.compare_digest(tag, self._tag(nonce, ct, aad)):
             raise ValueError("poly1305 tag mismatch")
-        return _chacha20_xor(self._key, 1, nonce, ct)
+        return chacha20_xor(self._key, 1, nonce, ct)

@@ -1,13 +1,14 @@
-// SHA-256 on the card, with three entry points that share the compression
-// (sha256_compress_block):
+// SHA-256 on the card, with four entry points that share the compression
+// (sha256_compress_block_t, its adds routed by what bounds each kernel):
 //
-// sha256_compress: pre-padded messages, one thread per message. Replaces
-// the Pallas kernel plenum_tpu/ops/sha256_pallas.py::_sha256_kernel (built
-// by _build_sha256, entered through sha256_blocks). Same function: words
+// sha256_compress: pre-padded messages, one thread per message (see
+// sha256_compress_kernel). Replaces the Pallas kernel
+// plenum_tpu/ops/sha256_pallas.py::_sha256_kernel (built by
+// _build_sha256, entered through sha256_blocks). Same function: words
 // [B, nblocks, 16] big-endian uint32 (from pad_messages) plus the
 // per-message block count nvalid [B] give the digest state [B, 8] uint32.
 // The TPU kernel ran every row through all `nblocks` blocks and masked the
-// state of rows whose message had ended; here each thread loops over its
+// state of rows whose message had ended; here each thread compresses its
 // own min(nvalid[i], nblocks) blocks, which gives the same digest. Since
 // the Merkle levels moved to sha256_node_levels nothing on the port's
 // paths calls it; it stays as the literal counterpart of the TPU kernel.
@@ -34,8 +35,9 @@
 // digests, up to NODE_LEVELS levels a launch (see
 // sha256_node_levels_kernel).
 //
-// sha256_append_levels: the new parents of up to APPEND_LEVELS_MAX levels
-// of a growing tree, written in place, windows at any offset (see
+// sha256_append_groups: the new parents of every level of an append to a
+// growing tree, in groups of up to APPEND_LEVELS_MAX levels, written in
+// place, windows at any offset; one C call enqueues every launch (see
 // sha256_append_levels_kernel).
 //
 // Bound on this card: operations. A compression is ~1,400 32-bit integer
@@ -65,14 +67,50 @@ __constant__ uint32_t SHA256_K[64] = {
     0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
     0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
 
+// 1, kept where the compiler cannot see it: a multiply-add by it is an
+// IMAD, which issues on the FMA pipe, beside the ALU pipe that runs the
+// IADD3, LOP3 and SHF of the rounds.
+__constant__ uint32_t SHA256_ONE = 1;
+
+// a + b as an IMAD (a * 1 + b) on the FMA pipe.
+__device__ __forceinline__ uint32_t add_fma(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+  uint32_t r;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(SHA256_ONE),
+      "r"(b));
+  return r;
+#else
+  return a * SHA256_ONE + b;
+#endif
+}
+
 __device__ __forceinline__ uint32_t rotr32(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
 }
 
+// Which adds of the compression go to the FMA pipe as IMADs (add_fma):
+// ADDS_ALU none (the compiler's three-input IADD3s on the ALU pipe, beside
+// 6 SHF and 4 LOP3 a round); ADDS_ALL every add but h + K (e = d + t1,
+// a = t1 + S0 + maj, t1's other adds and the schedule's three a word). A
+// round's SHF and LOP3 cannot move, so the ALU pipe keeps at least 10
+// instructions a round.
+//
+// Each kernel routes its adds by what bounds it, as
+// plenum_tpu_torch/sha256_ceilings.py measured on an NVIDIA H100 80GB HBM3
+// at 700 W (PERF.md): a launch of many messages is bound by the ALU
+// pipe's issue, and moving every add to the FMA pipe cut sha256_compress
+// from 0.095 to 0.080 ms at 2^19 messages x 2 blocks and sha256_ragged by
+// 16%, so both use ADDS_ALL; one node hash on one warp is bound by its
+// dependent chain, which an IMAD's longer latency lengthens (2.8 us a
+// node with the adds on the ALU, 3.6 with IMADs), so the Merkle levels
+// and the append use ADDS_ALU (sha256_compress_block).
+enum { ADDS_ALU = 0, ADDS_ALL = 1 };
+
 // One compression of `w` (16 message words, consumed as the schedule
-// window) into `st`.
-__device__ __forceinline__ void sha256_compress_block(uint32_t st[8],
-                                                      uint32_t w[16]) {
+// window) into `st`, its adds routed by ADDS.
+template <int ADDS>
+__device__ __forceinline__ void sha256_compress_block_t(uint32_t st[8],
+                                                        uint32_t w[16]) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
@@ -84,41 +122,37 @@ __device__ __forceinline__ void sha256_compress_block(uint32_t st[8],
       uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
       uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
       uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
-      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
+      if (ADDS == ADDS_ALL)
+        wt = add_fma(add_fma(add_fma(w[t & 15], s0), w[(t - 7) & 15]), s1);
+      else
+        wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
       w[t & 15] = wt;
     }
     uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
     uint32_t ch = (e & f) ^ (~e & g);
-    uint32_t t1 = h + S1 + ch + SHA256_K[t] + wt;
     uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
     uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    uint32_t t2 = S0 + maj;
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + t2;
+    if (ADDS == ADDS_ALL) {
+      const uint32_t t1 =
+          add_fma(add_fma(add_fma(h + SHA256_K[t], wt), S1), ch);
+      h = g; g = f; f = e;
+      e = add_fma(d, t1);
+      d = c; c = b; b = a; a = add_fma(add_fma(t1, S0), maj);
+    } else {
+      const uint32_t t1 = h + S1 + ch + SHA256_K[t] + wt;
+      h = g; g = f; f = e;
+      e = d + t1;
+      d = c; c = b; b = a; a = t1 + S0 + maj;
+    }
   }
   st[0] += a; st[1] += b; st[2] += c; st[3] += d;
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
-// The digest state of message `i`: its first min(nvalid, nblocks) blocks.
-// `words` points at the message's first block (nblocks * 16 words, 16-byte
-// aligned).
-__device__ __forceinline__ void sha256_message(const uint4* words, int nvalid,
-                                               int nblocks, uint32_t st[8]) {
-  st[0] = 0x6a09e667; st[1] = 0xbb67ae85; st[2] = 0x3c6ef372;
-  st[3] = 0xa54ff53a; st[4] = 0x510e527f; st[5] = 0x9b05688c;
-  st[6] = 0x1f83d9ab; st[7] = 0x5be0cd19;
-  int nb = nvalid < nblocks ? nvalid : nblocks;
-  for (int blk = 0; blk < nb; ++blk) {
-    uint32_t w[16];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint4 v = words[blk * 4 + q];
-      w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
-    }
-    sha256_compress_block(st, w);
-  }
+// One compression with the adds on the ALU: a node hash's.
+__device__ __forceinline__ void sha256_compress_block(uint32_t st[8],
+                                                      uint32_t w[16]) {
+  sha256_compress_block_t<ADDS_ALU>(st, w);
 }
 
 __device__ __forceinline__ uint32_t bswap32(uint32_t x) {
@@ -238,7 +272,7 @@ sha256_ragged_kernel(const uint8_t* __restrict__ data, int64_t nbytes,
         w[14] = (uint32_t)(bits >> 32);
         w[15] = (uint32_t)bits;
       }
-      sha256_compress_block(st, w);
+      sha256_compress_block_t<ADDS_ALL>(st, w);
     }
     __syncwarp();
   }
@@ -370,32 +404,52 @@ inline int node_levels_grid(int64_t n) {
   return (int)(((n >> 1) + NODE_THREADS - 1) / NODE_THREADS);
 }
 
-#define APPEND_LEVELS_MAX 16   // parent levels one append launch climbs
+#define APPEND_LEVELS_MAX 16   // parent levels of one group of an append
+#define APPEND_LAUNCH_LEVELS 9 // levels one launch climbs: 256 parents → 1
+#define APPEND_WIDTH 256       // level-1 parents a CTA owns, at most
+#define APPEND_THREADS 128     // threads of an append CTA
 
 // The windows of one append launch: level[0] is the child level, level[j]
-// (1 <= j <= levels) the parent level j above it, each [rows, 32] bytes of
-// big-endian digests; the new parents of level j are [p0[j], end[j]). A
-// CTA owns `slots` consecutive level-`levels` ancestors from slot0 + slots
-// * blockIdx.x on: every new parent below them, at every level.
+// (1 <= j <= levels <= APPEND_LAUNCH_LEVELS) the parent level j above it,
+// each [rows, 32] bytes of big-endian digests; the new parents of level j
+// are [p0[j], end[j]). A CTA owns `slots` consecutive level-`levels`
+// ancestors from slot0 + slots * blockIdx.x on, so `slots << (levels - 1)`
+// consecutive level-1 parents, aligned: every new parent below those
+// ancestors, at every level.
 struct AppendWindows {
-  uint8_t* level[APPEND_LEVELS_MAX + 1];
-  int64_t p0[APPEND_LEVELS_MAX + 1];
-  int64_t end[APPEND_LEVELS_MAX + 1];
+  uint8_t* level[APPEND_LAUNCH_LEVELS + 1];
+  int64_t p0[APPEND_LAUNCH_LEVELS + 1];
+  int64_t end[APPEND_LAUNCH_LEVELS + 1];
   int64_t slot0;
   int levels, slots;
 };
 
 // The big-endian words of the 32-byte digest at `p` (16-byte aligned),
-// read through L2: the digest may have been written by another thread of
-// the block in this launch, which the read-only path (__ldg) would not see.
-__device__ __forceinline__ void load_digest_cg(const uint8_t* p, uint32_t d[8]) {
+// read through L2 (__ldcg): what a launch still running when this one
+// started wrote there is not in this SM's L1.
+__device__ __forceinline__ void load_digest_cg(const uint8_t* p,
+                                               uint32_t d[8]) {
   const uint4 a = __ldcg((const uint4*)p), b = __ldcg((const uint4*)p + 1);
   d[0] = bswap32(a.x); d[1] = bswap32(a.y); d[2] = bswap32(a.z);
   d[3] = bswap32(a.w); d[4] = bswap32(b.x); d[5] = bswap32(b.y);
   d[6] = bswap32(b.z); d[7] = bswap32(b.w);
 }
 
-// Appends the new parents of up to APPEND_LEVELS_MAX tree levels in one
+// Programmatic dependent launch (sm_90): let the next launch of the stream
+// start its CTAs now, and wait for the launch before this one (its writes
+// done and visible). Outside a dependent launch the wait returns at once.
+__device__ __forceinline__ void launch_dependents() {
+#ifdef __CUDA_ARCH__
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void wait_prerequisite() {
+#ifdef __CUDA_ARCH__
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+// Appends the new parents of up to APPEND_LAUNCH_LEVELS tree levels in one
 // launch, each written in place into its level: parent p of level j is
 // H(0x01 || child 2p || child 2p + 1) of level j - 1.
 //
@@ -405,90 +459,220 @@ __device__ __forceinline__ void load_digest_cg(const uint8_t* p, uint32_t d[8]) 
 // each level's new nodes gathered from the one below and scattered into
 // its level array) and _append_level_step (one level).
 //
-// Design. An append's windows are not aligned at 0: when a level's
-// window starts at an odd index, the left child of its first parent is a
-// stored node that no thread of this launch writes, and is read from the
-// child level as it is. Every other child of a new parent is new at the
-// level below, and lies under the same level-K ancestor; so a CTA that
-// owns a run of level-K ancestors owns every new node below them and
-// climbs its levels alone: hash its parents of level j, __syncthreads,
-// hash those of level j + 1 from them. Between levels the digests go
-// through global memory (read back through L2: L1 and the read-only path
-// are not coherent with other threads' stores), since an append's windows
-// are small and its levels few. A CTA owns 256 >> (K - 1) ancestors, 256
-// parents of level 1 (one a thread), more for K > 9.
+// Bound: latency. An append of a 3PC batch is far below a wave of the
+// card (1,706 leaves onto 2^20: 1,700 nodes on 10 levels, 2 x 1,384
+// instructions a node, an operations bound of 0.00014 ms), so its time
+// is the levels times the latency of one level, plus its launches. One
+// node hash on one warp takes ~2.8 us with the adds on the ALU, 3.6 with
+// them on IMADs (plenum_tpu_torch/sha256_ceilings.py on an NVIDIA H100
+// 80GB HBM3 at 700 W, PERF.md), so the
+// node hash keeps them on the ALU (ADDS_ALU). chip_smoke.py prints
+// the floor, levels x a node hash + launches x an empty launch, beside
+// the kernel. Its first form paid two L2 round trips a level (each
+// level's children read back through L2), and a level of 256 nodes put
+// two warps on each SM sub-partition (the latency of two node hashes).
 //
-// Bound: operations, 2 x 1,384 instructions a node. An append of a 3PC
-// batch is far below a wave of the card (1,706 leaves onto 2^20: 1,700
-// nodes on 10 levels, a bound of 0.00014 ms), so the latency of a level
-// (two dependent compressions and their loads) times the levels of a
-// launch sets its time: 0.0424 ms for that append's three launches, one
-// level of one node 0.0053 ms (NVIDIA H100 80GB HBM3, 700 W;
-// chip_smoke.py phase 8).
-__global__ void __launch_bounds__(NODE_THREADS)
+// Design. Every child of a new parent is new at the level below, but for
+// one: when a level's window starts at an odd index, the left child of
+// the first new parent above it is a stored node that no thread of the
+// launch writes. So a CTA that owns a run of level-K ancestors owns every
+// new node below them and climbs its levels alone, as
+// sha256_node_levels_kernel does: its level-1 parents read their children
+// from global memory (16-byte loads, neighbouring threads on neighbouring
+// spans), and every parent goes once to its level in global memory and
+// once to shared memory, in the transposed sh[word][node] layout with two
+// buffers used by turns; levels 2..K read only shared memory. Node p of a
+// level sits at index p - base, base = s_lo << (K - j) being the CTA's
+// aligned first slot, so windows that start mid-range need no other
+// indexing. The stored left siblings, one a level at most, are read with
+// level 1's children into a small shared array, where the thread of the
+// first new parent above takes its left child: no global load waits
+// between levels.
+//
+// A CTA has APPEND_THREADS = 128 threads, four warps, one on each of the
+// SM's sub-partitions: a level of 128 nodes then costs one warp's node
+// hash, where 256 threads put two warps' worth on each (the latency of
+// two node hashes). A CTA owns 128 level-1 parents for K <= 8 and 256 for
+// K = 9 (two a thread at level 1). Below 32 nodes a level is one warp,
+// synchronised by __syncwarp; the other warps return.
+//
+// The C entry enqueues an append's launches back to back with
+// programmatic dependent launch: each launch lets the next start at once,
+// and that one waits for it before it reads anything (through L2,
+// __ldcg: the launch before wrote its level 0), so a launch's start
+// overlaps the last levels of the one before.
+//
+// A group of more than APPEND_LAUNCH_LEVELS levels (K up to
+// APPEND_LEVELS_MAX = 16) would give a CTA 2^(K - 1) level-1 parents, too
+// many for shared memory, so the C entry splits such a group into
+// launches of at most nine levels: only for K > 9 does an append launch
+// more often than it has groups.
+__global__ void __launch_bounds__(APPEND_THREADS)
 sha256_append_levels_kernel(AppendWindows a) {
+  __shared__ uint32_t sh[2][8][APPEND_WIDTH];
+  __shared__ uint32_t stored[APPEND_LAUNCH_LEVELS][8];
+  launch_dependents();
+  const int t = threadIdx.x;
+  const int K = a.levels;
   const int64_t s_lo = a.slot0 + (int64_t)blockIdx.x * a.slots;
-  const int64_t s_hi = s_lo + a.slots;
-  for (int j = 1; j <= a.levels; ++j) {
-    if (j > 1) __syncthreads();           // level j - 1 was written above
-    const int up = a.levels - j;          // parent p lies under p >> up
-    const int64_t lo = max(a.p0[j], s_lo << up);
-    const int64_t hi = min(a.end[j], s_hi << up);
-    const uint8_t* child = a.level[j - 1];
-    uint8_t* parent = a.level[j];
-    for (int64_t p = lo + threadIdx.x; p < hi; p += blockDim.x) {
+  wait_prerequisite();            // level 0 may be the launch before's
+  // stored[j]: the stored left child (level j) of level j + 1's first new
+  // parent, if that child lies below this CTA's ancestors and before
+  // level j's window; first read at level j + 1, after a barrier
+  if (t >= 1 && t < K) {
+    const int64_t c = 2 * a.p0[t + 1];
+    if (c < a.p0[t] && c >> (K - t) >= s_lo && c >> (K - t) < s_lo + a.slots)
+      load_digest_cg(a.level[t] + 32 * c, stored[t]);
+  }
+  const int w1 = a.slots << (K - 1);      // this CTA's level-1 slots
+  for (int i = t; i < w1; i += APPEND_THREADS) {
+    const int64_t p = (s_lo << (K - 1)) + i;
+    if (p >= a.p0[1] && p < a.end[1]) {
       uint32_t l[8], r[8], st[8];
-      load_digest_cg(child + 64 * p, l);
-      load_digest_cg(child + 64 * p + 32, r);
+      load_digest_cg(a.level[0] + 64 * p, l);
+      load_digest_cg(a.level[0] + 64 * p + 32, r);
       sha256_node(l, r, st);
-      store_digest(parent + 32 * p, st);
+      store_digest(a.level[1] + 32 * p, st);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sh[1][k][i] = st[k];
+    }
+  }
+  for (int j = 2; j <= K; ++j) {
+    const int width = w1 >> (j - 1);      // this CTA's slots of level j
+    const int rd = (j - 1) & 1;           // level j - 1 sits in sh[rd]
+    if (2 * width > 32)
+      __syncthreads();            // level j - 1 was written by several warps
+    else
+      __syncwarp();
+    if (width <= 32 && t >= 32) return;   // warp-uniform
+    const int64_t p = (s_lo << (K - j)) + t;
+    if (t < width && p >= a.p0[j] && p < a.end[j]) {
+      uint32_t l[8], r[8], st[8];
+      const bool left_stored = 2 * p < a.p0[j - 1];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint2 v = *(const uint2*)&sh[rd][k][2 * t];
+        l[k] = left_stored ? stored[j - 1][k] : v.x;
+        r[k] = v.y;
+      }
+      sha256_node(l, r, st);
+      store_digest(a.level[j] + 32 * p, st);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sh[rd ^ 1][k][t] = st[k];
     }
   }
 }
 
-// The launch parameters of an append of `levels` parent levels above
-// `child`: parents[j - 1] is level j, whose new parents are p0s[j - 1] and
-// the cnts[j - 1] after it. → the CTAs of the launch (0: nothing to do).
-inline int append_windows(const void* child, const void* const* parents,
-                          const int64_t* p0s, const int64_t* cnts,
-                          int levels, AppendWindows* a) {
-  a->level[0] = (uint8_t*)child;
+// The windows of one launch of `levels` (1..APPEND_LAUNCH_LEVELS) parent
+// levels: level[0] the child level, level[j] parent level j with new
+// parents [p0[j - 1], p0[j - 1] + cnt[j - 1]). → the CTAs of the launch (0:
+// nothing to do).
+inline int append_windows(uint8_t* const* level, const int64_t* p0,
+                          const int64_t* cnt, int levels, AppendWindows* a) {
+  a->level[0] = level[0];
   for (int j = 1; j <= levels; ++j) {
-    a->level[j] = (uint8_t*)parents[j - 1];
-    a->p0[j] = p0s[j - 1];
-    a->end[j] = p0s[j - 1] + cnts[j - 1];
+    a->level[j] = level[j];
+    a->p0[j] = p0[j - 1];
+    a->end[j] = p0[j - 1] + cnt[j - 1];
   }
   a->levels = levels;
-  if (cnts[0] <= 0) return 0;
+  if (cnt[0] <= 0) return 0;
   const int up = levels - 1;
-  a->slots = up < 8 ? NODE_THREADS >> up : 1;
+  a->slots = (1 << up) < APPEND_THREADS ? APPEND_THREADS >> up : 1;
   a->slot0 = a->p0[1] >> up;
   const int64_t slots = ((a->end[1] - 1) >> up) - a->slot0 + 1;
   return (int)((slots + a->slots - 1) / a->slots);
 }
 
-#ifdef __CUDACC__
-__global__ void __launch_bounds__(256)
+// Calls launch(grid, windows) for each launch of an append: `levels`
+// holds 1 + L level pointers (the first group's child level, then parent
+// levels 1..L), p0s and cnts the L windows, group_levels the levels of
+// each of `groups` groups (summing to L); a group of more than
+// APPEND_LAUNCH_LEVELS levels is split. → the first nonzero result of
+// launch, else 0; *launches counts the launches made.
+template <class Launch>
+inline int append_groups_each(uint8_t* const* levels, const int64_t* p0s,
+                              const int64_t* cnts, const int* group_levels,
+                              int groups, Launch launch, int* launches) {
+  int at = 0;
+  *launches = 0;
+  for (int g = 0; g < groups; ++g) {
+    const int k = group_levels[g];
+    if (k < 1 || k > APPEND_LEVELS_MAX) return -1;
+    for (int done = 0; done < k; done += APPEND_LAUNCH_LEVELS) {
+      const int n = k - done < APPEND_LAUNCH_LEVELS ? k - done
+                                                    : APPEND_LAUNCH_LEVELS;
+      AppendWindows a;
+      const int grid = append_windows(levels + at, p0s + at, cnts + at, n,
+                                      &a);
+      at += n;
+      if (grid == 0) continue;
+      const int e = launch(grid, a);
+      if (e != 0) return e;
+      ++*launches;
+    }
+  }
+  return 0;
+}
+
+#define COMPRESS_THREADS 256
+
+// The digest state of B pre-padded messages, one thread per message, each
+// loading its own message's blocks as four 16-byte loads a block.
+//
+// Bound: operations, 1,384 instructions a block in the fewest Hopper
+// instructions (chip_smoke.py). What the card issues of them was measured
+// first (plenum_tpu_torch/sha256_ceilings.py on an NVIDIA H100 80GB HBM3
+// at 700 W, PERF.md): SHF, LOP3 and
+// IADD3 share the ALU pipe at 64 lanes a clock per SM, and IMAD issues on
+// the FMA pipe beside it, so the compression routes its adds to IMADs
+// (ADDS_ALL) and the ALU keeps its SHF and LOP3 (the compression's mix
+// then issues 95-96 lane-instructions a clock per SM, against 68). The
+// loads are not what holds it back: a thread's 64-byte block lies in one
+// 128-byte line, which its four loads share through L1, and staging the
+// messages through shared memory with coalesced asynchronous copies (one
+// CTA a tile or a persistent wave) measured 5-10% slower, its copies,
+// swizzled reads and barriers adding instructions to an issue-bound loop.
+template <int ADDS>
+__global__ void __launch_bounds__(COMPRESS_THREADS)
 sha256_compress_kernel(const uint4* __restrict__ words,
                        const int32_t* __restrict__ nvalid,
                        uint4* __restrict__ out, int B, int nblocks) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * COMPRESS_THREADS + threadIdx.x;
   if (i >= B) return;
-  uint32_t st[8];
-  sha256_message(words + (size_t)i * nblocks * 4, nvalid[i], nblocks, st);
+  uint32_t st[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+                    0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+  const uint4* msg = words + (size_t)i * nblocks * 4;
+  const int nb = nvalid[i] < nblocks ? nvalid[i] : nblocks;
+  for (int blk = 0; blk < nb; ++blk) {
+    uint32_t w[16];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = msg[blk * 4 + q];
+      w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+    sha256_compress_block_t<ADDS>(st, w);
+  }
   out[2 * (size_t)i] = make_uint4(st[0], st[1], st[2], st[3]);
   out[2 * (size_t)i + 1] = make_uint4(st[4], st[5], st[6], st[7]);
 }
 
-// words: [B, nblocks, 16] uint32; nvalid: [B] int32; out: [B, 8] uint32.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+inline int compress_grid(int B) {
+  return (B + COMPRESS_THREADS - 1) / COMPRESS_THREADS;
+}
+
+#ifdef __CUDACC__
+// words: [B, nblocks, 16] uint32, 16-byte aligned; nvalid: [B] int32;
+// out: [B, 8] uint32. One launch on `stream`; returns cudaGetLastError()
+// (0 on success).
 extern "C" int sha256_compress(const void* words, const void* nvalid,
                                void* out, int B, int nblocks, void* stream) {
-  if (B <= 0) return 0;
-  const int threads = 256;
-  int blocks = (B + threads - 1) / threads;
-  sha256_compress_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)words, (const int32_t*)nvalid, (uint4*)out, B, nblocks);
+  if (B <= 0 || nblocks <= 0) return 0;
+  sha256_compress_kernel<ADDS_ALL>
+      <<<compress_grid(B), COMPRESS_THREADS, 0, (cudaStream_t)stream>>>(
+          (const uint4*)words, (const int32_t*)nvalid, (uint4*)out, B,
+          nblocks);
   return (int)cudaGetLastError();
 }
 
@@ -541,24 +725,40 @@ extern "C" int sha256_node_levels(const void* in, int64_t n, void* out,
   return (int)cudaGetLastError();
 }
 
-// child: [*, 32] digests of the level below the first parent level;
-// parents: `levels` device pointers (1 <= levels <= APPEND_LEVELS_MAX), the
-// parent levels, each [*, 32]; p0s, cnts: host arrays, the window of new
-// parents of each (cnts[0] >= cnts[1] >= ..., each window's children in
-// the window below or stored before it). Every pointer 16-byte aligned.
-// One launch on `stream`, without synchronising; returns its CUDA error
-// (0 on success).
-extern "C" int sha256_append_levels(const void* child,
-                                    const void* const* parents,
-                                    const int64_t* p0s, const int64_t* cnts,
-                                    int levels, void* stream) {
-  if (levels < 1 || levels > APPEND_LEVELS_MAX)
-    return (int)cudaErrorInvalidValue;
-  AppendWindows a;
-  const int grid = append_windows(child, parents, p0s, cnts, levels, &a);
-  if (grid == 0) return 0;
-  sha256_append_levels_kernel<<<grid, NODE_THREADS, 0,
-                                (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+// One launch of sha256_append_levels_kernel on `stream`, with programmatic
+// dependent launch. → its CUDA error.
+inline int append_launch(int grid, const AppendWindows& a, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(APPEND_THREADS);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, sha256_append_levels_kernel, a);
+}
+
+// The launches of an append, enqueued back to back on `stream` without
+// synchronising: levels holds 1 + L device pointers (the first group's
+// child level, then parent levels 1..L, each [*, 32] digests, 16-byte
+// aligned); p0s, cnts: host arrays, the window of new parents of each
+// parent level (cnts[0] >= 1, each window's children in the window below
+// or stored before it); group_levels: the levels of each of `groups`
+// groups (1..APPEND_LEVELS_MAX each, summing to L), a group of more than
+// nine levels being split. *launches receives the launches made. Returns
+// the first CUDA error (0 on success).
+extern "C" int sha256_append_groups(void* const* levels, const int64_t* p0s,
+                                    const int64_t* cnts,
+                                    const int* group_levels, int groups,
+                                    void* stream, int* launches) {
+  const int e = append_groups_each(
+      (uint8_t* const*)levels, p0s, cnts, group_levels, groups,
+      [stream](int grid, const AppendWindows& a) {
+        return append_launch(grid, a, (cudaStream_t)stream);
+      },
+      launches);
+  return e < 0 ? (int)cudaErrorInvalidValue : e;
 }
 #endif

@@ -1,11 +1,12 @@
-// sha256.cu's node-level and ragged kernels run on the CPU through
-// cuda_host_shim.h, for tests without a card:
+// sha256.cu's kernels run on the CPU through cuda_host_shim.h, for tests
+// without a card:
 //
 //   g++ -std=c++20 -O1 -pthread -o sha256_host sha256_host.cpp
 //   sha256_host levels SPLIT IN OUT
 //   sha256_host ragged PREFIX DATA OFFSETS OUT
 //   sha256_host ragged_be PREFIX DATA OFFSETS OUT
-//   sha256_host append SPEC TREE OUT
+//   sha256_host append GROUPS SPEC TREE OUT
+//   sha256_host compress NBLOCKS WORDS NVALID OUT
 //
 // levels: IN holds n 32-byte digests; SPLIT the levels of each launch,
 // comma-separated (ops/sha256.py::node_level_split); OUT receives the
@@ -16,9 +17,13 @@
 // 16-byte tail with the error word; ragged_be, B * 32 big-endian digest
 // bytes, then the 16 bytes of the error word. append: TREE holds rows of
 // 32-byte digests; SPEC is C:R1:P1:N1[:R2:P2:N2...], the first row of the
-// child level, then for each parent level its first row and its window of
-// new parents (first, count); OUT receives TREE after one launch of the
-// append kernel, as ops/sha256.py::sha256_append_levels_cuda makes it.
+// first group's child level, then for each parent level of the append its
+// first row and its window of new parents (first, count); GROUPS the
+// levels of each group, comma-separated (ops/merkle.py::append_groups);
+// OUT receives TREE after the launches of sha256_append_groups, as
+// ops/sha256.py::sha256_append_groups_cuda makes them. compress: WORDS
+// holds [B, NBLOCKS, 16] uint32 words, NVALID [B] int32 block counts; OUT
+// receives the [B, 8] uint32 digest state.
 #include <cstdio>
 #include <cstdlib>
 #include <string>
@@ -110,35 +115,71 @@ static int ragged_main(int prefix, const char* data_path,
                     32 * (size_t)B + 16);
 }
 
-static int append_main(const char* spec, const char* tree_path,
-                       const char* out_path) {
-  std::vector<int64_t> v;
-  for (const char* p = spec; *p;) {
+static bool parse_list(const char* arg, char sep, std::vector<int64_t>* v) {
+  for (const char* p = arg; *p;) {
     char* end;
-    v.push_back(std::strtoll(p, &end, 10));
-    if (end == p) return 2;
-    p = *end == ':' ? end + 1 : end;
+    v->push_back(std::strtoll(p, &end, 10));
+    if (end == p) return false;
+    p = *end == sep ? end + 1 : end;
   }
+  return true;
+}
+
+static int append_main(const char* groups_arg, const char* spec,
+                       const char* tree_path, const char* out_path) {
+  std::vector<int64_t> g, v;
+  if (!parse_list(groups_arg, ',', &g) || !parse_list(spec, ':', &v))
+    return 2;
   const int levels = (int)(v.size() - 1) / 3;
-  if (levels < 1 || levels > APPEND_LEVELS_MAX ||
-      v.size() != (size_t)(1 + 3 * levels))
+  std::vector<int> group_levels(g.begin(), g.end());
+  int64_t total = 0;
+  for (int64_t k : g) total += k;
+  if (levels < 1 || v.size() != (size_t)(1 + 3 * levels) || total != levels)
     return 2;
   std::vector<uint8_t> tree = read_file(tree_path);
   uint8_t* buf = new uint8_t[tree.size() + 1];
   std::memcpy(buf, tree.data(), tree.size());
-  const void* parents[APPEND_LEVELS_MAX];
-  int64_t p0s[APPEND_LEVELS_MAX], cnts[APPEND_LEVELS_MAX];
+  std::vector<uint8_t*> level(1 + levels);
+  std::vector<int64_t> p0s(levels), cnts(levels);
+  level[0] = buf + 32 * v[0];
   for (int j = 0; j < levels; ++j) {
-    parents[j] = buf + 32 * v[1 + 3 * j];
+    level[1 + j] = buf + 32 * v[1 + 3 * j];
     p0s[j] = v[2 + 3 * j];
     cnts[j] = v[3 + 3 * j];
   }
-  AppendWindows a;
-  const int grid = append_windows(buf + 32 * v[0], parents, p0s, cnts,
-                                  levels, &a);
-  if (grid > 0) host_launch(grid, NODE_THREADS, sha256_append_levels_kernel, a);
-  const int rc = write_file(out_path, buf, tree.size());
+  int launches = 0;
+  const int e = append_groups_each(
+      level.data(), p0s.data(), cnts.data(), group_levels.data(),
+      (int)group_levels.size(),
+      [](int grid, const AppendWindows& a) {
+        host_launch(grid, NODE_THREADS, sha256_append_levels_kernel, a);
+        return 0;
+      },
+      &launches);
+  const int rc = e ? 2 : write_file(out_path, buf, tree.size());
   delete[] buf;
+  return rc;
+}
+
+static int compress_main(int nblocks, const char* words_path,
+                         const char* nvalid_path, const char* out_path) {
+  std::vector<uint8_t> words = read_file(words_path);
+  std::vector<uint8_t> nvalid = read_file(nvalid_path);
+  const int B = (int)(nvalid.size() / 4);
+  if (nblocks < 1 || B < 1 || words.size() != 64 * (size_t)B * nblocks)
+    return 2;
+  uint4* w = new uint4[words.size() / 16];
+  std::memcpy(w, words.data(), words.size());
+  int32_t* nv = new int32_t[B];
+  std::memcpy(nv, nvalid.data(), nvalid.size());
+  uint4* out = new uint4[2 * (size_t)B];
+  host_launch(compress_grid(B), COMPRESS_THREADS,
+              sha256_compress_kernel<ADDS_ALL>, (const uint4*)w,
+              (const int32_t*)nv, out, B, nblocks);
+  const int rc = write_file(out_path, (const uint8_t*)out, 32 * (size_t)B);
+  delete[] w;
+  delete[] nv;
+  delete[] out;
   return rc;
 }
 
@@ -149,12 +190,15 @@ int main(int argc, char** argv) {
   if ((mode == "ragged" || mode == "ragged_be") && argc == 6)
     return ragged_main(std::atoi(argv[2]), argv[3], argv[4], argv[5],
                        mode == "ragged_be");
-  if (mode == "append" && argc == 5)
-    return append_main(argv[2], argv[3], argv[4]);
+  if (mode == "append" && argc == 6)
+    return append_main(argv[2], argv[3], argv[4], argv[5]);
+  if (mode == "compress" && argc == 6)
+    return compress_main(std::atoi(argv[2]), argv[3], argv[4], argv[5]);
   std::fprintf(stderr,
                "usage: %s levels SPLIT IN OUT\n"
                "       %s ragged|ragged_be PREFIX DATA OFFSETS OUT\n"
-               "       %s append SPEC TREE OUT\n",
-               argv[0], argv[0], argv[0]);
+               "       %s append GROUPS SPEC TREE OUT\n"
+               "       %s compress NBLOCKS WORDS NVALID OUT\n",
+               argv[0], argv[0], argv[0], argv[0]);
   return 2;
 }

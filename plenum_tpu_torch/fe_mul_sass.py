@@ -23,26 +23,44 @@ KERNELS = ("fe_mul_r25", "fe_add_r25", "fe_mul_r51", "fe_add_r51")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def sass_counts(sass: str) -> dict:
-    """{kernel: {"instructions": n, "multiplies": m}} from cuobjdump -sass
-    output."""
-    counts, name = {}, None
+def sass_listing(sass: str) -> dict:
+    """{kernel: [(address, opcode, instruction text)]} from cuobjdump -sass
+    output, NOPs left out; the opcode with its modifiers (IMAD.MOV.U32)."""
+    listing, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"instructions": 0, "multiplies": 0}
+            listing[name] = []
             continue
         m = _INSN.search(line)
-        if name is None or not m:
+        if name is None or not m or m.group(2) == "NOP":
             continue
-        op = m.group(2)
-        if op == "NOP":
-            continue
-        counts[name]["instructions"] += 1
-        if op.startswith(("IMAD", "IMUL")):
-            counts[name]["multiplies"] += 1
-    return counts
+        addr = int(re.search(r"/\*([0-9a-f]{4,})\*/", line).group(1), 16)
+        listing[name].append((addr, m.group(2), line.strip()))
+    return listing
+
+
+def sass_counts(sass: str) -> dict:
+    """{kernel: {"instructions": n, "multiplies": m}} from cuobjdump -sass
+    output."""
+    return {name: {"instructions": len(insns),
+                   "multiplies": sum(op.startswith(("IMAD", "IMUL"))
+                                     for _, op, _ in insns)}
+            for name, insns in sass_listing(sass).items()}
+
+
+def _disassemble(binary: str) -> str:
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", binary], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def library_sass(name: str) -> str:
+    """cuobjdump -sass of the built library of csrc/<name>.cu (built first
+    if needed), as the wrappers load it."""
+    cuda_lib.load(name)
+    return _disassemble(cuda_lib.lib_path(name))
 
 
 def source_counts(name: str) -> dict:
@@ -50,7 +68,6 @@ def source_counts(name: str) -> dict:
     plenum_tpu_torch/_build/ as a cubin, disassemble it with cuobjdump
     -sass → sass_counts of it."""
     nvcc = cuda_lib._nvcc()
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     cubin = os.path.join(cuda_lib.BUILD_DIR, name + ".cubin")
     flags = [f for f in cuda_lib.NVCC_FLAGS
@@ -59,9 +76,7 @@ def source_counts(name: str) -> dict:
                                      os.path.join(cuda_lib.CSRC,
                                                   name + ".cu")],
                    check=True)
-    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
-                          capture_output=True, text=True).stdout
-    return sass_counts(sass)
+    return sass_counts(_disassemble(cubin))
 
 
 def main() -> int:

@@ -13,7 +13,6 @@ sha256_compress on each level's pre-built words, levels of 256 pairs or
 more (the 12 the tree sent to the card). Prints one line per split and
 per old level, then one JSON line.
 """
-import ctypes
 import json
 import subprocess
 import sys
@@ -21,7 +20,7 @@ import sys
 import numpy as np
 import torch
 
-from plenum_tpu_torch.ops import cuda_lib, to_tensor
+from plenum_tpu_torch.ops import to_tensor
 from plenum_tpu_torch.ops import sha256 as sha
 
 N = 1 << 20
@@ -52,10 +51,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    fn = cuda_lib.load("sha256").sha256_node_levels
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = sha._lib().sha256_node_levels
     digests = to_tensor(np.random.RandomState(0).randint(
         0, 256, size=(N, 32), dtype=np.uint8), dev)
     rows = [N >> k for k in range(1, LEVELS + 1)]
@@ -73,7 +69,7 @@ def main() -> int:
             at = last + n_in
             done += lv
 
-    wave = sha._node_wave(cuda_lib.load("sha256"), dev)
+    wave = sha._node_wave(sha._lib(), dev)
     chosen = sha.node_level_split(N, LEVELS, wave)
     print("card: {}; {} CTAs a wave; the wrapper's split {}".format(
         card, wave, chosen))

@@ -131,7 +131,7 @@ def launch_counts(reset: bool = False) -> dict:
            "sha256_compress": sha256.sha256_blocks_cuda,
            "sha256_ragged": sha256.sha256_ragged_cuda,
            "sha256_node_levels": sha256.sha256_node_levels_cuda,
-           "sha256_append_levels": sha256.sha256_append_levels_cuda,
+           "sha256_append_levels": sha256.sha256_append_groups_cuda,
            "sha3_ragged": sha3.sha3_ragged_cuda,
            "sha3_ragged_eq": sha3.sha3_ragged_eq_cuda}
     counts = {name: fn.launches for name, fn in fns.items()}

@@ -3,37 +3,46 @@
 Each source under `plenum_tpu_torch/csrc/` is compiled by its own `nvcc`
 into a shared library with a plain C interface for Hopper (`sm_90a`), at
 first use, into `plenum_tpu_torch/_build/` (listed in .gitignore). The
-file name carries a hash of the source, so an edited kernel is rebuilt and
-a stale library is never loaded. `build()` starts every missing compile at
+file name carries a hash of the source and of the csrc/ files it
+includes, so an edited kernel is rebuilt and a stale library is never
+loaded. `build()` starts every missing compile at
 once and waits for all of them. The libraries are loaded with ctypes;
-wrappers pass every pointer and the stream as `c_void_p`.
+wrappers pass every pointer and the stream as `c_void_p`, with each
+function's argtypes set once, when its module first loads the library.
 
 `load_host()` does the same for the port's host C sources (the BLS12-381
-arithmetic), compiled by the host C compiler. Every compile writes a
-file of its own (the pid in its name) and moves it into place with
+arithmetic, the wire's ChaCha20 keystream, one ed25519 verification),
+compiled by the host C compiler; `try_load_host()` gives None instead of
+raising, for callers that keep a Python version of the same function.
+Every compile writes a file of its own (the pid in its name) and moves it into place with
 `os.replace`, so processes that build the same library at once (node
 processes, test workers) never load a half-written one.
 """
 import ctypes
 import hashlib
+import logging
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+logger = logging.getLogger(__name__)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SOURCES = ("sha256", "sha3", "ed25519_verify")
+SOURCES = ("sha256", "sha3", "ed25519_verify", "sha256_ceilings")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-HOST_SOURCES = ("bls12_381",)
+HOST_SOURCES = ("bls12_381", "chacha20", "ed25519_host")
 HOST_CC_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c11"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_typed = set()          # (library, function) whose signature is set
 
 
 def _nvcc() -> str:
@@ -50,10 +59,18 @@ def _source(name: str) -> str:
     return os.path.join(CSRC, name + ".cu")
 
 
+def _hash_source(h, path: str) -> None:
+    """Feed `path` and the csrc/ files it includes ("...") into `h`."""
+    with open(path, "rb") as f:
+        text = f.read()
+    h.update(text)
+    for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        _hash_source(h, os.path.join(CSRC, inc.decode()))
+
+
 def lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    _hash_source(h, _source(name))
     return os.path.join(BUILD_DIR, "lib{}-{}.so".format(
         name, h.hexdigest()[:16]))
 
@@ -89,14 +106,21 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     return results
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `name`, building it first if needed."""
+def load(name: str, signatures: Dict[str, list] = None) -> ctypes.CDLL:
+    """The loaded library for `name`, building it first if needed. Each
+    function named in `signatures` gets those argtypes and an int restype
+    (every entry returns a CUDA error), once."""
     lib = _loaded.get(name)
     if lib is None:
         path = lib_path(name)
         if not os.path.exists(path):
             build([name])
         lib = _loaded[name] = ctypes.CDLL(path)
+    for fn, argtypes in (signatures or {}).items():
+        if (name, fn) not in _typed:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+            _typed.add((name, fn))
     return lib
 
 
@@ -131,3 +155,15 @@ def load_host(name: str) -> ctypes.CDLL:
                     os.unlink(tmp)
         lib = _loaded[key] = ctypes.CDLL(path)
     return lib
+
+
+def try_load_host(name: str) -> Optional[ctypes.CDLL]:
+    """load_host(name), or None (logged) when the host C compiler cannot
+    build the library or it does not load: the caller then runs its
+    Python version of the same function."""
+    try:
+        return load_host(name)
+    except (OSError, subprocess.SubprocessError) as e:
+        logger.warning("csrc/%s.c did not build or load (%s); its Python "
+                       "version runs instead", name, e)
+        return None

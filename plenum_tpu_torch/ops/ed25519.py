@@ -374,6 +374,10 @@ _ARGS = (("ay", (NLIMB,)), ("asign", ()), ("ry", (NLIMB,)), ("rsign", ()),
          ("s_words", (8,)), ("k_words", (8,)))
 
 
+_SIGNATURES = {"ed25519_verify": [ctypes.c_void_p] * 7
+               + [ctypes.c_int, ctypes.c_void_p]}
+
+
 def verify_cuda(ay, asign, ry, rsign, s_words, k_words) -> torch.Tensor:
     """The CUDA kernel (csrc/ed25519_verify.cu) on CUDA int32 tensors,
     same arguments and verdicts as verify_plain (s and k below L, as
@@ -391,9 +395,7 @@ def verify_cuda(ay, asign, ry, rsign, s_words, k_words) -> torch.Tensor:
     ok = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return ok != 0
-    fn = cuda_lib.load("ed25519_verify").ed25519_verify
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_lib.load("ed25519_verify", _SIGNATURES).ed25519_verify
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in args], ok.data_ptr(), B, stream)

@@ -16,7 +16,8 @@ indices into one tensor.
   levels alone.
 - `append_leaf_hashes` writes new leaf digests into level 0 and hashes
   the new parents of `fused_levels` levels per sha256_append_levels
-  launch (csrc/sha256.cu), so an append costs 1 + ceil(levels / K)
+  launch (csrc/sha256.cu), all of an append's launches enqueued by one
+  call (sha256_append_groups), so an append costs 1 + ceil(levels / K)
   dispatches. Complete nodes are immutable, so capacity growth copies
   the levels into a buffer twice the size and keeps the host mirrors.
 - `dispatch_proof_batch` / `collect_proof_batch` serve RFC 6962
@@ -97,6 +98,7 @@ class DeviceMerkleTree:
         self.fused_levels = min(max(1, int(fused_levels)),
                                 sha.APPEND_LEVELS_MAX)
         self._buf: Optional[torch.Tensor] = None   # [2 * cap - 1, 32] u8
+        self._views, self._views_of = [], None     # _level's views of _buf
         self._size = 0
         self._cap = 0
         self._mirror = {}          # height -> host uint8 [cap >> h, 32]
@@ -142,9 +144,14 @@ class DeviceMerkleTree:
         return 2 * cap - 2 * (cap >> h)
 
     def _level(self, h: int) -> torch.Tensor:
-        """Level h as a [cap >> h, 32] view of the buffer."""
-        o = self._offset(h)
-        return self._buf[o:o + (self._cap >> h)]
+        """Level h as a [cap >> h, 32] view of the buffer (the views made
+        once per buffer: an append hands every level to the kernel)."""
+        if self._views_of is not self._buf:
+            self._views = [self._buf[self._offset(k):self._offset(k)
+                                     + (self._cap >> k)]
+                           for k in range(self._depth() + 1)]
+            self._views_of = self._buf
+        return self._views[h]
 
     def _n_low(self) -> int:
         """First host-mirrored height; heights below it are gathered on
@@ -284,8 +291,10 @@ class DeviceMerkleTree:
     def append_leaf_hashes(self, digests, return_nodes: bool = False):
         """Append leaf DIGESTS: ~2b device hashes for b leaves, no rebuild.
         The leaves go into level 0 in one copy; the new parents of
-        fused_levels levels are hashed per sha256_append_levels launch, so
-        an append costs 1 + ceil(levels / K) dispatches.
+        fused_levels levels are hashed per sha256_append_levels launch,
+        every launch enqueued by one sha256_append_groups call (on the
+        CPU, the plain version group by group), so an append costs 1 +
+        ceil(levels / K) dispatches, each a flight-recorder record.
 
         With return_nodes=True, returns [(height, first_node_index,
         uint8 [cnt, 32])] for every newly COMPLETE node: exactly the
@@ -303,14 +312,19 @@ class DeviceMerkleTree:
             self._level(0)[n0:n1].copy_(self._upload(arr))
         self.dispatch_stats["append_dispatches"] += 1
         news = [(0, n0, b)]
-        for h, group in append_groups(n0, n1, self.fused_levels):
-            with self.tracer.span("merkle_append_dispatch", CAT_DEVICE,
-                                  levels=len(group), n=group[0][2]):
-                sha.sha256_append_levels(
-                    self._level(h), [self._level(lv) for lv, _, _ in group],
-                    [(p0, cnt) for _, p0, cnt in group])
-            self.dispatch_stats["append_dispatches"] += 1
-            news.extend(group)
+        groups = append_groups(n0, n1, self.fused_levels)
+        news.extend(w for _, group in groups for w in group)
+        if groups:
+            launches = sha.sha256_append_groups(
+                self._level(0), [self._level(h) for h, _, _ in news[1:]],
+                [(p0, cnt) for _, p0, cnt in news[1:]], self.fused_levels)
+            self.dispatch_stats["append_dispatches"] += launches
+            # one record per launch, enqueued by the one call above
+            at = 1
+            for lv in sha.append_launches([len(g) for _, g in groups]):
+                self.tracer.instant("merkle_append_dispatch", CAT_DEVICE,
+                                    levels=lv, n=news[at][2])
+                at += lv
         self._size = n1
         self._invalidate()
         wanted = [(height, pos, cnt) for height, pos, cnt in news

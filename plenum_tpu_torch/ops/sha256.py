@@ -69,6 +69,22 @@ _M32 = 0xFFFFFFFF
 NODE_LEVELS = 9          # the most levels a sha256_node_levels launch climbs
 NODE_WAVE_LEVELS = 2     # ... while its grid spans more than one wave
 
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {          # csrc/sha256.cu's C entries, set once at load
+    "sha256_compress": [_P, _P, _P, _I, _I, _P],
+    "sha256_ragged": [_P, _I64, _P, _I, _P, _P, _I, _I, _P],
+    "sha256_node_levels_wave": [ctypes.POINTER(_I)],
+    "sha256_node_levels": [_P, _I64, _P, _I, _P],
+    "sha256_append_groups": [ctypes.POINTER(_P), ctypes.POINTER(_I64),
+                             ctypes.POINTER(_I64), ctypes.POINTER(_I), _I,
+                             _P, ctypes.POINTER(_I)],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    """libsha256, its entries' argtypes set when it first loads."""
+    return cuda_lib.load("sha256", _SIGNATURES)
+
 
 # ------------------------------------------------- the plain version
 
@@ -121,8 +137,9 @@ def sha256_blocks_plain(words: torch.Tensor,
 
 def sha256_blocks_cuda(words: torch.Tensor,
                        nvalid: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel (csrc/sha256.cu) on CUDA tensors, same arguments and
-    result as sha256_blocks_plain. Launches on the current stream without
+    """The CUDA kernel (csrc/sha256.cu, sha256_compress) on CUDA tensors,
+    `words` starting on a 16-byte boundary, same arguments and result as
+    sha256_blocks_plain. Launches on the current stream without
     synchronising; counts each launch in `sha256_blocks_cuda.launches`."""
     if words.dim() != 3 or words.shape[2] != 16:
         raise ValueError("words must be [B, nblocks, 16], got {}".format(
@@ -134,18 +151,15 @@ def sha256_blocks_cuda(words: torch.Tensor,
                          "device, got {} and {}".format(dev, nvalid.device))
     check_arg(words, "words", torch.int32, (B, nblocks, 16))
     check_arg(nvalid, "nvalid", torch.int32, (B,))
+    if words.data_ptr() % 16:
+        raise ValueError("words must start on a 16-byte boundary")
     out = torch.empty((B, 8), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    lib = cuda_lib.load("sha256")
-    fn = lib.sha256_compress
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(words.data_ptr(), nvalid.data_ptr(), out.data_ptr(),
-                 B, nblocks, stream)
+        err = _lib().sha256_compress(words.data_ptr(), nvalid.data_ptr(),
+                                     out.data_ptr(), B, nblocks, stream)
     if err != 0:
         raise RuntimeError("sha256_compress launch failed: CUDA error "
                            "{}".format(err))
@@ -296,15 +310,11 @@ def sha256_ragged_cuda(data: torch.Tensor, offsets: torch.Tensor,
     else:
         buf = torch.empty((TAIL_BYTES,), dtype=torch.uint8, device=dev)
         rows, tail = out.data_ptr(), buf.data_ptr()
-    fn = cuda_lib.load("sha256").sha256_ragged
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(data.data_ptr(), nbytes, offsets.data_ptr(), prefix, rows,
-                 tail, B, int(out is not None), stream)
+        err = _lib().sha256_ragged(data.data_ptr(), nbytes,
+                                   offsets.data_ptr(), prefix, rows, tail, B,
+                                   int(out is not None), stream)
     if err != 0:
         raise RuntimeError("sha256_ragged launch failed: CUDA error "
                            "{}".format(err))
@@ -432,11 +442,8 @@ def _node_wave(lib, dev: torch.device) -> int:
         else torch.cuda.current_device()
     if index not in _node_waves:
         ctas = ctypes.c_int(0)
-        fn = lib.sha256_node_levels_wave
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
         with torch.cuda.device(dev):
-            err = fn(ctypes.byref(ctas))
+            err = lib.sha256_node_levels_wave(ctypes.byref(ctas))
         if err != 0 or ctas.value < 1:
             raise RuntimeError("sha256_node_levels_wave failed: CUDA error "
                                "{}".format(err))
@@ -464,11 +471,8 @@ def sha256_node_levels_cuda(digests: torch.Tensor, levels: int,
         out = torch.empty((sum(rows), 32), dtype=torch.uint8, device=dev)
     else:
         _check_out(out, sum(rows), dev)
-    lib = cuda_lib.load("sha256")
+    lib = _lib()
     fn = lib.sha256_node_levels
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     n = int(digests.shape[0])
     src, n_in, at, done = digests.data_ptr(), n, 0, 0
     with torch.cuda.device(dev):
@@ -503,33 +507,40 @@ def sha256_node_levels(digests: torch.Tensor, levels: int,
 
 # ------------------------------- appends: new parents of a growing tree
 
-APPEND_LEVELS_MAX = 16   # parent levels one sha256_append_levels launch climbs
+APPEND_LEVELS_MAX = 16    # levels of one group of an append
+APPEND_LAUNCH_LEVELS = 9  # levels of one launch: a larger group is split
 
 
 def _append_windows(child: torch.Tensor, parents: Sequence[torch.Tensor],
-                    windows: Sequence[Tuple[int, int]]) -> None:
+                    windows: Sequence[Tuple[int, int]],
+                    max_levels: int = APPEND_LEVELS_MAX) -> None:
     """Raise unless `child` and `parents` are contiguous [rows, 32] uint8
     tensors on one device and `windows` [(p0, cnt)], one per parent
-    level, an append's: cnt >= 1 at the first level, each window's
-    children inside the window below or stored before it (p0 >= p0 below
-    >> 1, 2 (p0 + cnt) <= p0 + cnt below), every row inside its level."""
-    if not 1 <= len(parents) == len(windows) <= APPEND_LEVELS_MAX:
+    level (1 to max_levels of them), an append's: cnt >= 1 at the first
+    level, each window's children inside the window below or stored before
+    it (p0 >= p0 below >> 1, 2 (p0 + cnt) <= p0 + cnt below), every row
+    inside its level."""
+    if not 1 <= len(parents) == len(windows) <= max_levels:
         raise ValueError("expected 1 to {} parent levels with a window "
                          "each, got {} and {}".format(
-                             APPEND_LEVELS_MAX, len(parents), len(windows)))
-    below_p0 = below_end = 0
+                             max_levels, len(parents), len(windows)))
+    dev = child.device
+    below_p0, below_end = 0, 0
     for j, t in enumerate([child] + list(parents)):
-        if t.dim() != 2:
-            raise ValueError("levels must be [rows, 32], got {}".format(
-                tuple(t.shape)))
-        check_arg(t, "level {}".format(j), torch.uint8, (t.shape[0], 32))
-        if t.device != child.device:
+        if t.dtype != torch.uint8 or t.dim() != 2 or t.shape[1] != 32 \
+                or not t.is_contiguous():
+            raise ValueError("level {}: expected contiguous torch.uint8 "
+                             "[rows, 32], got {} {}{}".format(
+                                 j, t.dtype, tuple(t.shape),
+                                 "" if t.is_contiguous()
+                                 else " (not contiguous)"))
+        if t.device != dev:
             raise ValueError("the levels lie on {} and {}".format(
-                child.device, t.device))
+                dev, t.device))
         if j == 0:
-            below_end = int(t.shape[0])
+            below_end = t.shape[0]
             continue
-        p0, cnt = (int(v) for v in windows[j - 1])
+        p0, cnt = windows[j - 1]
         end = p0 + cnt
         if cnt < (1 if j == 1 else 0) or p0 < below_p0 >> 1 \
                 or 2 * end > below_end or end > t.shape[0]:
@@ -537,6 +548,24 @@ def _append_windows(child: torch.Tensor, parents: Sequence[torch.Tensor],
                              "above [{}, {})".format(
                                  (p0, cnt), j, below_p0, below_end))
         below_p0, below_end = p0, end
+
+
+def _group_sizes(levels: int, k: int) -> List[int]:
+    """The levels of each group of an append of `levels` parent levels, k
+    (1..APPEND_LEVELS_MAX) a group, as ops/merkle.py's append_groups makes
+    them."""
+    if not 1 <= k <= APPEND_LEVELS_MAX:
+        raise ValueError("levels a group must be 1 to {}, got {}".format(
+            APPEND_LEVELS_MAX, k))
+    return [min(k, levels - at) for at in range(0, levels, k)]
+
+
+def append_launches(group_sizes: Sequence[int]) -> List[int]:
+    """The levels of each sha256_append_levels launch of an append made of
+    groups of `group_sizes` levels: a group of more than
+    APPEND_LAUNCH_LEVELS levels is split (see csrc/sha256.cu)."""
+    return [min(APPEND_LAUNCH_LEVELS, g - at) for g in group_sizes
+            for at in range(0, g, APPEND_LAUNCH_LEVELS)]
 
 
 def sha256_append_levels_plain(child: torch.Tensor,
@@ -558,55 +587,73 @@ def sha256_append_levels_plain(child: torch.Tensor,
         below = parent
 
 
-def sha256_append_levels_cuda(child: torch.Tensor,
+def sha256_append_groups_plain(child: torch.Tensor,
+                               parents: Sequence[torch.Tensor],
+                               windows: Sequence[Tuple[int, int]],
+                               k: int) -> int:
+    """A whole append of plain versions: sha256_append_levels_plain on
+    each group of k levels in turn (the first group's child `child`, each
+    next group's its last parent level). → the launches the kernel makes
+    for it (append_launches)."""
+    sizes = _group_sizes(len(parents), k)
+    _append_windows(child, parents, windows, len(parents))
+    at = 0
+    for g in sizes:
+        sha256_append_levels_plain(child if at == 0 else parents[at - 1],
+                                   parents[at:at + g], windows[at:at + g])
+        at += g
+    return len(append_launches(sizes))
+
+
+def sha256_append_groups_cuda(child: torch.Tensor,
                               parents: Sequence[torch.Tensor],
-                              windows: Sequence[Tuple[int, int]]) -> None:
-    """The CUDA kernel (csrc/sha256.cu, sha256_append_levels) on CUDA
+                              windows: Sequence[Tuple[int, int]],
+                              k: int) -> int:
+    """The CUDA kernel (csrc/sha256.cu, sha256_append_groups) on CUDA
     tensors starting on 16-byte boundaries (views into one tree buffer
-    are the rule), the function of sha256_append_levels_plain: one launch
-    for all the levels, on the current stream, without synchronising (the
-    windows are host integers). Counts each launch in
-    `sha256_append_levels_cuda.launches`."""
-    _append_windows(child, parents, windows)
+    are the rule), the function of sha256_append_groups_plain: the
+    arguments checked once, then one C call that enqueues every group's
+    launch (append_launches) back to back on the current stream, without
+    synchronising (the windows are host integers). → the launches, each
+    counted in `sha256_append_groups_cuda.launches`."""
+    sizes = _group_sizes(len(parents), k)
+    _append_windows(child, parents, windows, len(parents))
     dev = child.device
     if dev.type != "cuda":
-        raise ValueError("sha256_append_levels_cuda needs CUDA tensors, got "
+        raise ValueError("sha256_append_groups_cuda needs CUDA tensors, got "
                          "{}".format(dev))
-    levels = [child] + list(parents)
-    if any(t.data_ptr() % 16 for t in levels):
+    ptrs = [child.data_ptr()] + [t.data_ptr() for t in parents]
+    if any(p % 16 for p in ptrs):
         raise ValueError("every level must start on a 16-byte boundary")
-    k = len(parents)
-    fn = cuda_lib.load("sha256").sha256_append_levels
-    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int64),
-                   ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in parents])
-    p0s = (ctypes.c_int64 * k)(*[int(p) for p, _ in windows])
-    cnts = (ctypes.c_int64 * k)(*[int(c) for _, c in windows])
+    L, G = len(parents), len(sizes)
+    launches = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(child.data_ptr(), ptrs, p0s, cnts, k, stream)
+        err = _lib().sha256_append_groups(
+            (_P * (L + 1))(*ptrs), (_I64 * L)(*[p for p, _ in windows]),
+            (_I64 * L)(*[c for _, c in windows]), (_I * G)(*sizes), G,
+            stream, ctypes.byref(launches))
+    sha256_append_groups_cuda.launches += launches.value
     if err != 0:
-        raise RuntimeError("sha256_append_levels launch failed: CUDA error "
+        raise RuntimeError("sha256_append_groups launch failed: CUDA error "
                            "{}".format(err))
-    sha256_append_levels_cuda.launches += 1
+    return launches.value
 
 
-sha256_append_levels_cuda.launches = 0
+sha256_append_groups_cuda.launches = 0
 
 
-def sha256_append_levels(child: torch.Tensor,
+def sha256_append_groups(child: torch.Tensor,
                          parents: Sequence[torch.Tensor],
-                         windows: Sequence[Tuple[int, int]]) -> None:
-    """The new parents of up to APPEND_LEVELS_MAX levels of a growing
-    tree, written in place (see sha256_append_levels_plain). CUDA tensors
-    go through the kernel, CPU tensors through the plain version."""
+                         windows: Sequence[Tuple[int, int]], k: int) -> int:
+    """The new parents of every level of an append to a growing tree, k
+    levels a group, written in place (see sha256_append_levels_plain). CUDA
+    tensors go through the kernel (one C call), CPU tensors through the
+    plain version group by group. → the launches (append_launches)."""
     if child.device.type == "cuda":
-        return sha256_append_levels_cuda(child, parents, windows)
+        return sha256_append_groups_cuda(child, parents, windows, k)
     if child.device.type == "cpu":
-        return sha256_append_levels_plain(child, parents, windows)
+        return sha256_append_groups_plain(child, parents, windows, k)
     raise ValueError("unsupported device {}".format(child.device))
 
 

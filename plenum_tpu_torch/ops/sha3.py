@@ -218,6 +218,16 @@ def lanes_for(rows: int) -> int:
     return 5 if rows <= GROUP_MAX_ROWS else 1
 
 
+def _sha3_args(pointers: int) -> list:
+    return [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * pointers \
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+# csrc/sha3.cu's C entries: data, nbytes, offsets[, refs], out, B, lanes,
+# stream; set once, when the library loads
+_SIGNATURES = {"sha3_ragged": _sha3_args(2), "sha3_ragged_eq": _sha3_args(3)}
+
+
 def _launch(data: torch.Tensor, offsets: torch.Tensor, refs, lanes,
             name: str) -> Sha3Launch:
     """Check what the kernel needs without reading anything back (the
@@ -248,12 +258,8 @@ def _launch(data: torch.Tensor, offsets: torch.Tensor, refs, lanes,
     buf = torch.empty((rows_bytes + TAIL_BYTES,), dtype=torch.uint8,
                       device=dev)
     entry = "sha3_ragged_eq" if verdicts else "sha3_ragged"
-    fn = getattr(cuda_lib.load("sha3"), entry)
+    fn = getattr(cuda_lib.load("sha3", _SIGNATURES), entry)
     ptrs = [offsets.data_ptr()] + ([refs.data_ptr()] if verdicts else [])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64] \
-        + [ctypes.c_void_p] * (len(ptrs) + 1) \
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(data.data_ptr(), nbytes, *ptrs, buf.data_ptr(), B, lanes,

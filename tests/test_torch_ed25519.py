@@ -142,6 +142,24 @@ def test_verify_plain_matches_rfc8032(n, seed):
                                                      "a_small_order"}
 
 
+@pytest.mark.parametrize("n,seed", [(26, 8), (104, 9)])
+def test_host_scalar_verify_equals_the_python_and_jax_packages(n, seed):
+    """crypto/ed25519.verify, whose points csrc/ed25519_host.c checks once
+    it is built, against its Python check and the JAX package's scalar
+    verify on every rejection path of the adversarial batch."""
+    from plenum_tpu_torch.crypto import ed25519 as scalar
+    assert scalar._load_native_check() is not None
+    msgs, sigs, vks, kinds = _batch(n, seed)
+    want = [jax_scalar.verify(m, s, v) for m, s, v in zip(msgs, sigs, vks)]
+    assert [scalar.verify(m, s, v)
+            for m, s, v in zip(msgs, sigs, vks)] == want
+    assert [scalar.verify_python(m, s, v)
+            for m, s, v in zip(msgs, sigs, vks)] == want
+    assert scalar._check_impl is not scalar._check_python
+    assert any(want) and not all(want)
+    assert len(set(kinds)) == len(testing.KINDS)
+
+
 @pytest.mark.parametrize("n", [1, 7, 9, 52])
 def test_verify_batch_launches_exactly_n_rows(n, monkeypatch):
     msgs, sigs, vks, _ = _batch(n, 8)

@@ -1,18 +1,18 @@
 """The port's device Merkle tree (plenum_tpu_torch/ops/merkle.py) and its
-append kernel's plain version (ops/sha256.py, sha256_append_levels) on the
+append kernel's plain version (ops/sha256.py, sha256_append_levels_plain,
+sha256_append_groups_plain) on the
 CPU, against the JAX package: its _append_levels_fused on the same levels
 and windows (its own jit on the CPU backend, "plain" compression), its
 DeviceMerkleTree carried across by carry.merkle_tree_from_levels, its host
 CompactMerkleTree (proofs, hash-store contents) and MerkleVerifier; the
 CompactMerkleTree routing, the Node's attach with the node's own config
 values, the catchup seeder against the JAX package's, and the host build of
-the append kernel (csrc/sha256.cu under g++) against hashlib. Inputs come
-from numpy seeds. Tolerance: none — digests, roots, proofs and reps must be
-byte-equal."""
+the append kernel (csrc/sha256.cu under g++, the `sha256_host` fixture
+of tests/test_torch_sha256.py) through its grouped entry against
+hashlib. Inputs come from numpy seeds. Tolerance: none — digests, roots,
+proofs and reps must be byte-equal."""
 import hashlib
-import os
 import random
-import shutil
 import subprocess
 
 import jax.numpy as jnp
@@ -44,6 +44,7 @@ from plenum_tpu_torch.observability.tracing import Tracer
 from plenum_tpu_torch.ops import sha256 as tsha
 from plenum_tpu_torch.ops.merkle import (
     DeviceMerkleTree, ProofPipeline, append_groups)
+from test_torch_sha256 import sha256_host  # noqa: F401 (a shared fixture)
 
 H = TreeHasher()
 V = MerkleVerifier(H)
@@ -126,51 +127,53 @@ def test_append_levels_refuses_windows_that_are_not_an_appends(bad):
     parents = [torch.zeros((4 >> j, 32), dtype=torch.uint8)
                for j in range(len(bad))]
     with pytest.raises(ValueError, match="not an append's|window"):
-        tsha.sha256_append_levels(child, parents, bad)
+        tsha.sha256_append_levels_plain(child, parents, bad)
 
 
-def test_host_build_of_the_append_kernel_equals_hashlib(tmp_path):
+def _host_append(exe, tmp_path, n0, b, k, seed):
+    """An append of b leaves onto n0 with k levels a group, through the
+    host build's grouped entry (sha256_host append: every launch of
+    sha256_append_groups on a tree buffer in DeviceMerkleTree's layout, as
+    sha256_append_groups_cuda makes them) → (the tree after it, the
+    hashlib levels of the n0 + b leaves, cap)."""
+    n1 = n0 + b
+    cap = 1 << (n1 - 1).bit_length()
+    depth = cap.bit_length() - 1
+    want = _host_levels(_digests(n1, seed), depth)
+    tree = np.zeros((2 * cap - 1, 32), dtype=np.uint8)
+    for h in range(depth + 1):
+        m = n0 >> h if h else n1
+        o = 2 * cap - 2 * (cap >> h)
+        if m:
+            tree[o:o + m] = np.frombuffer(b"".join(want[h][:m]),
+                                          dtype=np.uint8).reshape(m, 32)
+    groups = append_groups(n0, n1, k)
+    spec = [0]                                         # level 0's first row
+    for _, group in groups:
+        for lv, p0, cnt in group:
+            spec += [2 * cap - 2 * (cap >> lv), p0, cnt]
+    tree.tofile(tmp_path / "tree")
+    subprocess.run([exe, "append", ",".join(str(len(g)) for _, g in groups),
+                    ":".join(map(str, spec)), str(tmp_path / "tree"),
+                    str(tmp_path / "out")], check=True)
+    return np.fromfile(tmp_path / "out", dtype=np.uint8).reshape(-1, 32), \
+        want, cap
+
+
+def test_host_build_of_the_append_kernel_equals_hashlib(tmp_path, sha256_host):
     """csrc/sha256.cu's append kernel, compiled for the host by g++ behind
     cuda_host_shim.h (a std::thread per CUDA thread, __syncthreads a
-    barrier) and launched group by group on a tree buffer in
-    DeviceMerkleTree's layout as sha256_append_levels_cuda launches it:
-    appends of 1, 2, 3, 255, 257 and 1,025 leaves onto trees of 2^k ± 1
-    leaves with K = 1 and K = 4 (odd window starts, several CTAs, single
-    levels), every level's complete nodes against hashlib; and the ragged
-    kernel's big-endian store."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the kernels for the host")
-    csrc = os.path.join(os.path.dirname(tsha.__file__), os.pardir, "csrc")
-    exe = str(tmp_path / "sha256_host")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread",
-                    "-fno-strict-aliasing", "-Wno-unknown-pragmas", "-o", exe,
-                    os.path.join(csrc, "sha256_host.cpp")], check=True)
+    barrier) and driven through its grouped entry over a whole append as
+    sha256_append_groups_cuda drives it: appends of 1, 2, 3, 255, 257 and
+    1,025 leaves onto trees of 2^k ± 1 leaves with K = 1 and K = 4 (odd
+    window starts, several CTAs, single levels), every level's complete
+    nodes against hashlib; and the ragged kernel's big-endian store."""
+    exe = sha256_host
     for n0, b, k in ((1, 1, 4), (3, 2, 1), (7, 3, 4), (255, 257, 4),
                      (257, 255, 1), (511, 1025, 4)):
-        n1 = n0 + b
-        cap = 1 << (n1 - 1).bit_length()
-        depth = cap.bit_length() - 1
-        want = _host_levels(_digests(n1, b), depth)
-        tree = np.zeros((2 * cap - 1, 32), dtype=np.uint8)
-        for h in range(depth + 1):
-            m = n0 >> h if h else n1
-            o = 2 * cap - 2 * (cap >> h)
-            if m:
-                tree[o:o + m] = np.frombuffer(b"".join(want[h][:m]),
-                                              dtype=np.uint8).reshape(m, 32)
-        for h, group in append_groups(n0, n1, k):
-            spec = [2 * cap - 2 * (cap >> h)]
-            for lv, p0, cnt in group:
-                spec += [2 * cap - 2 * (cap >> lv), p0, cnt]
-            tree.tofile(tmp_path / "tree")
-            subprocess.run([exe, "append", ":".join(map(str, spec)),
-                            str(tmp_path / "tree"), str(tmp_path / "out")],
-                           check=True)
-            tree = np.fromfile(tmp_path / "out", dtype=np.uint8) \
-                .reshape(-1, 32)
-        for h in range(depth + 1):
-            o, m = 2 * cap - 2 * (cap >> h), n1 >> h
+        tree, want, cap = _host_append(exe, tmp_path, n0, b, k, b)
+        for h in range(len(want)):
+            o, m = 2 * cap - 2 * (cap >> h), (n0 + b) >> h
             assert tree[o:o + m].tobytes() == b"".join(want[h][:m]), \
                 (n0, b, k, h)
 
@@ -185,6 +188,49 @@ def test_host_build_of_the_append_kernel_equals_hashlib(tmp_path):
     assert out[:-16].tobytes() == b"".join(
         hashlib.sha256(b"\x00" + m).digest() for m in msgs)
     assert not out[-16:].any()
+
+
+@pytest.mark.parametrize("k", [1, 4, 9, 16])
+def test_host_build_of_the_grouped_append_equals_hashlib(tmp_path,
+                                                         sha256_host, k):
+    """The grouped entry at K = 1, 4, 9 and 16 levels a group (16: groups
+    split into launches of nine): appends of 1, 255, 257 and 1,025 leaves
+    onto 2^k ± 1 leaves (odd and even window starts at every level, one
+    CTA and several), every level's complete nodes against hashlib."""
+    for n0 in ((1 << 9) - 1, (1 << 9) + 1, (1 << 11) - 1, (1 << 11) + 1):
+        for b in (1, 255, 257, 1025):
+            tree, want, cap = _host_append(sha256_host, tmp_path, n0, b, k,
+                                           n0 + b + k)
+            for h in range(len(want)):
+                o, m = 2 * cap - 2 * (cap >> h), (n0 + b) >> h
+                assert tree[o:o + m].tobytes() == b"".join(want[h][:m]), \
+                    (n0, b, k, h)
+
+
+@pytest.mark.parametrize("bad", [
+    [(0, 0)],                         # no new parent at the first level
+    [(3, 2)],                         # children past the child level
+    [(1, 2), (2, 1)],                 # level 2's window starts too late
+    [(1, 2), (0, 2)],                 # ... needs children not yet new
+])
+def test_append_groups_refuses_what_an_appends_windows_refuse(bad):
+    """sha256_append_groups and its CUDA wrapper check the whole append
+    once, as _append_windows does, before anything else (the CUDA wrapper
+    refuses CPU tensors only after that); and K outside 1..16."""
+    child = torch.zeros((8, 32), dtype=torch.uint8)
+    parents = [torch.zeros((4 >> j, 32), dtype=torch.uint8)
+               for j in range(len(bad))]
+    with pytest.raises(ValueError, match="not an append's|window"):
+        tsha._append_windows(child, parents, bad)
+    for fn in (tsha.sha256_append_groups, tsha.sha256_append_groups_cuda):
+        with pytest.raises(ValueError, match="not an append's|window"):
+            fn(child, parents, bad, 4)
+    good = [(0, 4), (0, 2)][:len(bad)]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tsha.sha256_append_groups_cuda(child, parents, good, 4)
+    for k in (0, 17):
+        with pytest.raises(ValueError, match="levels a group"):
+            tsha.sha256_append_groups(child, parents, good, k)
 
 
 def test_ragged_entry_writes_big_endian_digests_in_place():

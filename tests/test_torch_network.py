@@ -71,6 +71,43 @@ def test_aead_equals_the_jax_packages_pure_copy(n):
     assert ChaCha20Poly1305(key).decrypt(nonce, sealed, aad) == data
 
 
+@pytest.mark.parametrize("counter", [0, 1, 0xFFFFFFFF])
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 4097])
+def test_c_keystream_equals_the_python_loop(n, counter):
+    """csrc/chacha20.c, which the channel cipher runs once it is built,
+    against the Python keystream it replaces, across block boundaries
+    and the 32-bit block counter's wrap."""
+    from plenum_tpu_torch.crypto import pure_channel_crypto as pc
+    native = pc._load_native_xor()
+    assert native is not None
+    key, nonce = bytes(range(3, 35)), bytes(range(12))
+    data = bytes(i * 13 % 256 for i in range(n))
+    assert native(key, counter, nonce, data) == \
+        pc._chacha20_xor(key, counter, nonce, data)
+    with pytest.raises(ValueError):
+        native(key[:31], counter, nonce, data)
+
+
+def test_cipher_runs_the_python_keystream_when_the_c_does_not_build(
+        monkeypatch):
+    import subprocess
+
+    from plenum_tpu.crypto.pure_channel_crypto import (
+        ChaCha20Poly1305 as JaxAead)
+    from plenum_tpu_torch.crypto import pure_channel_crypto as pc
+    from plenum_tpu_torch.ops import cuda_lib
+
+    def no_compiler(name):
+        raise subprocess.CalledProcessError(1, ["cc"])
+
+    monkeypatch.setattr(cuda_lib, "load_host", no_compiler)
+    monkeypatch.setattr(pc, "_xor_impl", None)
+    key, nonce, data = bytes(range(32)), bytes(12), bytes(range(200))
+    sealed = pc.ChaCha20Poly1305(key).encrypt(nonce, data, b"a")
+    assert pc._xor_impl is pc._chacha20_xor
+    assert sealed == JaxAead(key).encrypt(nonce, data, b"a")
+
+
 def test_keys_equal_the_jax_packages():
     for seed in (b"\x01" * 32, b"\x7f" * 32):
         k, j = NodeKeys(seed), jkeys.NodeKeys(seed)

@@ -7,9 +7,10 @@ tests/test_ed25519_pallas.py, since interpret mode compiles for many
 minutes on the CPU), against `_sha256_blocks`, the XLA twin of the
 kernel, and against hashlib; the TreeHasher batch backend; the Merkle
 level build (`sha256_node_levels`) against hashlib, the JAX package's node
-hashing and merkle._node_blocks; and csrc/sha256.cu's node-level and
-ragged kernels compiled for the host by g++. Tolerance: none — arrays and
-digests must be equal."""
+hashing and merkle._node_blocks; and csrc/sha256.cu's node-level, ragged
+and compress kernels compiled for the host by g++ (the `sha256_host`
+fixture, which tests/test_torch_merkle.py shares). Tolerance: none —
+arrays and digests must be equal."""
 import hashlib
 import os
 import random
@@ -26,6 +27,7 @@ from plenum_tpu.ops import merkle as jmerkle
 from plenum_tpu.ops import sha256 as jsha
 from plenum_tpu.ops import sha256_pallas as sp
 from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
+from plenum_tpu_torch.ops import cuda_lib
 from plenum_tpu_torch.ops import sha256 as tsha
 
 CAVP = [  # NIST CAVP / FIPS 180-2 known-answer vectors
@@ -383,7 +385,33 @@ def test_node_levels_check_their_arguments():
     assert [g.shape[0] for g in got] == [2, 1, 0, 0]
 
 
-def test_host_build_of_the_kernels_equals_hashlib(tmp_path):
+HOST_FLAGS = ["-std=c++20", "-O1", "-pthread", "-fno-strict-aliasing",
+              "-Wno-unknown-pragmas"]
+
+
+@pytest.fixture(scope="session")
+def sha256_host():
+    """csrc/sha256_host.cpp (csrc/sha256.cu's kernels behind
+    cuda_host_shim.h) built by g++ once: into plenum_tpu_torch/_build/
+    under a hash of its sources and flags, so that both host-build test
+    files and every xdist worker share one compile. → the executable."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernels for the host")
+    src = os.path.join(cuda_lib.CSRC, "sha256_host.cpp")
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    cuda_lib._hash_source(h, src)
+    exe = os.path.join(cuda_lib.BUILD_DIR,
+                       "sha256_host-" + h.hexdigest()[:16])
+    if not os.path.exists(exe):
+        os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+        tmp = "{}.{}.tmp".format(exe, os.getpid())
+        subprocess.run([gxx] + HOST_FLAGS + ["-o", tmp, src], check=True)
+        os.replace(tmp, exe)
+    return exe
+
+
+def test_host_build_of_the_kernels_equals_hashlib(tmp_path, sha256_host):
     """csrc/sha256.cu's node-level kernel, compiled for the host by g++
     behind cuda_host_shim.h (a std::thread per CUDA thread, __syncthreads
     and warp collectives through barriers) and chained as the CUDA wrapper
@@ -391,14 +419,7 @@ def test_host_build_of_the_kernels_equals_hashlib(tmp_path):
     many): every level at 1, 513, 1,025 and 2,049 children (CTA edges at
     512, launch edges at two and nine levels) against hashlib; and the
     ragged kernel's digests and its error word for invalid offsets."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the kernels for the host")
-    csrc = os.path.join(os.path.dirname(tsha.__file__), os.pardir, "csrc")
-    exe = str(tmp_path / "sha256_host")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread",
-                    "-fno-strict-aliasing", "-Wno-unknown-pragmas", "-o", exe,
-                    os.path.join(csrc, "sha256_host.cpp")], check=True)
+    exe = sha256_host
     for n in (1, 513, 1025, 2049):
         digests = _digests(n, 50 + n)
         levels = max(n.bit_length() - 1, 1)
@@ -433,3 +454,37 @@ def test_host_build_of_the_kernels_equals_hashlib(tmp_path):
     for bad in ([-1] + list(offsets[1:]), list(offsets[:-1]) + [n + 1],
                 [0, n, 1] + list(offsets[3:])):
         assert ragged(bad)[1] == 1
+
+
+@pytest.mark.parametrize("B, nblocks", [(1, 1), (1, 2), (300, 2), (257, 4)])
+def test_host_build_of_the_compress_kernel_equals_hashlib(tmp_path,
+                                                          sha256_host, B,
+                                                          nblocks):
+    """csrc/sha256.cu's compress kernel under g++ (one thread a message,
+    each loading its own blocks, its adds routed as the card runs them):
+    B messages of pre-padded words, a B of one and Bs that are no multiple
+    of its 256-thread CTA, some rows with nvalid < nblocks (a shorter
+    message padded into a longer bucket; the words of its other blocks
+    are noise) and one with nvalid 0 (the initial state), against hashlib
+    and sha256_blocks_plain."""
+    rng = np.random.RandomState(60 + B + nblocks)
+    msgs = [rng.randint(0, 256, size=int(rng.randint(64 * nblocks - 8)),
+                        dtype=np.uint8).tobytes() for _ in range(B)]
+    words, nvalid, _ = tsha.pad_messages(msgs, nblocks)
+    for i in range(B):           # noise past each message's own blocks
+        words[i, nvalid[i]:] = rng.randint(0, 2 ** 32, size=(
+            nblocks - nvalid[i], 16), dtype=np.uint64).astype(np.uint32)
+    if B > 1:
+        nvalid[B // 2] = 0
+    words.tofile(tmp_path / "words")
+    nvalid.tofile(tmp_path / "nvalid")
+    subprocess.run([sha256_host, "compress", str(nblocks),
+                    str(tmp_path / "words"), str(tmp_path / "nvalid"),
+                    str(tmp_path / "out")], check=True)
+    got = np.fromfile(tmp_path / "out", dtype=np.uint32).reshape(B, 8)
+    np.testing.assert_array_equal(got, _plain(words, nvalid))
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    iv = tsha.digests_to_bytes(tsha._IV[None, :])[0]
+    if B > 1:
+        want[B // 2] = iv
+    assert tsha.digests_to_bytes(got) == want
