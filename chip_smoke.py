@@ -131,9 +131,38 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    of one level, the proof gather's device time, the tree's dispatch
    stats and the launches.
 
+9. drives the BLS12-381 kernels of csrc/bls381.cu (phase "bls", after
+   phase 8): BASELINE.json's config 3 at its published sizes, n = 4, 25
+   and 100 validators from seeded keys: 256 jobs x 100 shares through the
+   G1 aggregate (bench.py micro_bls's shape; held against
+   g1_aggregate_compressed), the public keys of n = 4/25/100 through the
+   G2 aggregate (held against the host sums), 10,000 state-proof commits
+   at n = 100 (distinct roots from the seed; each multi-signature is
+   (sum of sk) * H(m), the first 16 held equal to create_multi_sig of
+   their 100 shares) with seven adversarial checks through one
+   verify_multi_sigs_batch launch of the pairing kernel (its host
+   pre-checks, dispatch and collect timed apart; honest verdicts all True,
+   the adversarial ones the scalar path's), and bls_ops.g1_msm at 8 and
+   4,096 points (held against the host double-and-add); then the read
+   path: a BLS pool of four nodes on the card (make_sim_pool with
+   signers) orders 4,000 signed NYM writes in two chunks of 2,000, after
+   each one node serves 2,000 GET_NYM reads and the port's
+   PoolClient.check_proof_dicts checks their state proofs in one call
+   (every verdict None, two roots), and 16 tampered replies (a flipped
+   multi-signature, a wrong value, a wrong root) fail with the JAX
+   package's messages. Each kernel is then held against its plain
+   version on the path's own inputs (for the verify launch: its
+   adversarial rows and 1,024 seeded honest jobs) and on the adversarial
+   pairing jobs of tests/test_bls381_pairing.py, timed (cuda_ms and the
+   kernel alone) beside its bound, and the four dispatches are called
+   under torch.cuda.set_sync_debug_mode("error"). Each kernel must have
+   launched on config 3's path and bls_pairing on the read path; each
+   entry gives both paths' launches ("launches_by_path"), and its bound
+   counts the least work of the function (ops/bls381.py COST).
+
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
-seven; the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
+eleven; the SHA3 entries also carry "kernel_ms" and "round_trip_ms" at the
 pool's shape, sha256_append_levels "kernel_ms", "floor_ms" and
 "level_latency_ms" at phase 8's append, sha256_compress, sha256_ragged and
 ed25519_verify "kernel_ms" at their timed shapes (the kernel alone, as
@@ -143,7 +172,8 @@ Each path's kernel launch counters are zeroed just before it and read
 just after; every kernel of a path must have launched in it (a node
 process or the daemon starts at zero, and the daemon's counters are
 zeroed after its check). The kernels line gives each kernel's launches
-over all four paths.
+over all five paths; the BLS entries carry "kernel_ms", "plain_ms" on
+the inputs they were held on, and their Montgomery multiplies.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory that holds this
@@ -1157,10 +1187,12 @@ def deployment_phase(torch, dev, profile):
             check(daemon["kernels"]["ed25519_verify"] > 0,
                   "remote: the daemon launched ed25519_verify")
             log("deployment {} {}: daemon {} items in {} fused batches, "
-                "ed25519_verify launches {} (unique items each: {})".format(
+                "ed25519_verify launches {} (unique items each: {}); 3PC "
+                "batches per node {}".format(
                     i, provider, daemon["served"], daemon["batches"],
                     daemon["kernels"]["ed25519_verify"],
-                    [u for u, _ in daemon["hub_launches"]]))
+                    [u for u, _ in daemon["hub_launches"]],
+                    {k: v["audit_size"] for k, v in nodes.items()}))
             for k, c in daemon["kernels"].items():
                 launches[k] = launches.get(k, 0) + c
         for v in nodes.values():
@@ -1189,6 +1221,11 @@ def deployment_phase(torch, dev, profile):
                        "node Alpha, deployment {}".format(provider),
                        depth=3)
     log("deployment runs: " + json.dumps(runs))
+    log("deployment: the node processes' BLS kernel launches {} (none is "
+        "expected: a node unrolls its shares only when an aggregate fails; "
+        "not a check)".format({k: launches.get(k, 0) for k in (
+            "bls_pairing", "bls_g1_aggregate", "bls_g2_aggregate",
+            "bls_g1_msm")}))
     return {"launches": launches, "runs": runs}
 
 
@@ -1564,6 +1601,449 @@ def catchup_phase(torch, dev, blobs, profile, ceilings):
         "kernel_ms": alone, "floor_ms": floor_ms, "level_latency_ms": level_ms,
         "gather_ms": gather_ms, "warm_build_ms": warm_ms,
         "proofs_per_s": pps}}
+
+
+BLS_VALIDATORS = (4, 25, 100)   # BASELINE.json config 3
+BLS_AGG_JOBS = 256               # bench.py micro_bls: 256 jobs x 100 shares
+BLS_AGG_MESSAGES = 16            # distinct signed roots among those jobs
+BLS_COMMITS = 10000              # state-proof commits verified at n = 100
+BLS_CREATE_CHECK = 16            # commits also held against create_multi_sig
+BLS_SAMPLE = 1024                # honest jobs held against the plain version
+BLS_MSM_POINTS = (8, 4096)
+READ_WRITES = 4000               # the BLS pool's writes, in two chunks
+READ_TAMPERED = 16
+
+
+def bls_phase(torch, dev):
+    """Phase 9: the BLS12-381 kernels (csrc/bls381.cu) on config 3 of
+    BASELINE.json and on the read path. Counts are zeroed just before
+    each of the two paths and read just after it; the comparisons with
+    the plain versions and the timings come after. → {"launches",
+    "kernels"}."""
+    import random
+    from plenum_tpu_torch import carry
+    from plenum_tpu_torch.client.client import PoolClient
+    from plenum_tpu_torch.common.config import Config
+    from plenum_tpu_torch.common.constants import TARGET_NYM
+    from plenum_tpu_torch.common.serializers.base58 import b58encode
+    from plenum_tpu_torch.crypto import bls, bls_ops
+    from plenum_tpu_torch.crypto.signer import SimpleSigner
+    from plenum_tpu_torch.ops import bls381, bls381_pairing as bp
+    from plenum_tpu_torch.testing import pool
+
+    t_phase = t0 = time.perf_counter()
+    rng = random.Random(SEED)
+    keys = [bls.generate_bls_keys(hashlib.sha256(
+        b"bls-validator-%d-%d" % (SEED, i)).digest())[:2]
+        for i in range(max(BLS_VALIDATORS))]
+    signers = carry.bls_signers(keys)
+    pks = [s.pk for s in signers]
+    sk_sum = sum(sk for sk, _ in keys) % bls_ops.R
+    agg_msgs = [b"state-root-commitment-%d" % i
+                for i in range(BLS_AGG_MESSAGES)]
+    agg_shares = [[bls.b58_decode(s.sign(m)) for s in signers]
+                  for m in agg_msgs]
+    agg_jobs = [agg_shares[j % BLS_AGG_MESSAGES] for j in range(BLS_AGG_JOBS)]
+    g2_jobs = [[bls.b58_decode(pk) for pk in pks[:n]] for n in BLS_VALIDATORS]
+    value = [bls.MultiSignatureValue(
+        1, b58encode(rng.randbytes(32)), b58encode(rng.randbytes(32)),
+        b58encode(rng.randbytes(32)), TXN_TIME + i)
+        for i in range(BLS_COMMITS)]
+    msgs = [v.as_single_value() for v in value]
+    multis = [bls.b58_encode(bls_ops.g1_compress(bls_ops.g1_mul(
+        bls_ops.hash_to_g1(m, b"PLENUM_TPU_BLS_SIG"), sk_sum)))
+        for m in msgs]
+    verifier = bls.BlsCryptoVerifierPlenum(
+        device_pairing=True, pairing_device_min=Config.BLS_PAIRING_DEVICE_MIN,
+        device=dev)
+    for i in range(BLS_CREATE_CHECK):
+        check(multis[i] == verifier.create_multi_sig(
+            [s.sign(msgs[i]) for s in signers]),
+            "commit {}'s multi-signature equals create_multi_sig of its "
+            "{} shares".format(i, len(signers)))
+    # verify-level adversarial checks, in the same launch as the commits
+    flipped = bytearray(bls.b58_decode(multis[0]))
+    flipped[-1] ^= 1
+    foreign = bls.generate_bls_keys(b"foreign")[1]
+    adv_checks = [(multis[0], msgs[1], pks),           # wrong message
+                  (multis[1], msgs[0], pks),           # another commit's
+                  (bls.b58_encode(bytes(flipped)), msgs[0], pks),
+                  (multis[2], msgs[2], pks[:-1]),      # a subset of keys
+                  (multis[2], msgs[2], pks[:-1] + [foreign]),
+                  (multis[3], msgs[3], pks[::-1]),     # reordered: valid
+                  (multis[3], msgs[3], [])]
+    checks = [(m, msg, pks) for m, msg in zip(multis, msgs)] + adv_checks
+    log("bls set-up: {} validators' keys, {} x {} shares, {} commits' "
+        "multi-signatures (the first {} equal to create_multi_sig) in "
+        "{:.1f} s".format(len(signers), BLS_AGG_MESSAGES, len(signers),
+                          BLS_COMMITS, BLS_CREATE_CHECK,
+                          time.perf_counter() - t0))
+
+    # the read path's pool: four nodes with BLS signers (n = 4)
+    read_signers = carry.bls_signers(keys[:len(pool.NAMES)])
+    bls_by_name = dict(zip(pool.NAMES, read_signers))
+    writer = SimpleSigner(seed=hashlib.sha256(b"bls-reader").digest())
+    writes = pool.make_requests(READ_WRITES, writer)
+    chunks = [writes[:READ_WRITES // 2], writes[READ_WRITES // 2:]]
+
+    # the launches of the path, recorded on their way to the wrappers so
+    # that they can be replayed against the plain versions afterwards
+    recorded = {"pairing": [], "g1_aggregate": [], "g2_aggregate": [],
+                "msm": []}
+    real = {"pairing": bp.pairing, "g1_aggregate": bls381.g1_aggregate,
+            "g2_aggregate": bp.g2_aggregate, "msm": bp.msm}
+
+    def recording(name):
+        def fn(*tensors):
+            recorded[name].append(tensors)
+            return real[name](*tensors)
+        return fn
+
+    times = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        times[name] = time.perf_counter() - t
+        return out
+
+    wrappers = {"bls_pairing": bp.pairing_cuda,
+                "bls_g1_aggregate": bls381.g1_aggregate_cuda,
+                "bls_g2_aggregate": bp.g2_aggregate_cuda,
+                "bls_g1_msm": bp.msm_cuda}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    # the verify goes through verify_multi_sigs_batch; its host pre-checks
+    # end where it hands its jobs to multi_pairing_is_one_jobs, whose
+    # pairing_jobs calls pairing_dispatch and pairing_collect
+    seen = {}
+    real_jobs_fn = bls_ops.multi_pairing_is_one_jobs
+    real_dispatch, real_collect = bp.pairing_dispatch, bp.pairing_collect
+
+    def jobs_seen(jobs, *args):
+        seen["t"] = time.perf_counter()
+        seen["jobs"] = [list(j) for j in jobs]
+        return real_jobs_fn(seen["jobs"], *args)
+
+    zero_counts()
+    bp.pairing, bp.g2_aggregate, bp.msm = (
+        recording("pairing"), recording("g2_aggregate"), recording("msm"))
+    bls381.g1_aggregate = recording("g1_aggregate")
+    try:
+        t_path = time.perf_counter()
+        agg_points, agg_ok = timed("g1_aggregate", bls381.aggregate_g1_jobs,
+                                   agg_jobs, dev)
+        g2_points, g2_ok = timed("g2_aggregate", lambda: bp.
+                                 g2_aggregate_collect(bp.g2_aggregate_dispatch(
+                                     g2_jobs, max(BLS_VALIDATORS), dev)))
+        # the verify, split: host pre-checks, dispatch, collect
+        bls_ops.multi_pairing_is_one_jobs = jobs_seen
+        bp.pairing_dispatch = lambda *a: timed("verify_dispatch",
+                                               real_dispatch, *a)
+        bp.pairing_collect = lambda *a: timed("verify_collect",
+                                              real_collect, *a)
+        try:
+            t = time.perf_counter()
+            verdicts = verifier.verify_multi_sigs_batch(checks)
+        finally:
+            bls_ops.multi_pairing_is_one_jobs = real_jobs_fn
+            bp.pairing_dispatch, bp.pairing_collect = (real_dispatch,
+                                                       real_collect)
+        times["verify_prechecks"] = seen["t"] - t
+        jobs = seen["jobs"]
+        msm_out = {}
+        for n in BLS_MSM_POINTS:
+            pts = [agg_shares[k % BLS_AGG_MESSAGES][k % len(signers)]
+                   for k in range(n)]
+            ss = [rng.randrange(bls_ops.R) for _ in range(n)]
+            msm_out[n] = (pts, ss, timed("msm_%d" % n, bls_ops.g1_msm, pts,
+                                         ss, True, Config.BLS_MSM_DEVICE_MIN,
+                                         dev))
+        config3_launches = read_counts()
+        zero_counts()
+        # the read path
+        nodes, timer = pool.make_sim_pool(pool.NAMES, "torch_hub",
+                                          device=dev, bls_signers=bls_by_name)
+        sent = []
+        reader = nodes[1]
+        reader._reply_to_client = lambda c, m: sent.append(m)
+        client = PoolClient(None, pool.NAMES, lambda n, m: None,
+                            bls_verifier=bls.BlsCryptoVerifierPlenum(
+                                device_pairing=True,
+                                pairing_device_min=Config
+                                .BLS_PAIRING_DEVICE_MIN, device=dev),
+                            bls_key_provider={
+                                n: s.pk for n, s in bls_by_name.items()}.get)
+        read_results, proof_verdicts, roots = [], [], []
+        ordered = 0
+        for k, chunk in enumerate(chunks):
+            t = time.perf_counter()
+            pool.pipelined_intake(nodes, timer, [chunk], "bls-client",
+                                  expected=lambda n, base=ordered: base + n)
+            ordered += len(chunk)
+            for _ in range(3000):
+                root = reader.db_manager.get_state(1).committedHeadHash_b58
+                if all(nd.domain_ledger.size >= ordered for nd in nodes) \
+                        and reader.db_manager.bls_store.get(root):
+                    break
+                for nd in nodes:
+                    nd.service()
+                timer.run_for(0.01)
+            times["read_writes_%d" % k] = time.perf_counter() - t
+            roots.append(root)
+            t = time.perf_counter()
+            del sent[:]
+            reader.process_client_batch([({
+                "identifier": writer.identifier,
+                "reqId": 10 ** 7 + k * 10 ** 5 + i,
+                "operation": {"type": "105",
+                              TARGET_NYM: r["operation"][TARGET_NYM]}},
+                "reader") for i, r in enumerate(chunk)])
+            results = [m.to_dict()["result"] for m in sent]
+            times["read_serve_%d" % k] = time.perf_counter() - t
+            proof_checks = [(r.get("state_proof"),)
+                            + PoolClient._expected_state_kv(r)
+                            for r in results]
+            proof_verdicts.append(timed("read_check_%d" % k,
+                                        client.check_proof_dicts,
+                                        proof_checks))
+            read_results.append(results)
+        tampered, want_msgs = [], []
+        for i, r in enumerate(read_results[1][:READ_TAMPERED]):
+            sp = json.loads(json.dumps(r["state_proof"]))
+            key, val = PoolClient._expected_state_kv(r)
+            if i % 3 == 0:
+                raw = bytearray(bls.b58_decode(
+                    sp["multi_signature"]["signature"]))
+                raw[-1] ^= 1
+                sp["multi_signature"]["signature"] = bls.b58_encode(bytes(raw))
+                want_msgs.append("multi-sig invalid: aggregate signature "
+                                 "does not verify against the registered "
+                                 "keys")
+            elif i % 3 == 1:
+                val = val[:-1] + bytes([val[-1] ^ 1])
+                want_msgs.append("proof-node corruption: proof nodes do not "
+                                 "tie the claimed value to the signed root")
+            else:
+                sp["root_hash"] = roots[0]
+                want_msgs.append(
+                    "root mismatch: multi-signature vouches for root %r, "
+                    "proof claims %r" % (roots[1], roots[0]))
+            tampered.append((sp, key, val))
+        tampered_verdicts = client.check_proof_dicts(tampered)
+        torch.cuda.synchronize()
+        read_launches = read_counts()
+        path_s = time.perf_counter() - t_path
+    finally:
+        bp.pairing, bp.g2_aggregate, bp.msm = (
+            real["pairing"], real["g2_aggregate"], real["msm"])
+        bls381.g1_aggregate = real["g1_aggregate"]
+    launches = {name: config3_launches[name] + read_launches[name]
+                for name in wrappers}
+    log("bls path launches: config 3 {}, read path {} in {:.1f} s; host "
+        "seconds: {}".format(config3_launches, read_launches, path_s,
+                             json.dumps({k: round(v, 4)
+                                         for k, v in times.items()})))
+
+    # ---- the path's checks
+    t0 = time.perf_counter()
+    check(all(config3_launches[k] > 0 for k in wrappers),
+          "every BLS kernel launched on config 3's path")
+    check(read_launches["bls_pairing"] > 0,
+          "the read path's check_proof_dicts launched bls_pairing")
+    check(agg_ok.all(), "every 100-share aggregate decoded")
+    want_agg = [bls_ops.g1_aggregate_compressed(s) for s in agg_shares]
+    check(all(p == want_agg[j % BLS_AGG_MESSAGES]
+              for j, p in enumerate(agg_points)),
+          "the {} x {} G1 aggregate equals g1_aggregate_compressed".format(
+              BLS_AGG_JOBS, len(signers)))
+    for n, got in zip(BLS_VALIDATORS, g2_points):
+        want = None
+        for pk in pks[:n]:
+            want = bls_ops.g2_add(want, bls_ops.g2_decompress(
+                bls.b58_decode(pk)))
+        check(got == ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1)),
+              "the G2 aggregate of {} public keys equals the host sum".format(
+                  n))
+    check(all(verdicts[:BLS_COMMITS]),
+          "every one of the {} honest commits verifies".format(BLS_COMMITS))
+    scalar = [verifier.verify_multi_sig(*c) for c in adv_checks]
+    check(verdicts[BLS_COMMITS:] == scalar,
+          "the adversarial checks' verdicts equal the scalar path's {}"
+          .format(scalar))
+    for n, (pts, ss, got) in msm_out.items():
+        check(got == bls_ops.g1_msm(pts, ss),
+              "g1_msm on the card equals the host double-and-add at {} "
+              "points".format(n))
+    check(all(v is None for vs in proof_verdicts for v in vs)
+          and sum(map(len, proof_verdicts)) == READ_WRITES,
+          "all {} read replies' state proofs check valid".format(
+              READ_WRITES))
+    check(len(set(roots)) == 2, "the two chunks' reads carry two roots")
+    check(tampered_verdicts == want_msgs,
+          "the tampered replies fail with the JAX package's messages")
+    log("bls checks: the {} x {} aggregate == g1_aggregate_compressed, the "
+        "G2 aggregates of {} keys == the host sums, {} honest commits True "
+        "and the adversarial checks {} as the scalar path, MSM at {} points "
+        "== host, {} read proofs valid under 2 roots and {} tampered ones "
+        "failing as expected ({:.1f} s)".format(
+            BLS_AGG_JOBS, len(signers), BLS_VALIDATORS, BLS_COMMITS, scalar,
+            BLS_MSM_POINTS, READ_WRITES, READ_TAMPERED,
+            time.perf_counter() - t0))
+
+    # ---- the adversarial pairing jobs of tests/test_bls381_pairing.py
+    G1I, G2I = bls381.G1_INF, bls381.G2_INF
+    neg_g2 = bls_ops.g2_compress(bls_ops.g2_neg(bls_ops.G2_GEN))
+    good = jobs[0]
+    flip = bytearray(good[0][0])
+    flip[19] ^= 0x10
+    x = 3
+    while True:              # an on-curve G1 point outside the subgroup
+        yy = (x * x * x + 4) % bls_ops.Q
+        y = pow(yy, (bls_ops.Q + 1) // 4, bls_ops.Q)
+        if y * y % bls_ops.Q == yy and not bls_ops.g1_in_subgroup((x, y)):
+            break
+        x += 1
+    cp = bls_ops.g1_mul(bls_ops.G1_GEN, 5)
+    g2gen = bls_ops.g2_compress(bls_ops.G2_GEN)
+    adv_jobs = [good, [good[0], jobs[1][1]], [(bytes(flip), neg_g2), good[1]],
+                [(G1I, g2gen)], [(bls_ops.g1_compress(cp), g2gen),
+                                 (bls_ops.g1_compress(bls_ops.g1_neg(cp)),
+                                  g2gen)],
+                [(bls_ops.g1_compress((x, y)), g2gen)],
+                [good[1], (G1I, G2I)], [(G1I, G2I), (G1I, G2I)]]
+    host = [bls_ops.pairing_job_host(j) for j in adv_jobs]
+    check(host == [True, False, False, False, True, False, False, True],
+          "the adversarial jobs' host verdicts")
+    arrays = bls381.upload(bp._pack_pair_arrays(adv_jobs, len(adv_jobs), 2),
+                           dev)
+    kv, kok = bp.pairing_cuda(*arrays)
+    pv, pok = bp.pairing_plain(*arrays)
+    pair_err = int((kv.cpu().int() - pv.cpu().int()).abs().max()
+                   + (kok.cpu().int() - pok.cpu().int()).abs().max())
+    check(pair_err == 0 and kv.cpu().tolist() == host,
+          "bls_pairing equals its plain version and pairing_job_host on the "
+          "adversarial jobs")
+
+    # ---- each kernel against its plain version on the path's inputs, and
+    # its times (ms: cuda_ms of the wrapper; kernel_ms: the kernel alone)
+    card_rows = {}
+    # the verify launch: its adversarial rows and a seeded sample
+    pair_in = [t for t in recorded["pairing"] if t[0].shape[0] == len(jobs)]
+    check(len(pair_in) == 1, "one pairing launch verified the commits")
+    pair_in = pair_in[0]
+    # every honest commit verified (checked above), so each made a job, and
+    # jobs come in the order of the checks
+    honest = BLS_COMMITS
+    sample = sorted(set(random.Random(SEED).sample(range(honest),
+                                                   BLS_SAMPLE))
+                    | set(range(honest, len(jobs))))
+    idx = torch.tensor(sample, device=dev)
+    sub = [t.index_select(0, idx).contiguous() for t in pair_in]
+    pair_ms, (kv, kok) = cuda_ms(torch, lambda: bp.pairing_cuda(*pair_in), 2)
+    plain_ms, (pv, pok) = once_ms(torch, lambda: bp.pairing_plain(*sub))
+    pair_err = max(pair_err, int((kv.index_select(0, idx).cpu().int()
+                                  - pv.cpu().int()).abs().max()
+                                 + (kok.index_select(0, idx).cpu().int()
+                                    - pok.cpu().int()).abs().max()))
+    check(pair_err == 0, "bls_pairing equals its plain version on the "
+                         "adversarial rows and {} honest jobs of the verify "
+                         "launch".format(BLS_SAMPLE))
+    pair_alone = kernel_ms(torch, lambda: bp.pairing_cuda(*pair_in), reps=2)
+    cost = bp.pairing_cost(*(t.cpu().numpy() for t in pair_in),
+                           kok.cpu().numpy())
+    nbytes = sum(t.numel() * t.element_size() for t in pair_in) \
+        + 2 * len(jobs)
+    b_ms, b_by = bound(bls381.int32_ops(cost), nbytes)
+    card_rows["bls_pairing"] = dict(
+        max_abs_err=pair_err, ms=pair_ms, kernel_ms=pair_alone,
+        plain_ms=plain_ms, plain_jobs=len(sample), bound_ms=b_ms,
+        bound_by=b_by,
+        shape="{} jobs x {} pairs".format(*pair_in[0].shape[:2]),
+        fp_mul_sqr=cost.tolist())
+
+    def entry(name, plain_fn, cuda_fn, tensors, count, reps):
+        ms, got = cuda_ms(torch, lambda: cuda_fn(*tensors), reps)
+        p_ms, want = once_ms(torch, lambda: plain_fn(*tensors))
+        err = max(int((a.cpu().long() - b.cpu().long()).abs().max())
+                  for a, b in zip(got, want))
+        check(err == 0, "{} equals its plain version on the path's "
+                        "inputs".format(name))
+        alone = kernel_ms(torch, lambda: cuda_fn(*tensors), reps=reps)
+        host = [t.cpu().numpy() for t in tensors]
+        outs = [t.cpu().numpy() for t in got]
+        cost = count(host, outs)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors + got)
+        b_ms, b_by = bound(bls381.int32_ops(cost), nbytes)
+        card_rows[name] = dict(max_abs_err=err, ms=ms, kernel_ms=alone,
+                               plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                               shape=str([tuple(t.shape) for t in tensors][0]),
+                               fp_mul_sqr=cost.tolist())
+
+    entry("bls_g1_aggregate", bls381.g1_aggregate_plain,
+          bls381.g1_aggregate_cuda, recorded["g1_aggregate"][0],
+          lambda h, o: bls381.g1_aggregate_cost(*h, o[3], o[2]), 5)
+    entry("bls_g2_aggregate", bp.g2_aggregate_plain, bp.g2_aggregate_cuda,
+          recorded["g2_aggregate"][0],
+          lambda h, o: bp.g2_aggregate_cost(*h, o[3], o[2]), 5)
+    msm_in = [t for t in recorded["msm"] if t[0].shape[0] == max(
+        BLS_MSM_POINTS)][0]
+    entry("bls_g1_msm", bp.msm_plain, bp.msm_cuda, msm_in,
+          lambda h, o: bp.msm_cost(*h, o[3], o[2]), 5)
+    for small in recorded["msm"]:
+        if small[0].shape[0] != msm_in[0].shape[0]:
+            got, want = bp.msm_cuda(*small), bp.msm_plain(*small)
+            check(all(torch.equal(a.cpu(), b.cpu()) for a, b in
+                      zip(got, want)), "bls_g1_msm equals its plain version "
+                                       "at {} points".format(
+                                           small[0].shape[0]))
+    for name, row in card_rows.items():
+        log("{}: {} ms {:.4f}, kernel alone {:.4f} ms, bound {:.5f} ms ({}; "
+            "the function's Montgomery multiplies and squarings {}), {:.3%} "
+            "of it; plain {:.1f} ms; == plain".format(
+                name, row["shape"], row["ms"], row["kernel_ms"],
+                row["bound_ms"], row["bound_by"], row["fp_mul_sqr"],
+                row["bound_ms"] / row["kernel_ms"], row["plain_ms"]))
+
+    # ---- no dispatch synchronises
+    with_sync_check = [
+        ("pairing_dispatch", lambda: bp.pairing_dispatch(adv_jobs, dev)),
+        ("aggregate_dispatch", lambda: bls381.aggregate_dispatch(
+            agg_jobs[:4], len(signers), dev)),
+        ("msm_dispatch", lambda: bp.msm_dispatch(msm_out[8][0],
+                                                 msm_out[8][1], dev)),
+        ("g2_aggregate_dispatch", lambda: bp.g2_aggregate_dispatch(
+            g2_jobs, max(BLS_VALIDATORS), dev))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _, fn in with_sync_check:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("bls: {} launched under set_sync_debug_mode(\"error\")".format(
+        [n for n, _ in with_sync_check]))
+    log("phase 9 (bls): {:.1f} s".format(time.perf_counter() - t_phase))
+    replaces = {"bls_pairing": "plenum_tpu/ops/bls381_pairing.py:241",
+                "bls_g1_aggregate": "plenum_tpu/ops/bls381_jax.py:363",
+                "bls_g2_aggregate": "plenum_tpu/ops/bls381_pairing.py:342",
+                "bls_g1_msm": "plenum_tpu/ops/bls381_pairing.py:285"}
+    kernels = [dict({"name": name, "route": "cuda",
+                     "source": "plenum_tpu_torch/csrc/bls381.cu",
+                     "replaces": replaces[name],
+                     "launches": launches[name],
+                     "launches_by_path": {"config3": config3_launches[name],
+                                          "read": read_launches[name]},
+                     "library_ms": None},
+                    **card_rows[name]) for name in replaces]
+    return {"launches": launches, "kernels": kernels}
 
 
 def main(argv=None) -> int:
@@ -1982,6 +2462,9 @@ def main(argv=None) -> int:
               "max_abs_err": max(append_err, catchup["err"]),
               "library_ms": None}, **catchup["entry"]),
     ] + pool_result["kernels"]
+
+    bls_result = bls_phase(torch, dev)
+    kernels += bls_result["kernels"]
 
     t0 = time.perf_counter()
     deploy = deployment_phase(torch, dev, profile)

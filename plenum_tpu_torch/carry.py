@@ -1,12 +1,12 @@
-"""Carry a ledger, a device Merkle tree, a state trie and a verkey
-registry across from the JAX package.
+"""Carry a ledger, a device Merkle tree, a state trie, a verkey registry
+and BLS signing keys across from the JAX package.
 
 plenum_tpu has no weights: its state is the ledger (committed serialized
 txns plus the hash store's leaf and node digests), the device Merkle
 tree's levels, the MPT state (the trie's hash → RLP node blobs and its
-head root) and the verkey registry the authenticator reads. These
-functions build the port's objects from that state as plain data,
-recomputing nothing.
+head root), the verkey registry the authenticator reads and the nodes'
+BLS keys. These functions build the port's objects from that state as
+plain data, recomputing nothing.
 """
 from typing import Dict, Iterable, Sequence, Tuple, Union
 
@@ -146,3 +146,21 @@ def state_from_nodes(nodes: Union[Iterable[Tuple[bytes, bytes]],
     state.revertToHead(bytes(head_root))
     state.attach_device_engine(device=device)
     return state
+
+
+def bls_signers(keys) -> list:
+    """The port's BlsCryptoSignerPlenum for each of `keys`: a JAX
+    package's BlsCryptoSignerPlenum (its secret scalar and base58 public
+    key), or an (sk, pk) pair as crypto/bls.generate_bls_keys gives them.
+    Keys and signatures are integers, bytes and base58 in both packages,
+    so nothing converts: the port's signer signs byte for byte as the
+    JAX package's does."""
+    from plenum_tpu_torch.crypto.bls import BlsCryptoSignerPlenum
+    out = []
+    for key in keys:
+        if isinstance(key, tuple):
+            sk, pk = key[0], key[1]
+        else:
+            sk, pk = key._sk, key.pk
+        out.append(BlsCryptoSignerPlenum(int(sk), str(pk)))
+    return out

@@ -14,8 +14,9 @@ ledgers always hash through the SHA-256 kernel above
 SHA256_BATCH_THRESHOLD and its states always carry the device engine.
 VERIFIER_PROVIDER names the port's providers, and
 EXEC_MERGED_DEVICE_HASH = "auto" means the node's device (the card
-unless the node was built with device="cpu"). BLS_DEVICE_PAIRING is False
-until the BLS device kernels are ported (ROADMAP A6, device half). The
+unless the node was built with device="cpu"). BLS_DEVICE_PAIRING is on, as
+in the JAX package: batches of BLS pairing checks at or above
+BLS_PAIRING_DEVICE_MIN run on the node's device (csrc/bls381.cu). The
 MERKLE_* keys keep the JAX package's values: every ledger of a node
 carries a device Merkle tree (ops/merkle.py), and the node hands its own
 values of these keys to the tree, its proof pipeline and the catchup
@@ -333,11 +334,10 @@ class Config:
 
     # ---- device BLS12-381 pairing / MSM (crypto/bls_ops routes batches
     # of pairing-product checks by these values, which the node passes
-    # down). The device kernels are not ported yet (ROADMAP A6, device
-    # half), so device pairing is off and a node whose config turns it on
-    # raises NotImplementedError; every BLS check runs on the host (the
+    # down with its device): a batch at or above the minimum runs as one
+    # launch of csrc/bls381.cu's kernels, a smaller one on the host (the
     # native scalar path with prepared Miller lines).
-    BLS_DEVICE_PAIRING = False
+    BLS_DEVICE_PAIRING = True
     BLS_PAIRING_DEVICE_MIN = 4
     BLS_MSM_DEVICE_MIN = 8       # Σ sᵢ·Pᵢ points below this stay host
 

@@ -129,12 +129,15 @@ class BlsCryptoVerifierPlenum(BlsCryptoVerifier):
     _neg_g2_prep = None
 
     def __init__(self, device_pairing: bool = False,
-                 pairing_device_min: int = 4):
+                 pairing_device_min: int = 4, device=None):
         """device_pairing / pairing_device_min: the node's
         BLS_DEVICE_PAIRING and BLS_PAIRING_DEVICE_MIN, which route the
-        batch seams below (bls_ops.pairing_device_ready)."""
+        batch seams below (bls_ops.pairing_device_ready); `device` is where
+        a routed batch runs (the node's; None means CUDA, "cpu" the
+        pairing kernel's plain version)."""
         self.device_pairing = device_pairing
         self.pairing_device_min = pairing_device_min
+        self.device = device
         self._pk_cache = {}        # b58 pk -> (point, in_subgroup)
         self._agg_cache = {}       # tuple(pks) -> aggregate point | None
         # b58 sig -> decompressed G1 point: every share was already
@@ -281,9 +284,9 @@ class BlsCryptoVerifierPlenum(BlsCryptoVerifier):
         return self._pairing_is_one(sig, h, key, agg_pk)
 
     # ------------------------------------------------------ batch verify
-    # One device pairing launch per batch (bls_ops.multi_pairing_is_one_jobs;
-    # its device half is ROADMAP A6) when device pairing is on and the
-    # batch clears pairing_device_min; otherwise the scalar path with its
+    # One device pairing launch per batch (bls_ops.multi_pairing_is_one_jobs
+    # on self.device) when device pairing is on and the batch clears
+    # pairing_device_min; otherwise the scalar path with its
     # prepared Miller lines. Every host-side pre-check (decode,
     # subgroup, key validity) runs EXACTLY as in the scalar methods, so
     # batch and scalar verdicts agree item-for-item — only the pairing
@@ -337,7 +340,8 @@ class BlsCryptoVerifierPlenum(BlsCryptoVerifier):
                 jobs.append(job)
                 live.append(i)
         for i, ok in zip(live, bls.multi_pairing_is_one_jobs(
-                jobs, self.device_pairing, self.pairing_device_min)):
+                jobs, self.device_pairing, self.pairing_device_min,
+                self.device)):
             results[i] = bool(ok)
         return results
 

@@ -94,16 +94,15 @@ else:
 
 
 # ---------------------------------------------------------------- device
-# Batched pairing / MSM on the device (the JAX package's
-# ops/bls381_pairing.py) is not ported yet: ROADMAP A6 (device half).
-# The routing reads the node's own config values, passed down by the
-# caller (the JAX package reads the Config class here; ROADMAP C). With
-# BLS_DEVICE_PAIRING off, the port's default, every batch takes the host
-# path, which is the reference's own path below its thresholds; with it
-# on, a batch at or above its threshold raises instead of stepping down.
-
-DEVICE_HALF_NOT_PORTED = ("the BLS pairing and MSM device kernels are "
-                          "not ported yet (ROADMAP A6 (device half))")
+# Batched pairing / MSM on the device (ops/bls381_pairing.py, the kernels
+# of csrc/bls381.cu). Jobs of compressed (G1, G2) byte pairs run as one
+# launch; the host path below has the same verdict semantics pair for
+# pair. The routing reads the node's own config values and device, passed
+# down by the caller (the JAX package reads the Config class here;
+# ROADMAP C). There is no step-down: where the JAX package disables the
+# family and serves host verdicts after a device failure, the port
+# raises. The ops/ imports stay lazy: torch loads on the first batch that
+# routes to the device.
 
 
 def pairing_device_ready(n_jobs: int, device_pairing: bool = False,
@@ -143,34 +142,41 @@ def pairing_job_host(pairs) -> bool:
 
 
 def multi_pairing_is_one_jobs(jobs, device_pairing: bool = False,
-                              device_min: int = 4) -> list:
+                              device_min: int = 4, device=None) -> list:
     """Batch of independent pairing-product checks → verdict per job.
-    Each job is a sequence of (compressed G1, compressed G2) byte
-    pairs, evaluated per job on the host (``pairing_job_host``). A batch
-    that ``pairing_device_ready`` sends to the device raises
-    NotImplementedError (ROADMAP A6, device half)."""
+    Each job is a sequence of (compressed G1, compressed G2) byte pairs.
+    A batch that ``pairing_device_ready`` admits runs as one launch on
+    `device` (None means CUDA; "cpu" runs the kernel's plain version);
+    any other batch is evaluated per job on the host
+    (``pairing_job_host``). A device failure raises."""
     jobs = [list(j) for j in jobs]
     if not jobs:
         return []
     if pairing_device_ready(len(jobs), device_pairing, device_min):
-        raise NotImplementedError(DEVICE_HALF_NOT_PORTED)
+        from plenum_tpu_torch.ops import bls381_pairing as _bp
+        verdict, _ok = _bp.pairing_jobs(jobs, device)
+        return [bool(v) for v in verdict]
     return [pairing_job_host(j) for j in jobs]
 
 
 def g1_msm(points: Sequence[bytes], scalars: Sequence[int],
-           device_pairing: bool = False, device_min: int = 8):
-    """Σ sᵢ·Pᵢ over G1 — host double-and-add per point. ``points`` are
-    compressed bytes; scalars are reduced mod r. Returns an affine
-    point, or None for the identity; raises ValueError on undecodable
-    input. A batch of at least ``device_min`` points (the node's
-    BLS_MSM_DEVICE_MIN) with ``device_pairing`` on raises
-    NotImplementedError (ROADMAP A6, device half)."""
+           device_pairing: bool = False, device_min: int = 8, device=None):
+    """Σ sᵢ·Pᵢ over G1. ``points`` are compressed bytes; scalars are
+    reduced mod r on both paths. A batch of at least ``device_min`` points
+    (the node's BLS_MSM_DEVICE_MIN) with ``device_pairing`` on runs as one
+    MSM on `device` (None means CUDA); any other takes the host
+    double-and-add per point. Returns an affine point, or None for the
+    identity; raises ValueError on undecodable input (both paths)."""
     if len(points) != len(scalars):
         raise ValueError("points/scalars length mismatch")
     if not points:
         return None
     if device_pairing and len(points) >= int(device_min):
-        raise NotImplementedError(DEVICE_HALF_NOT_PORTED)
+        from plenum_tpu_torch.ops import bls381_pairing as _bp
+        point, ok = _bp.msm_g1(points, scalars, device)
+        if not ok:
+            raise ValueError("undecodable point in MSM input")
+        return point
     agg = None
     for raw, s in zip(points, scalars):
         p = g1_decompress(bytes(raw))

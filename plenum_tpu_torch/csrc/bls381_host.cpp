@@ -1,0 +1,128 @@
+// bls381.cu's C entries run on the CPU through cuda_host_shim.h, for tests
+// without a card:
+//
+//   g++ -std=c++20 -O1 -pthread -o bls381_host bls381_host.cpp
+//   bls381_host pairing|g1agg|g2agg|msm IN OUT
+//
+// IN holds two int32 (B and P; B and n; B and n; N and 0), then the packed
+// arrays in the order of the entry's arguments (12-bit limbs as int32, a
+// flag a byte, MSM digits as int32). OUT receives the entry's outputs in
+// order: verdict[B] and decode_ok[B] bytes; or X, Y, Z (int32 limbs) and
+// ok bytes. The Montgomery multiplies the launch made, and the squarings
+// among them, are printed on stdout as {"fp_muls": n, "fp_sqrs": s}.
+#define BLS381_COUNT_MULS
+#include <cstdio>
+#include <memory>
+#include <string>
+#include <vector>
+
+#include "cuda_host_shim.h"
+#include "bls381.cu"
+
+struct Reader {
+  std::vector<uint8_t> buf;
+  size_t pos = 0;
+  std::vector<std::unique_ptr<uint8_t[]>> owned;
+  template <class T>
+  const T* take(size_t n) {
+    const size_t bytes = n * sizeof(T);
+    if (pos + bytes > buf.size()) return nullptr;
+    // a heap copy of exactly these bytes, so that a sanitizer sees any
+    // load past the array (operator new[] aligns it for any T here)
+    owned.emplace_back(new uint8_t[bytes ? bytes : 1]);
+    std::memcpy(owned.back().get(), buf.data() + pos, bytes);
+    pos += bytes;
+    return reinterpret_cast<const T*>(owned.back().get());
+  }
+};
+
+static bool read_file(const char* path, std::vector<uint8_t>& out) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return false;
+  uint8_t chunk[4096];
+  size_t n;
+  while ((n = std::fread(chunk, 1, sizeof chunk, f)) > 0)
+    out.insert(out.end(), chunk, chunk + n);
+  std::fclose(f);
+  return true;
+}
+
+static bool write_parts(const char* path,
+                        std::initializer_list<std::pair<const void*, size_t>>
+                            parts) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return false;
+  for (auto& p : parts) std::fwrite(p.first, 1, p.second, f);
+  std::fclose(f);
+  return true;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 4) {
+    std::fprintf(stderr, "usage: %s pairing|g1agg|g2agg|msm IN OUT\n",
+                 argv[0]);
+    return 2;
+  }
+  const std::string mode = argv[1];
+  Reader in;
+  if (!read_file(argv[2], in.buf)) return 2;
+  const int32_t* hdr = in.take<int32_t>(2);
+  if (!hdr) return 2;
+  const int a = hdr[0], b = hdr[1];
+  const size_t L = BLS_LIMBS12;
+  int rc = 0;
+  if (mode == "pairing") {
+    const size_t s = (size_t)a * b;
+    auto g1x = in.take<int32_t>(s * L);
+    auto g1s = in.take<uint8_t>(s), g1i = in.take<uint8_t>(s),
+         g1v = in.take<uint8_t>(s);
+    auto g2c1 = in.take<int32_t>(s * L), g2c0 = in.take<int32_t>(s * L);
+    auto g2s = in.take<uint8_t>(s), g2i = in.take<uint8_t>(s),
+         g2v = in.take<uint8_t>(s);
+    if (!g2v || in.pos != in.buf.size()) return 2;
+    std::vector<fp12> f(s ? s : 1);
+    std::vector<uint8_t> state(s ? s : 1), verdict(a), ok(a);
+    rc = bls_pairing(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v, a, b,
+                     f.data(), state.data(), verdict.data(), ok.data(),
+                     nullptr);
+    write_parts(argv[3], {{verdict.data(), verdict.size()},
+                          {ok.data(), ok.size()}});
+  } else if (mode == "g1agg" || mode == "g2agg") {
+    const bool g2 = mode == "g2agg";
+    const size_t s = (size_t)a * b, w = g2 ? 2 * L : L;
+    auto xa = in.take<int32_t>(s * L);
+    auto xb = g2 ? in.take<int32_t>(s * L) : nullptr;
+    auto sg = in.take<uint8_t>(s), inf = in.take<uint8_t>(s),
+         val = in.take<uint8_t>(s);
+    if (!val || in.pos != in.buf.size()) return 2;
+    std::vector<int32_t> X(a * w), Y(a * w), Z(a * w);
+    std::vector<uint8_t> ok(a);
+    rc = g2 ? bls_g2_aggregate(xa, xb, sg, inf, val, a, b, X.data(),
+                               Y.data(), Z.data(), ok.data(), nullptr)
+            : bls_g1_aggregate(xa, sg, inf, val, a, b, X.data(), Y.data(),
+                               Z.data(), ok.data(), nullptr);
+    write_parts(argv[3], {{X.data(), X.size() * 4}, {Y.data(), Y.size() * 4},
+                          {Z.data(), Z.size() * 4}, {ok.data(), ok.size()}});
+  } else if (mode == "msm") {
+    const size_t n = (size_t)a;
+    auto x = in.take<int32_t>(n * L);
+    auto sg = in.take<uint8_t>(n), inf = in.take<uint8_t>(n),
+         val = in.take<uint8_t>(n);
+    auto digits = in.take<int32_t>(n * 64);
+    if (!digits || in.pos != in.buf.size()) return 2;
+    const int blocks = bls_msm_blocks(a);
+    std::vector<uint8_t> scratch(blocks * sizeof(proj<fp>) + 8, 0);
+    std::vector<int32_t> X(L), Y(L), Z(L);
+    uint8_t ok = 0;
+    rc = bls_g1_msm(x, sg, inf, val, digits, a, scratch.data(), X.data(),
+                    Y.data(), Z.data(), &ok, nullptr);
+    write_parts(argv[3], {{X.data(), L * 4}, {Y.data(), L * 4},
+                          {Z.data(), L * 4}, {&ok, 1}});
+  } else {
+    return 2;
+  }
+  std::printf("{\"fp_muls\": %llu, \"fp_sqrs\": %llu}\n",
+              (unsigned long long)bls_fp_muls,
+              (unsigned long long)bls_fp_sqrs);
+  return rc;
+}

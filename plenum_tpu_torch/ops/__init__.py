@@ -1,5 +1,6 @@
-"""Device batch primitives: SHA-256, SHA3-256 and ed25519 verify, each a
-hand-written CUDA kernel (csrc/) with a plain PyTorch version beside it.
+"""Device batch primitives: SHA-256, SHA3-256, ed25519 verify and the
+BLS12-381 pairing, aggregates and MSM, each a hand-written CUDA kernel
+(csrc/) with a plain version beside it.
 
 A wrapper launches its kernel on a CUDA tensor and runs the plain version
 on a CPU tensor; there is no other route between them.
@@ -126,14 +127,18 @@ def launch_counts(reset: bool = False) -> dict:
     (each wrapper adds one where it launches its kernel); reset=True
     zeroes the counts after reading them. Node processes and the verify
     daemon report these, so that a harness sees their launches."""
-    from . import ed25519, sha256, sha3
+    from . import bls381, bls381_pairing, ed25519, sha256, sha3
     fns = {"ed25519_verify": ed25519.verify_cuda,
            "sha256_compress": sha256.sha256_blocks_cuda,
            "sha256_ragged": sha256.sha256_ragged_cuda,
            "sha256_node_levels": sha256.sha256_node_levels_cuda,
            "sha256_append_levels": sha256.sha256_append_groups_cuda,
            "sha3_ragged": sha3.sha3_ragged_cuda,
-           "sha3_ragged_eq": sha3.sha3_ragged_eq_cuda}
+           "sha3_ragged_eq": sha3.sha3_ragged_eq_cuda,
+           "bls_pairing": bls381_pairing.pairing_cuda,
+           "bls_g1_aggregate": bls381.g1_aggregate_cuda,
+           "bls_g2_aggregate": bls381_pairing.g2_aggregate_cuda,
+           "bls_g1_msm": bls381_pairing.msm_cuda}
     counts = {name: fn.launches for name, fn in fns.items()}
     if reset:
         for fn in fns.values():

@@ -172,16 +172,12 @@ class Node:
         """network: ExternalBus to peers; client_reply_handler(client_id,
         msg) delivers Acks/Nacks/Replies back to clients. `device` serves
         every kernel of the node (signature verify, SHA-256 leaves, SHA3
-        state levels): None means CUDA and raises when there is no card;
+        state levels, BLS pairing checks): None means CUDA and raises when there is no card;
         "cpu" runs the kernels' plain PyTorch versions."""
         from plenum_tpu_torch.server.observer import Observable
         self.device = resolve_device(device)
         self.name = name
         self.config = config or Config()
-        if getattr(self.config, "BLS_DEVICE_PAIRING", False):
-            raise NotImplementedError(
-                "BLS_DEVICE_PAIRING: the BLS pairing kernels are not "
-                "ported yet (ROADMAP A6, device half)")
         if getattr(self.config, "PIPELINE_ENABLED", False):
             raise NotImplementedError(
                 "PIPELINE_ENABLED: the pipeline runtime is not ported yet "
@@ -347,7 +343,8 @@ class Node:
             # package's bls_ops reads the Config class; ROADMAP C)
             verifier = BlsCryptoVerifierPlenum(
                 device_pairing=self.config.BLS_DEVICE_PAIRING,
-                pairing_device_min=self.config.BLS_PAIRING_DEVICE_MIN)
+                pairing_device_min=self.config.BLS_PAIRING_DEVICE_MIN,
+                device=self.device)
             bls_bft_replica = BlsBftReplica(
                 name, bls_signer, verifier,
                 BlsKeyRegister(lambda n: (self.pool_manager.node_info(n)

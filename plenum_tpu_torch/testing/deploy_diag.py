@@ -3,9 +3,12 @@ stall and view-change fault of ROADMAP C. Each run prints one JSON line:
 the writes every node replied to, the wall, each node's view and
 committed domain txns at stop, and the links each node's stack dropped
 as unresponsive (a peer that answered no ping within 2 x HEARTBEAT_FREQ;
-the bytes queued on a dropped link are lost). A first line times one
-ChaCha20-Poly1305 seal of 64 KiB on the wire's path and the Python
-keystream alone.
+the bytes queued on a dropped link are lost). Each line also gives the
+daemon's fused batches and served items (which regime a run was in: tens
+of batches in a fast run, hundreds in a slow one), each node's 3PC
+batches (its audit ledger's size) and the client's seconds to encrypt
+and queue the requests. A first line times one ChaCha20-Poly1305 seal of
+64 KiB on the wire's path and the Python keystream alone.
 
     python3 -m plenum_tpu_torch.testing.deploy_diag [--writes 3000]
         [--runs 3] [--profile-node Delta] [--timeout 300]
@@ -67,6 +70,11 @@ def main() -> int:
         print(json.dumps({
             "run": i, "ordered": res["ordered"], "required": res["required"],
             "elapsed_s": res["elapsed"], "wall_s": time.perf_counter() - t,
+            "client_send_s": res["client"].get("send_s"),
+            "daemon_batches": res["daemon"]["batches"],
+            "daemon_served": res["daemon"]["served"],
+            "batches_3pc": {k: v["audit_size"]
+                            for k, v in res["nodes"].items()},
             "view_no": {k: v["view_no"] for k, v in res["nodes"].items()},
             "domain_txns": {k: len(v["domain_txns"])
                             for k, v in res["nodes"].items()},

@@ -210,7 +210,7 @@ def read_node_state(base_dir: str, name: str) -> dict:
                 [keys[p] for p in multi.participants])
         return {"domain_root": domain.root_hash,
                 "audit_root": audit.root_hash, "state_root": state_root,
-                "domain_size": domain.size,
+                "domain_size": domain.size, "audit_size": audit.size,
                 "domain_txns": [t for _, t in domain.getAllTxn()],
                 "multi_sig": multi.as_dict() if multi else None,
                 "multi_sig_ok": bool(ok)}

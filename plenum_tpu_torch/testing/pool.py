@@ -46,13 +46,17 @@ def make_requests(n: int, signer, first_req_id: int = 1) -> List[dict]:
 
 
 def make_sim_pool(names, verifier_name: str, batch: Optional[int] = None,
-                  extra_conf: dict = None, device=None):
+                  extra_conf: dict = None, device=None,
+                  bls_signers: dict = None):
     """An n-node sim pool with bench.py make_sim_pool's settings (network
     seed 7, telemetry and flat wire on) whose nodes verify client
     signatures with `verifier_name`: "torch_hub" shares ONE
     CoalescingVerifierHub among all nodes (the per-node dispatches of a
     chunk fuse into one launch), any other provider name gives each node
-    its own. → (nodes, timer)."""
+    its own. `bls_signers` ({name: BlsCryptoSignerPlenum}) makes it a BLS
+    pool: each node signs its batches' roots, its public key stands in the
+    pool genesis (as `bls_genesis` writes it), and reads carry state
+    proofs with multi-signatures. → (nodes, timer)."""
     from plenum_tpu_torch.common.config import Config
     from plenum_tpu_torch.crypto.batch_verifier import create_verifier
     from plenum_tpu_torch.runtime.sim_random import DefaultSimRandom
@@ -70,8 +74,12 @@ def make_sim_pool(names, verifier_name: str, batch: Optional[int] = None,
                      TELEMETRY_ENABLED=True, FLAT_WIRE=True)
     overrides.update(extra_conf or {})
     conf = Config(**overrides)
+    bls = {}
+    if bls_signers:
+        bls = dict(genesis_txns=bls_genesis(names, bls_signers))
     nodes = [Node(name, names, timer, net.create_peer(name), config=conf,
-                  device=device)
+                  device=device,
+                  bls_signer=(bls_signers or {}).get(name), **bls)
              for name in names]
 
     def provider():
@@ -87,6 +95,17 @@ def make_sim_pool(names, verifier_name: str, batch: Optional[int] = None,
         for n in nodes:
             n.authnr._verifier = provider()
     return nodes, timer
+
+
+def bls_genesis(names, bls_signers: dict) -> List[dict]:
+    """Pool genesis txns of `names` with each node's BLS public key (the
+    sim network's nodes need no addresses)."""
+    from plenum_tpu_torch.bootstrap import node_genesis_txn
+    return [node_genesis_txn(n, verkey="v%d" % i, node_ip="127.0.0.1",
+                             node_port=1, client_ip="127.0.0.1",
+                             client_port=2, steward_nym="S%d" % i,
+                             bls_key=bls_signers[n].pk)
+            for i, n in enumerate(names)]
 
 
 def _pump(nodes, timer, target_size, max_iters=400):

@@ -7,8 +7,9 @@ and the host halves of the batch seams equal to the JAX package's.
 
 Also pins two reads of the Config class that the port replaced by the
 caller's config (ROADMAP C): the BLS batch routing reads the node's
-BLS_DEVICE_PAIRING / BLS_PAIRING_DEVICE_MIN, and the verify daemon's
-worker pool its PIPELINE_WORKERS. Tolerance: none."""
+BLS_DEVICE_PAIRING / BLS_PAIRING_DEVICE_MIN (and runs on the node's
+device, the pairing kernel's plain version on the CPU), and the verify
+daemon's worker pool its PIPELINE_WORKERS. Tolerance: none."""
 import pytest
 
 from plenum_tpu.crypto import bls as jbls
@@ -125,17 +126,45 @@ def test_host_batch_seams_equal_the_jax_packages():
         bls_ops.g1_msm(points, scalars[:2])
 
 
-def test_device_branch_raises_instead_of_stepping_down():
+def test_device_branch_raises_instead_of_stepping_down(monkeypatch):
+    """The device branch runs the pairing and MSM kernels' plain versions
+    on device="cpu", with the host path's verdicts; when the kernel's
+    wrapper raises, the error reaches the caller and the next batch goes
+    to the device branch again (the JAX package steps the family down and
+    serves host verdicts, bls_ops.py:167-176)."""
+    from plenum_tpu_torch.ops import bls381_pairing as bp
     jobs = _jobs()
-    with pytest.raises(NotImplementedError, match="A6 \\(device half\\)"):
-        bls_ops.multi_pairing_is_one_jobs(jobs, device_pairing=True,
-                                          device_min=len(jobs))
+    want = bls_ops.multi_pairing_is_one_jobs(jobs)
+    launched = []
+    real = bp.pairing
+    monkeypatch.setattr(bp, "pairing", lambda *a: launched.append(
+        int(a[0].shape[0])) or real(*a))
     assert bls_ops.multi_pairing_is_one_jobs(
-        jobs, device_pairing=True, device_min=len(jobs) + 1) == \
-        bls_ops.multi_pairing_is_one_jobs(jobs)
-    with pytest.raises(NotImplementedError, match="A6 \\(device half\\)"):
-        bls_ops.g1_msm([B.g1_compress(H)] * 8, [1] * 8,
-                       device_pairing=True, device_min=8)
+        jobs, device_pairing=True, device_min=len(jobs), device="cpu") == want
+    assert launched == [len(jobs)]
+    assert bls_ops.multi_pairing_is_one_jobs(
+        jobs, device_pairing=True, device_min=len(jobs) + 1,
+        device="cpu") == want
+    assert launched == [len(jobs)]
+    points = [B.g1_compress(B.g1_mul(H, k)) for k in range(1, 9)]
+    assert bls_ops.g1_msm(points, list(range(8)), device_pairing=True,
+                          device_min=8, device="cpu") == \
+        bls_ops.g1_msm(points, list(range(8)))
+
+    def induced(*args):
+        raise RuntimeError("induced kernel failure")
+
+    monkeypatch.setattr(bp, "pairing", induced)
+    monkeypatch.setattr(bp, "msm", induced)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="induced kernel failure"):
+            bls_ops.multi_pairing_is_one_jobs(
+                jobs, device_pairing=True, device_min=len(jobs),
+                device="cpu")
+    with pytest.raises(RuntimeError, match="induced kernel failure"):
+        bls_ops.g1_msm(points, [1] * 8, device_pairing=True, device_min=8,
+                       device="cpu")
+    assert not hasattr(bls_ops, "DEVICE_HALF_NOT_PORTED")
 
 
 def test_bls_routing_reads_the_nodes_config_not_the_class(monkeypatch):
@@ -148,17 +177,24 @@ def test_bls_routing_reads_the_nodes_config_not_the_class(monkeypatch):
     node = _node(device="cpu", bls_signer=signer,
                  config=Config(BLS_PAIRING_DEVICE_MIN=3))
     verifier = node.bls_bft_replica._verifier
-    assert (verifier.device_pairing, verifier.pairing_device_min) == \
-        (False, 3)
+    assert (verifier.device_pairing, verifier.pairing_device_min,
+            verifier.device) == (True, 3, node.device)
     assert node.db_manager.bls_store is node.bls_bft_replica.bls_store
-    # the value routes the batch seam: at 3 checks with device pairing on
-    # the batch goes to the (unported) device half, below it to the host
-    routed = bls.BlsCryptoVerifierPlenum(
-        device_pairing=True, pairing_device_min=verifier.pairing_device_min)
+    # the value routes the batch seam: at 3 checks and more the batch goes
+    # to the pairing kernel (its plain version on the node's CPU), below
+    # it to the host's scalar checks; the verdicts are the same
+    from plenum_tpu_torch.ops import bls381_pairing as bp
+    launched = []
+    real = bp.pairing
+    monkeypatch.setattr(bp, "pairing", lambda *a: launched.append(
+        int(a[0].shape[0])) or real(*a))
     checks = [(signer.sign(MSG), MSG, signer.pk)] * 2
-    assert routed.verify_sigs_batch(checks) == [True, True]
-    with pytest.raises(NotImplementedError, match="A6"):
-        routed.verify_sigs_batch(checks * 2)
+    assert verifier.verify_sigs_batch(checks) == [True, True]
+    assert launched == []
+    checks.append((signer.sign(MSG), MSG + b"x", signer.pk))
+    checks.append((_flip(signer.sign(MSG)), MSG, signer.pk))
+    assert verifier.verify_sigs_batch(checks) == [True, True, False, False]
+    assert launched == [3]        # the flipped signature fails its decode
 
 
 def test_daemon_workers_read_the_daemons_config_not_the_class(monkeypatch):

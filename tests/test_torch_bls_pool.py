@@ -284,3 +284,137 @@ def test_catchup_replies_fit_the_frame_limit(pools, monkeypatch):
         for r in port_reps:
             merged.update(r[key])
         assert merged == jax_reps[0][key]
+
+
+def test_deferred_share_unroll_runs_the_pairing_kernel(monkeypatch):
+    """The deferred-share unroll of test_deferred_share_verify_drops_bad_
+    share_at_order with BLS_PAIRING_DEVICE_MIN lowered to 2: the port's
+    replica checks its four shares in one launch of the pairing kernel
+    (its plain version, device="cpu") and stores the JAX replica's
+    multi-signature of the three valid shares."""
+    from plenum_tpu_torch.ops import bls381_pairing as bp
+    launched = []
+    real = bp.pairing_plain
+    monkeypatch.setattr(bp, "pairing_plain", lambda *a: launched.append(
+        int(a[0].shape[0])) or real(*a))
+    stored = []
+    for rep_mod, crypto, pp_cls, commit_cls, verifier in (
+            (prep, bls, PrePrepare, Commit, bls.BlsCryptoVerifierPlenum(
+                device_pairing=True, pairing_device_min=2, device="cpu")),
+            (jrep, jbls, JaxPrePrepare, JaxCommit,
+             jbls.BlsCryptoVerifierPlenum())):
+        signers = _signers(crypto)
+        keys = rep_mod.BlsKeyRegister(lambda n: signers[n].pk)
+        replica = rep_mod.BlsBftReplica(NAMES[0], signers[NAMES[0]],
+                                        verifier, keys,
+                                        defer_share_verify=True)
+        pp = _pp(pp_cls)
+        replica.process_pre_prepare(pp, NAMES[0])
+        commits = {n: _share(rep_mod, signers, n, verifier, keys, pp,
+                             commit_cls) for n in NAMES[:3]}
+        commits[NAMES[3]] = commits[NAMES[2]]
+        replica.process_order((0, 1), commits, pp, quorums=None)
+        multi = replica.bls_store.get("")
+        assert multi.participants == sorted(NAMES[:3])
+        stored.append(multi.as_dict())
+    assert launched == [4]
+    assert stored[0] == stored[1]
+
+
+def _reads(node, identifier, dests, monkeypatch):
+    """GET_NYM replies of `node` for `dests` → their result dicts."""
+    sent = []
+    monkeypatch.setattr(node, "_reply_to_client",
+                        lambda c, m: sent.append(m))
+    node.process_client_batch([({
+        "identifier": identifier, "reqId": 10 ** 6 + i,
+        "operation": {"type": GET_NYM, TARGET_NYM: d}}, "reader")
+        for i, d in enumerate(dests)])
+    return [copy.deepcopy(m.to_dict()["result"]) for m in sent]
+
+
+def _tamper(kind, result, other_root):
+    """(state proof, key, value) of a GET_NYM result, altered by kind."""
+    from plenum_tpu_torch.client.client import PoolClient
+    key, value = PoolClient._expected_state_kv(result)
+    sp = copy.deepcopy(result.get("state_proof"))
+    if kind == "flipped_multi_sig":
+        raw = bytearray(bls.b58_decode(sp["multi_signature"]["signature"]))
+        raw[-1] ^= 1
+        sp["multi_signature"]["signature"] = bls.b58_encode(bytes(raw))
+    elif kind == "stale_root":
+        sp["root_hash"] = other_root
+    elif kind == "wrong_value":
+        value = value[:-1] + bytes([value[-1] ^ 1])
+    elif kind == "missing_proof":
+        sp = None
+    return sp, key, value
+
+
+@pytest.mark.parametrize("kind", ["valid", "flipped_multi_sig", "stale_root",
+                                  "wrong_value", "missing_proof"])
+def test_pool_client_checks_proofs_as_the_jax_package_does(pools, kind,
+                                                          monkeypatch):
+    """The port's PoolClient (check_proof_dicts in one batch, routed to
+    the pairing kernel's plain version, and check_proof_dict one by one)
+    gives the JAX package's PoolClient's verdict strings on the same
+    GET_NYM replies of a port node."""
+    from plenum_tpu.client.client import PoolClient as JaxPoolClient
+    from plenum_tpu_torch.client.client import PoolClient
+    port, _, signers = pools
+    write_reqs = pool.make_requests(6, SimpleSigner(seed=b"\x61" * 32))
+    results = _reads(port[0], write_reqs[0]["identifier"],
+                     [r["operation"][TARGET_NYM] for r in write_reqs],
+                     monkeypatch)
+    assert len(results) == 6 and all(r.get("data") for r in results)
+    other = [m.value.state_root_hash
+             for _, m in port[0].bls_bft_replica.bls_store.items()
+             if m.value.state_root_hash
+             != results[0]["state_proof"]["root_hash"]][0]
+    checks = [_tamper(kind, r, other) for r in results]
+    keys = {n: signers[n].pk for n in NAMES}
+    client = PoolClient(None, NAMES, lambda n, m: None,
+                        bls_verifier=bls.BlsCryptoVerifierPlenum(
+                            device_pairing=True, pairing_device_min=4,
+                            device="cpu"),
+                        bls_key_provider=keys.get)
+    jclient = JaxPoolClient(None, NAMES, lambda n, m: None,
+                            bls_verifier=jbls.BlsCryptoVerifierPlenum(),
+                            bls_key_provider=keys.get)
+    got = client.check_proof_dicts(checks)
+    assert got == jclient.check_proof_dicts(checks)
+    assert [client.check_proof_dict(*c) for c in checks] == \
+        [jclient.check_proof_dict(*c) for c in checks] == got
+    if kind == "valid":
+        assert got == [None] * 6
+        assert all(client.verify_state_proof(r) for r in results)
+    else:
+        assert all(isinstance(v, str) for v in got)
+
+
+def test_jax_signers_carry_across_and_verify_through_the_batch_path(
+        monkeypatch):
+    """carry.bls_signers takes the JAX package's signers across: the
+    port's sign byte for byte as they do, and their signatures verify
+    through the port's batch seam on the pairing kernel (its plain
+    version), a wrong message failing."""
+    from plenum_tpu_torch import carry
+    from plenum_tpu_torch.ops import bls381_pairing as bp
+    jsigners = _signers(jbls)
+    signers = carry.bls_signers(jsigners[n] for n in NAMES)
+    assert [s.pk for s in signers] == [jsigners[n].pk for n in NAMES]
+    msg = b"carried"
+    sigs = [jsigners[n].sign(msg) for n in NAMES]
+    assert [s.sign(msg) for s in signers] == sigs
+    pairs = carry.bls_signers((s._sk, s.pk) for s in signers)
+    assert [s.sign(msg) for s in pairs] == sigs
+    launched = []
+    real = bp.pairing_plain
+    monkeypatch.setattr(bp, "pairing_plain", lambda *a: launched.append(
+        int(a[0].shape[0])) or real(*a))
+    verifier = bls.BlsCryptoVerifierPlenum(
+        device_pairing=True, pairing_device_min=4, device="cpu")
+    checks = [(sig, msg, s.pk) for sig, s in zip(sigs, signers)]
+    checks.append((sigs[0], msg + b"x", signers[0].pk))
+    assert verifier.verify_sigs_batch(checks) == [True] * 4 + [False]
+    assert launched == [5]

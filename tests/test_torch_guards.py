@@ -2,7 +2,8 @@
 import neither jax nor plenum_tpu and load no native extension of the JAX
 package, every entry point that touches the device raises when CUDA is
 absent and the caller did not ask for the CPU, the Node raises
-NotImplementedError on the branches that are not ported, no port source
+NotImplementedError on the branch that is not ported (the pipeline
+runtime) and routes BLS pairing batches to its device, no port source
 names the JAX package's native directory, and
 chip_smoke.py refuses to report without a card or without the package
 beside it."""
@@ -90,7 +91,7 @@ def _entry_points():
     from plenum_tpu_torch.crypto.batch_verifier import (
         CoalescingVerifierHub, TorchBatchVerifier, create_verifier)
     from plenum_tpu_torch.ops import ed25519, resolve_device, sha256, sha3
-    from plenum_tpu_torch.ops import merkle, trie
+    from plenum_tpu_torch.ops import bls381, bls381_pairing, merkle, trie
     from plenum_tpu_torch.server.client_authn import CoreAuthNr
     from plenum_tpu_torch.state.device_state import DeviceStateEngine
     from plenum_tpu_torch.state.pruning_state import PruningState
@@ -137,6 +138,13 @@ def _entry_points():
         "merkle_tree_from_levels": lambda: carry.merkle_tree_from_levels(
             [], 0),
         "authnr_from_registry": lambda: carry.authnr_from_registry({}),
+        "pairing_jobs": lambda: bls381_pairing.pairing_jobs(
+            [[(bls381.G1_INF, bls381.G2_INF)]]),
+        "aggregate_g1_jobs": lambda: bls381.aggregate_g1_jobs(
+            [[bls381.G1_INF]]),
+        "msm_g1": lambda: bls381_pairing.msm_g1([bls381.G1_INF], [1]),
+        "g2_aggregate_dispatch": lambda: bls381_pairing
+        .g2_aggregate_dispatch([[bls381.G2_INF]], 1),
     }
 
 
@@ -173,12 +181,38 @@ def test_sha3_cuda_wrappers_refuse_cpu_tensors():
                                  torch.zeros((1, 32), dtype=torch.uint8))
 
 
-@pytest.mark.parametrize("branch", ["BLS_DEVICE_PAIRING",
-                                    "PIPELINE_ENABLED"])
+@pytest.mark.parametrize("branch", ["PIPELINE_ENABLED"])
 def test_node_raises_on_branches_not_ported(branch):
     from plenum_tpu_torch.common.config import Config
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         _node(device="cpu", config=Config(**{branch: True}))
+
+
+def test_node_routes_bls_device_pairing_to_its_device(monkeypatch):
+    """BLS_DEVICE_PAIRING is on by default, as in the JAX package: a Node
+    built on device="cpu" sends a batch of BLS_PAIRING_DEVICE_MIN share
+    checks to the pairing kernel's plain version, and a verifier routed to
+    the card raises without CUDA rather than running on the CPU."""
+    from plenum_tpu_torch.common.config import Config
+    from plenum_tpu_torch.crypto import bls
+    from plenum_tpu_torch.ops import bls381_pairing as bp
+    assert Config.BLS_DEVICE_PAIRING is True
+    signer, _ = bls.BlsCryptoSignerPlenum.generate(b"\x02" * 32)
+    verifier = _node(device="cpu", bls_signer=signer).bls_bft_replica \
+        ._verifier
+    launched = []
+    real = bp.pairing_plain
+    monkeypatch.setattr(bp, "pairing_plain", lambda *a: launched.append(
+        int(a[0].shape[0])) or real(*a))
+    n = Config.BLS_PAIRING_DEVICE_MIN
+    checks = [(signer.sign(b"m"), b"m", signer.pk)] * n
+    assert verifier.verify_sigs_batch(checks) == [True] * n
+    assert launched == [n]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    on_card = bls.BlsCryptoVerifierPlenum(device_pairing=True,
+                                          pairing_device_min=n)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        on_card.verify_sigs_batch(checks)
 
 
 def test_networked_node_raises_on_the_info_dump():
