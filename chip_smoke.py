@@ -131,7 +131,8 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    of one level, the proof gather's device time, the tree's dispatch
    stats and the launches.
 
-9. drives the BLS12-381 kernels of csrc/bls381.cu (phase "bls", after
+9. drives the BLS12-381 kernels of csrc/bls381.cu, bls381_agg.cu and
+   bls381_msm.cu (phase "bls", after
    phase 8): BASELINE.json's config 3 at its published sizes, n = 4, 25
    and 100 validators from seeded keys: 256 jobs x 100 shares through the
    G1 aggregate (bench.py micro_bls's shape; held against
@@ -158,7 +159,16 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    under torch.cuda.set_sync_debug_mode("error"). Each kernel must have
    launched on config 3's path and bls_pairing on the read path; each
    entry gives both paths' launches ("launches_by_path"), and its bound
-   counts the least work of the function (ops/bls381.py COST).
+   counts the least work of the function (ops/bls381.py COST). The
+   phase also measures the field core (plenum_tpu_torch/bls_field_core:
+   one Montgomery multiply's and squaring's latency on one thread, their
+   rate across the card, every chain checked against Python integers,
+   one {"bls_field_core": ...} line), times the verify launch's three
+   kernels apart (lines and G1 decompression, Miller, final
+   exponentiation: "kernel_ms_per_launch") and the verify's own launch
+   between CUDA events ("verify_launch_ms", beside its collect), and a
+   node's share unroll at n = 4 (four jobs of two pairs) on the kernel
+   and on the host library ("unroll_4_jobs").
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
@@ -1615,13 +1625,13 @@ READ_TAMPERED = 16
 
 
 def bls_phase(torch, dev):
-    """Phase 9: the BLS12-381 kernels (csrc/bls381.cu) on config 3 of
+    """Phase 9: the BLS12-381 kernels (csrc/bls381*.cu) on config 3 of
     BASELINE.json and on the read path. Counts are zeroed just before
     each of the two paths and read just after it; the comparisons with
     the plain versions and the timings come after. → {"launches",
     "kernels"}."""
     import random
-    from plenum_tpu_torch import carry
+    from plenum_tpu_torch import bls_field_core, carry
     from plenum_tpu_torch.client.client import PoolClient
     from plenum_tpu_torch.common.config import Config
     from plenum_tpu_torch.common.constants import TARGET_NYM
@@ -1693,10 +1703,22 @@ def bls_phase(torch, dev):
     real = {"pairing": bp.pairing, "g1_aggregate": bls381.g1_aggregate,
             "g2_aggregate": bp.g2_aggregate, "msm": bp.msm}
 
+    # each pairing launch on the path between CUDA events: its device time
+    # inside the verify, beside the verify's collect
+    launch_events = []
+
     def recording(name):
         def fn(*tensors):
             recorded[name].append(tensors)
-            return real[name](*tensors)
+            if name != "pairing":
+                return real[name](*tensors)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real[name](*tensors)
+            ev[1].record()
+            launch_events.append((int(tensors[0].shape[0]), ev))
+            return out
         return fn
 
     times = {}
@@ -1897,6 +1919,13 @@ def bls_phase(torch, dev):
             BLS_MSM_POINTS, READ_WRITES, READ_TAMPERED,
             time.perf_counter() - t0))
 
+    # ---- the field core: one multiply's and one squaring's latency on one
+    # thread, their rate across the card, every chain checked
+    t = time.perf_counter()
+    core = bls_field_core.measure(dev)
+    log(json.dumps({"bls_field_core": core}))
+    log("bls field core measured in {:.1f} s".format(time.perf_counter() - t))
+
     # ---- the adversarial pairing jobs of tests/test_bls381_pairing.py
     G1I, G2I = bls381.G1_INF, bls381.G2_INF
     neg_g2 = bls_ops.g2_compress(bls_ops.g2_neg(bls_ops.G2_GEN))
@@ -1945,7 +1974,9 @@ def bls_phase(torch, dev):
                                                    BLS_SAMPLE))
                     | set(range(honest, len(jobs))))
     idx = torch.tensor(sample, device=dev)
-    sub = [t.index_select(0, idx).contiguous() for t in pair_in]
+    # the per-job arrays (G1 points, key indices) sampled, the keys whole
+    sub = [t.index_select(0, idx).contiguous() for t in pair_in[:5]] \
+        + list(pair_in[5:])
     pair_ms, (kv, kok) = cuda_ms(torch, lambda: bp.pairing_cuda(*pair_in), 2)
     plain_ms, (pv, pok) = once_ms(torch, lambda: bp.pairing_plain(*sub))
     pair_err = max(pair_err, int((kv.index_select(0, idx).cpu().int()
@@ -1956,16 +1987,83 @@ def bls_phase(torch, dev):
                          "adversarial rows and {} honest jobs of the verify "
                          "launch".format(BLS_SAMPLE))
     pair_alone = kernel_ms(torch, lambda: bp.pairing_cuda(*pair_in), reps=2)
-    cost = bp.pairing_cost(*(t.cpu().numpy() for t in pair_in),
+    cost = bp.pairing_cost(*bp.expand_keys(*(t.cpu().numpy()
+                                              for t in pair_in)),
                            kok.cpu().numpy())
     nbytes = sum(t.numel() * t.element_size() for t in pair_in) \
         + 2 * len(jobs)
     b_ms, b_by = bound(bls381.int32_ops(cost), nbytes)
+    # the launch's three kernels apart (lines and G1 decompression, Miller,
+    # final exponentiation), each rerun on the scratch a full launch filled
+    B, P, K = (int(pair_in[0].shape[0]), int(pair_in[0].shape[1]),
+               int(pair_in[5].shape[0]))
+    scratch = bp.pairing_scratch(B, P, K, dev)
+    bp.pairing_cuda(*pair_in, scratch=scratch)
+    split = [kernel_ms(torch, lambda st=st: bp.pairing_cuda(
+        *pair_in, scratch=scratch, stages=(st, st)), reps=2)
+        for st in range(3)]
+    kv2, kok2 = bp.pairing_cuda(*pair_in, scratch=scratch)
+    check(torch.equal(kv2, kv) and torch.equal(kok2, kok),
+          "bls_pairing on a reused scratch equals its first launch")
+    # the verify's own launch between CUDA events
+    verify_launch = [ev for n, ev in launch_events if n == len(jobs)]
+    check(len(verify_launch) == 1, "one timed pairing launch in the verify")
+    verify_launch_ms = verify_launch[0][0].elapsed_time(verify_launch[0][1])
+    # a node's share unroll at n = 4 (BLS_PAIRING_DEVICE_MIN): four jobs of
+    # two pairs, one key each, on the kernel and on the host library
+    unroll_msg = b"state-root-unroll"
+    unroll_checks = [(s.sign(unroll_msg), unroll_msg, s.pk)
+                     for s in signers[:Config.BLS_PAIRING_DEVICE_MIN]]
+    captured = {}
+
+    def capture(jobs_, *args):
+        captured["jobs"] = [list(j) for j in jobs_]
+        return real_jobs_fn(captured["jobs"], *args)
+    bls_ops.multi_pairing_is_one_jobs = capture
+    try:
+        unroll_verdicts = verifier.verify_sigs_batch(unroll_checks)
+    finally:
+        bls_ops.multi_pairing_is_one_jobs = real_jobs_fn
+    unroll_jobs = captured["jobs"]
+    check(unroll_verdicts == [True] * len(unroll_checks)
+          and len(unroll_jobs) == Config.BLS_PAIRING_DEVICE_MIN,
+          "the share unroll's {} jobs verify on the card".format(
+              len(unroll_jobs)))
+    unroll_in = bls381.upload(bp._pack_pair_arrays(
+        unroll_jobs, len(unroll_jobs), 2), dev)
+    unroll_alone = kernel_ms(torch, lambda: bp.pairing_cuda(*unroll_in),
+                             reps=5)
+    unroll_trip = round_trip_ms(lambda: bp.pairing_jobs(unroll_jobs, dev),
+                                reps=5)
+    host_times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        host_v = [bls_ops.pairing_job_host(j) for j in unroll_jobs]
+        host_times.append(1e3 * (time.perf_counter() - t))
+    unroll_host = sorted(host_times)[len(host_times) // 2]
+    check(host_v == [True] * len(unroll_jobs)
+          and bp.pairing_jobs(unroll_jobs, dev)[0].tolist() == host_v,
+          "the share unroll's verdicts on the card equal the host library's")
+    log("bls_pairing at {} jobs x {} pairs ({} keys): kernel alone {:.4f} "
+        "ms = lines and G1 {:.4f} + Miller {:.4f} + final exponentiation "
+        "{:.4f}; the verify's own launch {:.4f} ms against its collect "
+        "{:.4f} s; the share unroll at n = {} ({} jobs x 2 pairs): kernel "
+        "alone {:.4f} ms, round trip {:.4f} ms, host library {:.4f} ms"
+        .format(B, P, K, pair_alone, split[0], split[1], split[2],
+                verify_launch_ms, times["verify_collect"],
+                Config.BLS_PAIRING_DEVICE_MIN, len(unroll_jobs),
+                unroll_alone, unroll_trip, unroll_host))
     card_rows["bls_pairing"] = dict(
         max_abs_err=pair_err, ms=pair_ms, kernel_ms=pair_alone,
+        kernel_ms_per_launch={"lines": split[0], "miller": split[1],
+                              "final_exp": split[2]},
+        verify_launch_ms=verify_launch_ms,
+        unroll_4_jobs={"kernel_ms": unroll_alone,
+                       "round_trip_ms": unroll_trip,
+                       "host_library_ms": unroll_host},
         plain_ms=plain_ms, plain_jobs=len(sample), bound_ms=b_ms,
         bound_by=b_by,
-        shape="{} jobs x {} pairs".format(*pair_in[0].shape[:2]),
+        shape="{} jobs x {} pairs, {} keys".format(B, P, K),
         fp_mul_sqr=cost.tolist())
 
     def entry(name, plain_fn, cuda_fn, tensors, count, reps):
@@ -1992,17 +2090,20 @@ def bls_phase(torch, dev):
     entry("bls_g2_aggregate", bp.g2_aggregate_plain, bp.g2_aggregate_cuda,
           recorded["g2_aggregate"][0],
           lambda h, o: bp.g2_aggregate_cost(*h, o[3], o[2]), 5)
-    msm_in = [t for t in recorded["msm"] if t[0].shape[0] == max(
+    msm_in = [t for t in recorded["msm"] if t[4].shape[0] == max(
         BLS_MSM_POINTS)][0]
     entry("bls_g1_msm", bp.msm_plain, bp.msm_cuda, msm_in,
-          lambda h, o: bp.msm_cost(*h, o[3], o[2]), 5)
+          lambda h, o: bp.msm_cost(*bp.expand_points(*h), o[3], o[2]), 5)
+    card_rows["bls_g1_msm"]["window_bits"] = bp.msm_window(
+        int(msm_in[4].shape[0]))
+    card_rows["bls_g1_msm"]["distinct_points"] = int(msm_in[0].shape[0])
     for small in recorded["msm"]:
-        if small[0].shape[0] != msm_in[0].shape[0]:
+        if small[4].shape[0] != msm_in[4].shape[0]:
             got, want = bp.msm_cuda(*small), bp.msm_plain(*small)
             check(all(torch.equal(a.cpu(), b.cpu()) for a, b in
                       zip(got, want)), "bls_g1_msm equals its plain version "
                                        "at {} points".format(
-                                           small[0].shape[0]))
+                                           small[4].shape[0]))
     for name, row in card_rows.items():
         log("{}: {} ms {:.4f}, kernel alone {:.4f} ms, bound {:.5f} ms ({}; "
             "the function's Montgomery multiplies and squarings {}), {:.3%} "
@@ -2035,8 +2136,11 @@ def bls_phase(torch, dev):
                 "bls_g1_aggregate": "plenum_tpu/ops/bls381_jax.py:363",
                 "bls_g2_aggregate": "plenum_tpu/ops/bls381_pairing.py:342",
                 "bls_g1_msm": "plenum_tpu/ops/bls381_pairing.py:285"}
+    sources = {"bls_pairing": "bls381.cu", "bls_g1_aggregate": "bls381_agg.cu",
+               "bls_g2_aggregate": "bls381_agg.cu",
+               "bls_g1_msm": "bls381_msm.cu"}
     kernels = [dict({"name": name, "route": "cuda",
-                     "source": "plenum_tpu_torch/csrc/bls381.cu",
+                     "source": "plenum_tpu_torch/csrc/" + sources[name],
                      "replaces": replaces[name],
                      "launches": launches[name],
                      "launches_by_path": {"config3": config3_launches[name],

@@ -1,631 +1,396 @@
-// BLS12-381 on the card: batched pairing-product checks, G1 and G2 share
-// aggregation, and a G1 multi-scalar multiply.
+// BLS12-381 batched pairing-product checks on the card, and the field
+// core's measurement chains (bls_fp_chain).
 //
-// Replaces the JAX package's XLA device programs (not Pallas kernels):
-//   bls_pairing       <- _pairing_kernel       plenum_tpu/ops/bls381_pairing.py:241
-//   bls_g1_aggregate  <- _aggregate_kernel     plenum_tpu/ops/bls381_jax.py:363
-//   bls_g2_aggregate  <- _g2_aggregate_kernel  plenum_tpu/ops/bls381_pairing.py:342
-//   bls_g1_msm        <- _msm_kernel           plenum_tpu/ops/bls381_pairing.py:285
-// with the JAX tower's fp2 square root and G2 decompression
-// (plenum_tpu/ops/bls381_tower.py:290, :497) and its complete additions
-// (:563) as device code here.
+// Replaces the JAX package's XLA device program (not a Pallas kernel):
+//   bls_pairing  <- _pairing_kernel  plenum_tpu/ops/bls381_pairing.py:241
+// with the JAX tower's G2 decompression (plenum_tpu/ops/bls381_tower.py:497)
+// as device code. The shared arithmetic (field core, fp2, decompression) is
+// bls381_core.cuh.
 //
-// The field and tower formulas are those of the port's host library,
-// csrc/bls12_381.c (6 x 64-bit Montgomery limbs, CIOS; the fp2/fp6/fp12
-// tower; the optimal-ate Miller loop with M-twist lines multiplied in
-// sparse (mul_by_014); the final exponentiation f^(3(q^4-q^2+1)/r) through
-// the Hayashida-Hayasaka-Teruya chain with cyclotomic squarings), so the
-// card's verdicts are the host's bit for bit. Three does not divide r, so
-// an is-one verdict equals the JAX package's exponent (q^12-1)/r. Two
-// departures, both exact: inversion is Fermat's (a^(q-2), no data-dependent
-// loop) where the host uses the binary extended Euclid, and the G2 square
-// root always computes both candidates and selects, as the JAX tower does.
+// The formulas are the port's host library's, csrc/bls12_381.c: the
+// optimal-ate Miller loop with T projective on the M-twist and its lines
+// multiplied in sparse (mul_by_014); the final exponentiation
+// f^(3(q^4-q^2+1)/r) through the Hayashida-Hayasaka-Teruya chain with
+// cyclotomic squarings. So the card's verdicts are the host's bit for bit
+// (three does not divide r, so an is-one verdict equals the JAX package's
+// exponent (q^12-1)/r). fp12 is held as three fp4 parts (fp4 =
+// fp2[s]/(s^2 - xi), fp12 = fp4[w]/(w^3 - s), the basis of the cyclotomic
+// squaring): its products are Karatsuba over the parts with the host fp6
+// tower's count of multiplies, and its inverse is the cubic norm formula
+// (13 multiplies above the host's).
 //
-// Packed inputs keep the JAX package's layout (its pack_compressed and
-// pack_g2_compressed): an x coordinate as 32 limbs of 12 bits in int32, in
-// the standard domain, x < q checked on the host, and three flags a point
-// (the sign bit, infinity, a valid encoding). Outputs are its shapes too,
-// with every point normalized to Z in {0, 1} (one inversion a job), so the
-// kernel and its plain version give equal tensors.
+// Bound: operations (ops/bls381_pairing.py pairing_cost): each distinct
+// point decompressed once, a G2 key's Miller lines once, one Miller
+// accumulator a job; a Montgomery multiply priced at 588 32-bit
+// multiply-adds and a squaring at 456. The host build (bls381_host.cpp)
+// counts this schedule's multiplies and squarings, and
+// tests/test_torch_bls381.py holds them against the same pieces.
 //
-// Bound: operations, counted for the function and not for this schedule
-// (ops/bls381.py COST and the *_cost functions): each distinct point
-// decompressed once, a G2 point's Miller lines once, one Miller accumulator
-// a job, mixed additions, the bucket method for the MSM; a Montgomery
-// multiply priced at 588 32-bit multiply-adds and a squaring at 456. The
-// host build counts this schedule's multiplies and squarings
-// (bls381_host), which tests/test_torch_bls381.py holds against the same
-// pieces.
+// Design: three launches. (1) Lines: a trio of lanes per distinct G2 key
+// (the host packs each key once, with an index a pair) decompresses it and
+// runs its 63 doubling and 5 addition steps once, storing the line
+// coefficients [K, 68, 3] fp2; other blocks decompress the G1 points, a
+// thread per pair. A key is a chain of ~4,700 dependent multiplies, so
+// this launch's time is latency; one thread's multiplies serialize on its
+// carry flag, so each fp2 product of the chain is split over the trio's
+// three lanes (three multiplies at once). (2) Miller: one accumulator a job, held in
+// shared memory and worked by six lanes of one warp (five jobs a warp): an
+// fp12 squaring is six fp4 products, one a lane (Karatsuba over the three
+// parts), then each lane sums its output coefficient from the six; a line
+// is evaluated at the job's G1 point (4 multiplies over four lanes) and
+// multiplied in sparse, its 13 fp2 products over five lanes. (3) Final
+// exponentiation: the same six lanes a job run the HHT chain from a small
+// program (each operation's code once in the kernel): cyclotomic squarings
+// (three fp4 squarings, each split over its part's two lanes), products,
+// Frobenius maps (a coefficient a lane), the inverse (the cubic norm over
+// the parts, its one fp2 inversion on one lane). Six lanes a job make
+// config 3's 10,005 jobs 60,030 threads (1.26 waves at 12 warps an SM, the
+// most that a thread's 168 registers and a job's shared memory allow); a
+// lane holds only the operands of its current product. Nothing allocates
+// in a kernel; the wrapper gives the scratch.
 
-// Design, first and simple: the arithmetic is the host library's on 64-bit
-// limbs (__umul64hi for the high half; the card multiplies 32-bit words, so
-// each 64-bit product is several IMADs), one thread per independent piece
-// of work, the big tower functions out of line so that the compile stays
-// short; their operands live in local memory (the L1). Pairing: one thread
-// per (job, pair) decompresses both points and runs the Miller loop into a
-// scratch fp12, then one thread per job multiplies its pairs' values and
-// runs the final exponentiation (two launches, one C entry). Aggregates: a
-// block per job, a thread per share (striding past the block), a tree sum
-// in shared memory. MSM: a thread per point (w = 4 table, Horner over 64
-// nibbles), a tree sum per block, then one block sums the blocks'.
-// Nothing allocates in a kernel; the wrapper gives the scratch.
+#include "bls381_core.cuh"
 
-#include <stdint.h>
-#include <string.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define BLS_NOINLINE __noinline__
-#define LAUNCH(kernel, grid, block, stream, ...) \
-  kernel<<<(grid), (block), 0, (stream)>>>(__VA_ARGS__)
-#else
-// host build (csrc/bls381_host.cpp, behind cuda_host_shim.h)
-#define BLS_NOINLINE __attribute__((noinline))
-typedef void* cudaStream_t;
-static inline int cudaGetLastError() { return 0; }
-#define LAUNCH(kernel, grid, block, stream, ...) \
-  host_launch((grid), (block), kernel, __VA_ARGS__)
-#endif
-
-// the host build counts every Montgomery multiply, and apart the squarings
-// among them
-#ifdef BLS381_COUNT_MULS
-#include <atomic>
-static std::atomic<unsigned long long> bls_fp_muls{0}, bls_fp_sqrs{0};
-#define COUNT_MUL() bls_fp_muls.fetch_add(1, std::memory_order_relaxed)
-#define COUNT_SQR() bls_fp_sqrs.fetch_add(1, std::memory_order_relaxed)
-#else
-#define COUNT_MUL()
-#define COUNT_SQR()
-#endif
-
-#define HD __host__ __device__
-#define HDI __host__ __device__ __forceinline__
-#define HDN __host__ __device__ BLS_NOINLINE
-
-typedef uint64_t u64;
-typedef uint32_t u32;
-typedef uint8_t u8;
-
-#define NL 6
-#define BLS_LIMBS12 32        // 12-bit limbs of a packed coordinate
-
-#define PAIR_THREADS 64
-#define FINAL_THREADS 64
-#define AGG_THREADS 128       // a power of two: the tree sum halves it
-#define MSM_THREADS 64
-
-HDI u64 mulhi64(u64 a, u64 b) {
-#ifdef __CUDA_ARCH__
-  return __umul64hi(a, b);
-#else
-  return (u64)(((unsigned __int128)a * b) >> 64);
-#endif
-}
-
-// ------------------------------------------------------------ constants
-
-#define Q0 0xb9feffffffffaaabULL
-#define Q1 0x1eabfffeb153ffffULL
-#define Q2 0x6730d2a0f6b0f624ULL
-#define Q3 0x64774b84f38512bfULL
-#define Q4 0x4b1ba7b6434bacd7ULL
-#define Q5 0x1a0111ea397fe69aULL
-#define N0 0x89f3fffcfffcfffdULL
-#define X_ABS 0xd201000000010000ULL
-
-struct fp { u64 l[NL]; };
-struct fp2 { fp c0, c1; };
-struct fp6 { fp2 c0, c1, c2; };
-struct fp12 { fp6 c0, c1; };
-
-HDI fp fp_make(u64 a0, u64 a1, u64 a2, u64 a3, u64 a4, u64 a5) {
-  fp r;
-  r.l[0] = a0; r.l[1] = a1; r.l[2] = a2;
-  r.l[3] = a3; r.l[4] = a4; r.l[5] = a5;
-  return r;
-}
-
-#define FP_ZERO fp_make(0, 0, 0, 0, 0, 0)
-#define FP_RAW_ONE fp_make(1, 0, 0, 0, 0, 0)
-// 1, 4 and 12 in the Montgomery domain (R = 2^384), R^2 mod q
-#define FP_ONE fp_make(0x760900000002fffdULL, 0xebf4000bc40c0002ULL, \
-  0x5f48985753c758baULL, 0x77ce585370525745ULL, 0x5c071a97a256ec6dULL, \
-  0x15f65ec3fa80e493ULL)
-#define FP_FOUR fp_make(0xaa270000000cfff3ULL, 0x53cc0032fc34000aULL, \
-  0x478fe97a6b0a807fULL, 0xb1d37ebee6ba24d7ULL, 0x8ec9733bbf78ab2fULL, \
-  0x09d645513d83de7eULL)
-#define FP_TWELVE fp_make(0x447600000027552eULL, 0xdcb8009a43480020ULL, \
-  0x6f7ee9ce4a6e8b59ULL, 0xb10330b7c0a95bc6ULL, 0x6140b1fcfb1e54b7ULL, \
-  0x0381be097f0bb4e1ULL)
-#define FP_R2 fp_make(0xf4df1f341c341746ULL, 0x0a76e6a609d104f1ULL, \
-  0x8de5476c4c95b6d5ULL, 0x67eb88a9939d83c0ULL, 0x9a793e85b519952dULL, \
-  0x11988fe592cae3aaULL)
-// -1 in the Montgomery domain
-#define FP_NEG_ONE fp_make(0x43f5fffffffcaaaeULL, 0x32b7fff2ed47fffdULL, \
-  0x07e83a49a2e99d69ULL, 0xeca8f3318332bb7aULL, 0xef148d1ea0f4c069ULL, \
-  0x040ab3263eff0206ULL)
-// (q - 1) / 2, standard domain: y is "big" above it
-#define FP_HALF fp_make(0xdcff7fffffffd555ULL, 0x0f55ffff58a9ffffULL, \
-  0xb39869507b587b12ULL, 0xb23ba5c279c2895fULL, 0x258dd3db21a5d66bULL, \
-  0x0d0088f51cbff34dULL)
-// exponents: (q + 1) / 4 (the G1 square root), (q - 3) / 4 and
-// (q - 1) / 2 (the fp2 square root), q - 2 (inversion)
-#define EXP_SQRT fp_make(0xee7fbfffffffeaabULL, 0x07aaffffac54ffffULL, \
-  0xd9cc34a83dac3d89ULL, 0xd91dd2e13ce144afULL, 0x92c6e9ed90d2eb35ULL, \
-  0x0680447a8e5ff9a6ULL)
-#define EXP_SQRT34 fp_make(0xee7fbfffffffeaaaULL, 0x07aaffffac54ffffULL, \
-  0xd9cc34a83dac3d89ULL, 0xd91dd2e13ce144afULL, 0x92c6e9ed90d2eb35ULL, \
-  0x0680447a8e5ff9a6ULL)
-#define EXP_HALF FP_HALF
-#define EXP_INV fp_make(0xb9feffffffffaaa9ULL, Q1, Q2, Q3, Q4, Q5)
-
-// -------------------------------------------------------------------- fp
-// Every value is canonical (< q): the sums and the CIOS product end with
-// one conditional subtraction (q < 2^382 = R / 4).
-
-HDI bool fp_is_zero(const fp* a) {
-  u64 acc = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) acc |= a->l[i];
-  return acc == 0;
-}
-
-HDI bool fp_eq(const fp* a, const fp* b) {
-  u64 acc = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) acc |= a->l[i] ^ b->l[i];
-  return acc == 0;
-}
-
-// a > b as integers (both standard-domain values)
-HDI bool fp_gt(const fp* a, const fp* b) {
-  for (int i = NL - 1; i >= 0; i--) {
-    if (a->l[i] != b->l[i]) return a->l[i] > b->l[i];
-  }
-  return false;
-}
-
-HDI bool geq_q(const u64* t) {
-  const u64 q[NL] = {Q0, Q1, Q2, Q3, Q4, Q5};
-  for (int i = NL - 1; i >= 0; i--) {
-    if (t[i] != q[i]) return t[i] > q[i];
-  }
-  return true;
-}
-
-HDI void sub_q(u64* t) {
-  const u64 q[NL] = {Q0, Q1, Q2, Q3, Q4, Q5};
-  u64 br = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    u64 d = t[i] - q[i];
-    u64 b1 = t[i] < q[i];
-    u64 d2 = d - br;
-    u64 b2 = d < br;
-    t[i] = d2;
-    br = b1 | b2;
-  }
-}
-
-HDI void fp_add(fp* r, const fp* a, const fp* b) {
-  u64 t[NL], c = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    u64 s = a->l[i] + b->l[i];
-    u64 c1 = s < a->l[i];
-    u64 s2 = s + c;
-    u64 c2 = s2 < s;
-    t[i] = s2;
-    c = c1 | c2;
-  }
-  if (c || geq_q(t)) sub_q(t);
-#pragma unroll
-  for (int i = 0; i < NL; i++) r->l[i] = t[i];
-}
-
-HDI void fp_sub(fp* r, const fp* a, const fp* b) {
-  const u64 q[NL] = {Q0, Q1, Q2, Q3, Q4, Q5};
-  u64 t[NL], br = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    u64 d = a->l[i] - b->l[i];
-    u64 b1 = a->l[i] < b->l[i];
-    u64 d2 = d - br;
-    u64 b2 = d < br;
-    t[i] = d2;
-    br = b1 | b2;
-  }
-  if (br) {
-    u64 c = 0;
-#pragma unroll
-    for (int i = 0; i < NL; i++) {
-      u64 s = t[i] + q[i];
-      u64 c1 = s < t[i];
-      u64 s2 = s + c;
-      u64 c2 = s2 < s;
-      t[i] = s2;
-      c = c1 | c2;
+// the Miller and final-exponentiation launches: JOB_BLOCKS blocks of
+// JOB_THREADS an SM (12 warps; a thread's registers capped at 168, the
+// final exponentiation's shared memory allows no more blocks)
+#define JOB_BLOCKS 6
+// A trio: three lanes of a warp that hold the same values and split each
+// fp2 product of a chain (lane 0 a0 b0, lane 1 a1 b1, lane 2
+// (a0 + a1)(b0 + b1); a squaring over lanes 0 and 1), exchanging the
+// three results by shuffles, so that a chain's products run three at once.
+struct trio {
+  int l, base;
+  u32 mask;
+  __device__ void mul(fp2* r, const fp2* a, const fp2* b) const {
+    fp x, y, t;
+    if (l == 2) {
+      fp_add(&x, &a->c0, &a->c1);
+      fp_add(&y, &b->c0, &b->c1);
+    } else {
+      x = l ? a->c1 : a->c0;
+      y = l ? b->c1 : b->c0;
     }
+    fp_mul(&t, &x, &y);
+    const fp t0 = shfl_fp(mask, t, base), t1 = shfl_fp(mask, t, base + 1);
+    fp t2 = shfl_fp(mask, t, base + 2);
+    fp_sub(&t2, &t2, &t0);
+    fp_sub(&r->c1, &t2, &t1);
+    fp_sub(&r->c0, &t0, &t1);
   }
-#pragma unroll
-  for (int i = 0; i < NL; i++) r->l[i] = t[i];
-}
-
-HDI void fp_neg(fp* r, const fp* a) {
-  if (fp_is_zero(a)) {
-    *r = *a;
-    return;
+  __device__ void sqr(fp2* r, const fp2* a) const {
+    fp x, y, t = FP_ZERO;
+    if (l == 0) {
+      fp_add(&x, &a->c0, &a->c1);
+      fp_sub(&y, &a->c0, &a->c1);
+    } else {
+      x = a->c0;
+      y = a->c1;
+    }
+    if (l < 2) fp_mul(&t, &x, &y);
+    const fp t0 = shfl_fp(mask, t, base), t1 = shfl_fp(mask, t, base + 1);
+    r->c0 = t0;
+    fp_add(&r->c1, &t1, &t1);
   }
-  fp q = fp_make(Q0, Q1, Q2, Q3, Q4, Q5);
-  fp_sub(r, &q, a);
-}
-
-// lo + carry-out of a * b + t + c
-HDI void mac(u64& lo, u64& c, u64 a, u64 b, u64 t) {
-  u64 p = a * b, h = mulhi64(a, b);
-  p += t;
-  h += p < t;
-  p += c;
-  h += p < c;
-  lo = p;
-  c = h;
-}
-
-// CIOS Montgomery multiplication, csrc/bls12_381.c fp_mul
-HDN void fp_mul(fp* r, const fp* a, const fp* b) {
-  COUNT_MUL();
-  const u64 q[NL] = {Q0, Q1, Q2, Q3, Q4, Q5};
-  u64 t[NL + 2];
-#pragma unroll
-  for (int i = 0; i < NL + 2; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    u64 c = 0;
-    const u64 bi = b->l[i];
-#pragma unroll
-    for (int j = 0; j < NL; j++) mac(t[j], c, a->l[j], bi, t[j]);
-    u64 s = t[NL] + c;
-    t[NL + 1] = s < c;
-    t[NL] = s;
-    const u64 m = t[0] * N0;
-    c = 0;
-    u64 low;
-    mac(low, c, m, q[0], t[0]);
-#pragma unroll
-    for (int j = 1; j < NL; j++) mac(t[j - 1], c, m, q[j], t[j]);
-    s = t[NL] + c;
-    t[NL - 1] = s;
-    t[NL] = t[NL + 1] + (s < c);
-    t[NL + 1] = 0;
+  __device__ void mul1(fp* r, const fp* a, const fp* b) const {
+    fp t = FP_ZERO;
+    if (l == 0) fp_mul(&t, a, b);
+    *r = shfl_fp(mask, t, base);
   }
-  if (t[NL] || geq_q(t)) sub_q(t);
+};
+
+// ------------------------------------------------------------------- fp4
+// fp4 = fp2[s] / (s^2 - xi): the parts of an fp12 (the cyclotomic
+// squaring's fp4); products are Karatsuba (3 fp2 products), squarings
+// three fp2 squarings.
+
+HDI void fp4_add(fp4* r, const fp4* a, const fp4* b) {
+  fp2_add(&r->x, &a->x, &b->x);
+  fp2_add(&r->y, &a->y, &b->y);
+}
+
+HDI void fp4_mul(fp4* r, const fp4* a, const fp4* b) {
+  fp2 m1, m2, m3, sa, sb;
+  fp2_add(&sa, &a->x, &a->y);
+  fp2_add(&sb, &b->x, &b->y);
+  fp2_mul(&m1, &a->x, &b->x);
+  fp2_mul(&m2, &a->y, &b->y);
+  fp2_mul(&m3, &sa, &sb);
+  fp2_sub(&m3, &m3, &m1);
+  fp2_sub(&r->y, &m3, &m2);
+  fp2_mul_xi(&m2, &m2);
+  fp2_add(&r->x, &m1, &m2);
+}
+
+HDI void fp4_sqr(fp4* r, const fp4* a) {
+  fp2 t0, t1, t2, s;
+  fp2_add(&s, &a->x, &a->y);
+  fp2_sqr(&t0, &a->x);
+  fp2_sqr(&t1, &a->y);
+  fp2_sqr(&t2, &s);
+  fp2_sub(&t2, &t2, &t0);
+  fp2_sub(&r->y, &t2, &t1);
+  fp2_mul_xi(&t1, &t1);
+  fp2_add(&r->x, &t0, &t1);
+}
+
+// ------------------------------------------------------- Miller lines
+// csrc/bls12_381.c lines 848-1026: T projective on the twist, lines of
+// eprint 2010/354 Alg 26/27. A step returns (l0, l1, l4); the Miller loop
+// multiplies f by the sparse element (l4, l1 px, l0 py) at coefficients
+// (0, 1, 4).
+
+struct g2p { fp2 X, Y, Z; };
+
+template <class K>
+__device__ void miller_dbl(g2p* r, fp2* l0, fp2* l1, fp2* l4, const K& k) {
+  fp2 tmp0, tmp1, tmp2, tmp3, tmp4, tmp5, tmp6, zsq, t;
+  k.sqr(&tmp0, &r->X);
+  k.sqr(&tmp1, &r->Y);
+  k.sqr(&tmp2, &tmp1);
+  fp2_add(&t, &tmp1, &r->X);
+  k.sqr(&tmp3, &t);
+  fp2_sub(&tmp3, &tmp3, &tmp0);
+  fp2_sub(&tmp3, &tmp3, &tmp2);
+  fp2_add(&tmp3, &tmp3, &tmp3);
+  fp2_add(&tmp4, &tmp0, &tmp0);
+  fp2_add(&tmp4, &tmp4, &tmp0);
+  fp2_add(&tmp6, &r->X, &tmp4);
+  k.sqr(&tmp5, &tmp4);
+  k.sqr(&zsq, &r->Z);
+  fp2_sub(&r->X, &tmp5, &tmp3);
+  fp2_sub(&r->X, &r->X, &tmp3);
+  fp2_add(&t, &r->Z, &r->Y);
+  k.sqr(&t, &t);
+  fp2_sub(&t, &t, &tmp1);
+  fp2_sub(&r->Z, &t, &zsq);
+  fp2_sub(&t, &tmp3, &r->X);
+  k.mul(&r->Y, &t, &tmp4);
+  fp2_add(&tmp2, &tmp2, &tmp2);
+  fp2_add(&tmp2, &tmp2, &tmp2);
+  fp2_add(&tmp2, &tmp2, &tmp2);
+  fp2_sub(&r->Y, &r->Y, &tmp2);
+  k.mul(&tmp3, &tmp4, &zsq);
+  fp2_add(&tmp3, &tmp3, &tmp3);
+  fp2_neg(&tmp3, &tmp3);
+  k.sqr(&tmp6, &tmp6);
+  fp2_sub(&tmp6, &tmp6, &tmp0);
+  fp2_sub(&tmp6, &tmp6, &tmp5);
+  fp2_add(&tmp1, &tmp1, &tmp1);
+  fp2_add(&tmp1, &tmp1, &tmp1);
+  fp2_sub(&tmp6, &tmp6, &tmp1);
+  k.mul(&tmp0, &r->Z, &zsq);
+  fp2_add(&tmp0, &tmp0, &tmp0);
+  *l0 = tmp0;
+  *l1 = tmp3;
+  *l4 = tmp6;
+}
+
+template <class K>
+__device__ void miller_add(g2p* r, const fp2* qx, const fp2* qy, fp2* l0,
+                           fp2* l1, fp2* l4, const K& k) {
+  fp2 zsq, ysq, t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, ztsq, t;
+  k.sqr(&zsq, &r->Z);
+  k.sqr(&ysq, qy);
+  k.mul(&t0, &zsq, qx);
+  fp2_add(&t, qy, &r->Z);
+  k.sqr(&t1, &t);
+  fp2_sub(&t1, &t1, &ysq);
+  fp2_sub(&t1, &t1, &zsq);
+  k.mul(&t1, &t1, &zsq);
+  fp2_sub(&t2, &t0, &r->X);
+  k.sqr(&t3, &t2);
+  fp2_add(&t4, &t3, &t3);
+  fp2_add(&t4, &t4, &t4);
+  k.mul(&t5, &t4, &t2);
+  fp2_sub(&t6, &t1, &r->Y);
+  fp2_sub(&t6, &t6, &r->Y);
+  k.mul(&t9, &t6, qx);
+  k.mul(&t7, &t4, &r->X);
+  k.sqr(&r->X, &t6);
+  fp2_sub(&r->X, &r->X, &t5);
+  fp2_sub(&r->X, &r->X, &t7);
+  fp2_sub(&r->X, &r->X, &t7);
+  fp2_add(&t, &r->Z, &t2);
+  k.sqr(&t, &t);
+  fp2_sub(&t, &t, &zsq);
+  fp2_sub(&r->Z, &t, &t3);
+  fp2_add(&t10, qy, &r->Z);
+  fp2_sub(&t8, &t7, &r->X);
+  k.mul(&t8, &t8, &t6);
+  k.mul(&t0, &r->Y, &t5);
+  fp2_add(&t0, &t0, &t0);
+  fp2_sub(&r->Y, &t8, &t0);
+  k.sqr(&t10, &t10);
+  fp2_sub(&t10, &t10, &ysq);
+  k.sqr(&ztsq, &r->Z);
+  fp2_sub(&t10, &t10, &ztsq);
+  fp2_add(&t9, &t9, &t9);
+  fp2_sub(&t9, &t9, &t10);
+  fp2_add(&t10, &r->Z, &r->Z);
+  fp2_neg(&t6, &t6);
+  fp2_add(&t1, &t6, &t6);
+  *l0 = t10;
+  *l1 = t1;
+  *l4 = t9;
+}
+
+// ------------------------------------------------- fp12 on six lanes
+// A job's fp12 values live in shared memory, as three fp4 parts; lane r
+// (0..5) of the job is (p, h) = (r / 2, r % 2): it owns component h (x or
+// y) of part p in the outputs, and the operands of its products it reads
+// from shared memory. Every operation ends with the job's lanes in step
+// (__syncwarp over the job's six lanes).
+
+struct lanes {
+  int r, p, h;
+  u32 mask;
+};
+
+__device__ __forceinline__ lanes job_lanes() {
+  lanes g;
+  const int lane = threadIdx.x & 31;
+  g.r = lane % LANES;
+  g.p = g.r >> 1;
+  g.h = g.r & 1;
+  g.mask = 0x3fu << (LANES * (lane / LANES));
+  return g;
+}
+
+__device__ __forceinline__ fp2* comp(fp4* a, int h) { return h ? &a->y : &a->x; }
+__device__ __forceinline__ const fp2* comp(const fp4* a, int h) {
+  return h ? &a->y : &a->x;
+}
+
+// A term code (8 bits) of an output sum: slot (bits 0-2) of six fp4
+// products, its component (bit 3), subtracted (bit 4), times xi (bit 5),
+// absent (bit 6). A table holds one code a lane (lane r in byte r).
+#define TERM(slot, h, neg, xi) ((slot) | ((h) << 3) | ((neg) << 4) | ((xi) << 5))
+#define NO_TERM 0x40
+#define TAB6(a, b, c, d, e, f) \
+  ((u64)(a) | (u64)(b) << 8 | (u64)(c) << 16 | (u64)(d) << 24 | \
+   (u64)(e) << 32 | (u64)(f) << 40)
+
+__device__ __forceinline__ void add_term(fp2* acc, const fp4* V, u64 tab,
+                                         int r) {
+  const u32 code = (u32)(tab >> (8 * r)) & 0xff;
+  if (code & NO_TERM) return;
+  fp2 t = *comp(&V[code & 7], (code >> 3) & 1);
+  if (code & 0x20) fp2_mul_xi(&t, &t);
+  if (code & 0x10) fp2_sub(acc, acc, &t);
+  else fp2_add(acc, acc, &t);
+}
+
+// the sum of up to four terms: one fp2 a lane
+__device__ __forceinline__ void sum_terms(fp2* out, const fp4* V,
+                                          const lanes& g, u64 t0, u64 t1,
+                                          u64 t2, u64 t3) {
+  const u32 c0 = (u32)(t0 >> (8 * g.r)) & 0xff;
+  fp2 acc = *comp(&V[c0 & 7], (c0 >> 3) & 1);
+  if (c0 & 0x20) fp2_mul_xi(&acc, &acc);
+  if (c0 & 0x10) fp2_neg(&acc, &acc);
+  add_term(&acc, V, t1, g.r);
+  add_term(&acc, V, t2, g.r);
+  add_term(&acc, V, t3, g.r);
+  *out = acc;
+}
+
+// R = X Y, or X^2: lane (p, 0) forms v_p = X_p Y_p, lane (p, 1) the cross
+// v_p,p+1 = (X_p + X_p+1)(Y_p + Y_p+1) (slot r), then
+//   R0 = v0 + s (v12 - v1 - v2)
+//   R1 = v01 - v0 - v1 + s v2
+//   R2 = v20 - v0 - v2 + v1
+// (s z = xi z.y + z.x s), each lane its own component. 54 multiplies for a
+// product, 36 for a square (the host's 18 and 12 fp2 products).
+template <bool SQ>
+__device__ __forceinline__ void g_mulsq(const lanes& g, fp12p* R,
+                                        const fp12p* X, const fp12p* Y,
+                                        fp4* V) {
+  const int q = g.p == 2 ? 0 : g.p + 1;
+  fp4 a = X->p[g.p];
+  if (g.h) fp4_add(&a, &a, &X->p[q]);
+  fp4 v;
+  if (SQ) {
+    fp4_sqr(&v, &a);
+  } else {
+    fp4 b = Y->p[g.p];
+    if (g.h) fp4_add(&b, &b, &Y->p[q]);
+    fp4_mul(&v, &a, &b);
+  }
+  V[g.r] = v;
+  __syncwarp(g.mask);
+  fp2 out;
+  sum_terms(&out, V, g,
+            TAB6(TERM(0, 0, 0, 0), TERM(0, 1, 0, 0), TERM(1, 0, 0, 0),
+                 TERM(1, 1, 0, 0), TERM(5, 0, 0, 0), TERM(5, 1, 0, 0)),
+            TAB6(TERM(3, 1, 0, 1), TERM(3, 0, 0, 0), TERM(0, 0, 1, 0),
+                 TERM(0, 1, 1, 0), TERM(0, 0, 1, 0), TERM(0, 1, 1, 0)),
+            TAB6(TERM(2, 1, 1, 1), TERM(2, 0, 1, 0), TERM(2, 0, 1, 0),
+                 TERM(2, 1, 1, 0), TERM(4, 0, 1, 0), TERM(4, 1, 1, 0)),
+            TAB6(TERM(4, 1, 1, 1), TERM(4, 0, 1, 0), TERM(4, 1, 0, 1),
+                 TERM(4, 0, 0, 0), TERM(2, 0, 0, 0), TERM(2, 1, 0, 0)));
+  *comp(&R->p[g.p], g.h) = out;
+  __syncwarp(g.mask);
+}
+
+// R = X^2 for X in the cyclotomic subgroup (Granger-Scott, the host's
+// fp12_cyc_sqr): the three fp4 squarings of the parts, each split over
+// its two lanes (lane h = 0 the (z0 + z1)(z0 - z1) of three fp2 squarings,
+// h = 1 their z0 z1), then
+//   part 0: (3 T0 - 2 z0, 3 T1 + 2 z1)      T of part 0
+//   part 1: (3 xi T1 + 2 z2, 3 T0 - 2 z3)   T of part 2
+//   part 2: (3 T0 - 2 z4, 3 T1 + 2 z5)      T of part 1
+// 18 multiplies.
+__device__ __forceinline__ void g_cyc_sqr(const lanes& g, fp12p* R,
+                                          const fp12p* X, fp4* V) {
+  fp* W = (fp*)V;                        // [3 parts][2 lanes][3]
+  {
+    const fp4 z = X->p[g.p];
+    fp2 s;
+    fp2_add(&s, &z.x, &z.y);
+    const fp2 in[3] = {z.x, z.y, s};
 #pragma unroll
-  for (int i = 0; i < NL; i++) r->l[i] = t[i];
-}
-
-HDI void fp_sqr(fp* r, const fp* a) {
-  COUNT_SQR();
-  fp_mul(r, a, a);
-}
-
-// a^e for a public exponent e (standard-domain limbs), square-and-multiply
-// from the top bit
-HDN void fp_pow(fp* r, const fp* a, const fp* e) {
-  fp acc = *a;
-  bool started = false;
-  for (int i = NL - 1; i >= 0; i--) {
-    for (int b = 63; b >= 0; b--) {
-      if (started) fp_sqr(&acc, &acc);
-      if ((e->l[i] >> b) & 1) {
-        if (started) fp_mul(&acc, &acc, a);
-        started = true;
+    for (int k = 0; k < 3; k++) {
+      fp a, b;
+      if (g.h) {
+        a = in[k].c0;
+        b = in[k].c1;
+      } else {
+        fp_add(&a, &in[k].c0, &in[k].c1);
+        fp_sub(&b, &in[k].c0, &in[k].c1);
       }
+      fp_mul(&W[6 * g.p + 3 * g.h + k], &a, &b);
     }
   }
-  *r = acc;
-}
-
-HDI void fp_inv(fp* r, const fp* a) {
-  fp e = EXP_INV;
-  fp_pow(r, a, &e);
-}
-
-HDI void fp_to_mont(fp* r, const fp* raw) {
-  fp r2 = FP_R2;
-  fp_mul(r, raw, &r2);
-}
-
-HDI void fp_from_mont(fp* r, const fp* a) {
-  fp one = FP_RAW_ONE;
-  fp_mul(r, a, &one);
-}
-
-// 32 limbs of 12 bits (int32, standard domain) <-> 6 x 64 bits
-HDI void fp_from_limbs12(fp* r, const int32_t* x) {
+  __syncwarp(g.mask);
+  const int src = g.p == 0 ? 0 : 3 - g.p;
+  fp2 t[3];
 #pragma unroll
-  for (int i = 0; i < NL; i++) r->l[i] = 0;
-  for (int k = 0; k < BLS_LIMBS12; k++) {
-    const u64 v = (u64)(u32)x[k] & 0xfff;
-    const int bit = 12 * k, w = bit >> 6, s = bit & 63;
-    r->l[w] |= v << s;
-    if (s > 52 && w + 1 < NL) r->l[w + 1] |= v >> (64 - s);
+  for (int k = 0; k < 3; k++) {
+    t[k].c0 = W[6 * src + k];
+    fp_add(&t[k].c1, &W[6 * src + 3 + k], &W[6 * src + 3 + k]);
   }
+  fp2 T0, T1, u;
+  fp2_mul_xi(&u, &t[1]);
+  fp2_add(&T0, &t[0], &u);
+  fp2_sub(&T1, &t[2], &t[0]);
+  fp2_sub(&T1, &T1, &t[1]);
+  if (g.r == 2) fp2_mul_xi(&T1, &T1);
+  const bool use1 = g.r == 1 || g.r == 2 || g.r == 5;
+  const bool plus = use1;
+  fp2 a = use1 ? T1 : T0, z = *comp(&X->p[g.p], g.h);
+  fp2 a3;
+  fp2_add(&a3, &a, &a);
+  fp2_add(&a3, &a3, &a);
+  fp2_add(&z, &z, &z);
+  if (plus) fp2_add(&a3, &a3, &z);
+  else fp2_sub(&a3, &a3, &z);
+  __syncwarp(g.mask);                    // X may be R
+  *comp(&R->p[g.p], g.h) = a3;
+  __syncwarp(g.mask);
 }
 
-HDI void fp_to_limbs12(int32_t* out, const fp* a) {
-  for (int k = 0; k < BLS_LIMBS12; k++) {
-    const int bit = 12 * k, w = bit >> 6, s = bit & 63;
-    u64 v = a->l[w] >> s;
-    if (s > 52 && w + 1 < NL) v |= a->l[w + 1] << (64 - s);
-    out[k] = (int32_t)(v & 0xfff);
-  }
-}
-
-// ------------------------------------------------------------------- fp2
-// fp2 = fp[u] / (u^2 + 1)
-
-HDI void fp2_add(fp2* r, const fp2* a, const fp2* b) {
-  fp_add(&r->c0, &a->c0, &b->c0);
-  fp_add(&r->c1, &a->c1, &b->c1);
-}
-
-HDI void fp2_sub(fp2* r, const fp2* a, const fp2* b) {
-  fp_sub(&r->c0, &a->c0, &b->c0);
-  fp_sub(&r->c1, &a->c1, &b->c1);
-}
-
-HDI void fp2_neg(fp2* r, const fp2* a) {
-  fp_neg(&r->c0, &a->c0);
-  fp_neg(&r->c1, &a->c1);
-}
-
-HDN void fp2_mul(fp2* r, const fp2* a, const fp2* b) {
-  fp t0, t1, t2, t3;
-  fp_mul(&t0, &a->c0, &b->c0);
-  fp_mul(&t1, &a->c1, &b->c1);
-  fp_add(&t2, &a->c0, &a->c1);
-  fp_add(&t3, &b->c0, &b->c1);
-  fp_mul(&t2, &t2, &t3);
-  fp_sub(&t2, &t2, &t0);
-  fp_sub(&t2, &t2, &t1);
-  fp_sub(&r->c0, &t0, &t1);
-  r->c1 = t2;
-}
-
-HDN void fp2_sqr(fp2* r, const fp2* a) {
-  fp s, d, t;
-  fp_add(&s, &a->c0, &a->c1);
-  fp_sub(&d, &a->c0, &a->c1);
-  fp_mul(&t, &a->c0, &a->c1);
-  fp_mul(&r->c0, &s, &d);
-  fp_add(&r->c1, &t, &t);
-}
-
-HDI void fp2_mul_fp(fp2* r, const fp2* a, const fp* b) {
-  fp_mul(&r->c0, &a->c0, b);
-  fp_mul(&r->c1, &a->c1, b);
-}
-
-HDI void fp2_conj(fp2* r, const fp2* a) {
-  r->c0 = a->c0;
-  fp_neg(&r->c1, &a->c1);
-}
-
-HDN void fp2_inv(fp2* r, const fp2* a) {
-  fp t0, t1;
-  fp_sqr(&t0, &a->c0);
-  fp_sqr(&t1, &a->c1);
-  fp_add(&t0, &t0, &t1);
-  fp_inv(&t0, &t0);
-  fp_mul(&r->c0, &a->c0, &t0);
-  fp_mul(&t1, &a->c1, &t0);
-  fp_neg(&r->c1, &t1);
-}
-
-// xi = 1 + u
-HDI void fp2_mul_nonres(fp2* r, const fp2* a) {
-  fp t0;
-  fp_sub(&t0, &a->c0, &a->c1);
-  fp_add(&r->c1, &a->c0, &a->c1);
-  r->c0 = t0;
-}
-
-HDI bool fp2_is_zero(const fp2* a) {
-  return fp_is_zero(&a->c0) && fp_is_zero(&a->c1);
-}
-
-HDI bool fp2_eq(const fp2* a, const fp2* b) {
-  return fp_eq(&a->c0, &b->c0) && fp_eq(&a->c1, &b->c1);
-}
-
-HDN void fp2_pow(fp2* r, const fp2* a, const fp* e) {
-  fp2 acc = *a;
-  bool started = false;
-  for (int i = NL - 1; i >= 0; i--) {
-    for (int b = 63; b >= 0; b--) {
-      if (started) fp2_sqr(&acc, &acc);
-      if ((e->l[i] >> b) & 1) {
-        if (started) fp2_mul(&acc, &acc, a);
-        started = true;
-      }
-    }
-  }
-  *r = acc;
-}
-
-// The square root of crypto/bls12_381.py Fq2.sqrt (q = 3 mod 4), both
-// candidates computed and selected as the JAX tower's fp2_sqrt does; ok is
-// root^2 == a.
-HDN bool fp2_sqrt(fp2* root, const fp2* a) {
-  fp e34 = EXP_SQRT34, ehalf = EXP_HALF;
-  fp2 a1, alpha, x0, t, cand, ux0;
-  fp2_pow(&a1, a, &e34);                 // a^((q-3)/4)
-  fp2_sqr(&alpha, &a1);
-  fp2_mul(&alpha, &alpha, a);            // a1^2 a
-  fp2_mul(&x0, &a1, a);                  // a1 a
-  fp neg1 = FP_NEG_ONE, one = FP_ONE;
-  const bool is_neg1 = fp_eq(&alpha.c0, &neg1) && fp_is_zero(&alpha.c1);
-  fp_neg(&ux0.c0, &x0.c1);               // u x0
-  ux0.c1 = x0.c0;
-  t = alpha;
-  fp_add(&t.c0, &t.c0, &one);            // alpha + 1
-  fp2_pow(&cand, &t, &ehalf);
-  fp2_mul(&cand, &cand, &x0);
-  *root = is_neg1 ? ux0 : cand;
-  fp2_sqr(&t, root);
-  return fp2_eq(&t, a);
-}
-
-// ------------------------------------------------------------------- fp6
-// fp6 = fp2[v] / (v^3 - xi)
-
-HDI void fp6_add(fp6* r, const fp6* a, const fp6* b) {
-  fp2_add(&r->c0, &a->c0, &b->c0);
-  fp2_add(&r->c1, &a->c1, &b->c1);
-  fp2_add(&r->c2, &a->c2, &b->c2);
-}
-
-HDI void fp6_sub(fp6* r, const fp6* a, const fp6* b) {
-  fp2_sub(&r->c0, &a->c0, &b->c0);
-  fp2_sub(&r->c1, &a->c1, &b->c1);
-  fp2_sub(&r->c2, &a->c2, &b->c2);
-}
-
-HDI void fp6_neg(fp6* r, const fp6* a) {
-  fp2_neg(&r->c0, &a->c0);
-  fp2_neg(&r->c1, &a->c1);
-  fp2_neg(&r->c2, &a->c2);
-}
-
-HDN void fp6_mul(fp6* r, const fp6* a, const fp6* b) {
-  fp2 t0, t1, t2, s, u0, u1, u2, v0, v1;
-  fp2_mul(&t0, &a->c0, &b->c0);
-  fp2_mul(&t1, &a->c1, &b->c1);
-  fp2_mul(&t2, &a->c2, &b->c2);
-  fp2_add(&u0, &a->c1, &a->c2);
-  fp2_add(&u1, &b->c1, &b->c2);
-  fp2_mul(&s, &u0, &u1);
-  fp2_sub(&s, &s, &t1);
-  fp2_sub(&s, &s, &t2);
-  fp2_mul_nonres(&s, &s);
-  fp2_add(&u0, &s, &t0);
-  fp2_add(&v0, &a->c0, &a->c1);
-  fp2_add(&v1, &b->c0, &b->c1);
-  fp2_mul(&s, &v0, &v1);
-  fp2_sub(&s, &s, &t0);
-  fp2_sub(&s, &s, &t1);
-  fp2_mul_nonres(&v0, &t2);
-  fp2_add(&u1, &s, &v0);
-  fp2_add(&v0, &a->c0, &a->c2);
-  fp2_add(&v1, &b->c0, &b->c2);
-  fp2_mul(&s, &v0, &v1);
-  fp2_sub(&s, &s, &t0);
-  fp2_sub(&s, &s, &t2);
-  fp2_add(&u2, &s, &t1);
-  r->c0 = u0;
-  r->c1 = u1;
-  r->c2 = u2;
-}
-
-HDI void fp6_mul_nonres(fp6* r, const fp6* a) {
-  fp2 t;
-  fp2_mul_nonres(&t, &a->c2);
-  r->c2 = a->c1;
-  r->c1 = a->c0;
-  r->c0 = t;
-}
-
-HDN void fp6_inv(fp6* r, const fp6* a) {
-  fp2 A, B, C, t0, t1, F;
-  fp2_sqr(&t0, &a->c0);
-  fp2_mul(&t1, &a->c1, &a->c2);
-  fp2_mul_nonres(&t1, &t1);
-  fp2_sub(&A, &t0, &t1);
-  fp2_sqr(&t0, &a->c2);
-  fp2_mul_nonres(&t0, &t0);
-  fp2_mul(&t1, &a->c0, &a->c1);
-  fp2_sub(&B, &t0, &t1);
-  fp2_sqr(&t0, &a->c1);
-  fp2_mul(&t1, &a->c0, &a->c2);
-  fp2_sub(&C, &t0, &t1);
-  fp2_mul(&t0, &a->c2, &B);
-  fp2_mul(&t1, &a->c1, &C);
-  fp2_add(&t0, &t0, &t1);
-  fp2_mul_nonres(&t0, &t0);
-  fp2_mul(&t1, &a->c0, &A);
-  fp2_add(&F, &t0, &t1);
-  fp2_inv(&F, &F);
-  fp2_mul(&r->c0, &A, &F);
-  fp2_mul(&r->c1, &B, &F);
-  fp2_mul(&r->c2, &C, &F);
-}
-
-HDI bool fp6_is_zero(const fp6* a) {
-  return fp2_is_zero(&a->c0) && fp2_is_zero(&a->c1) && fp2_is_zero(&a->c2);
-}
-
-// ------------------------------------------------------------------ fp12
-// fp12 = fp6[w] / (w^2 - v)
-
-HDN void fp12_mul(fp12* r, const fp12* a, const fp12* b) {
-  fp6 t0, t1, t2, t3;
-  fp6_mul(&t0, &a->c0, &b->c0);
-  fp6_mul(&t1, &a->c1, &b->c1);
-  fp6_add(&t2, &a->c0, &a->c1);
-  fp6_add(&t3, &b->c0, &b->c1);
-  fp6_mul(&t2, &t2, &t3);
-  fp6_sub(&t2, &t2, &t0);
-  fp6_sub(&t2, &t2, &t1);
-  fp6_mul_nonres(&t1, &t1);
-  fp6_add(&r->c0, &t0, &t1);
-  r->c1 = t2;
-}
-
-HDN void fp12_sqr(fp12* r, const fp12* a) {
-  fp6 t, s0, s1, vt;
-  fp6_mul(&t, &a->c0, &a->c1);
-  fp6_add(&s0, &a->c0, &a->c1);
-  fp6_mul_nonres(&s1, &a->c1);
-  fp6_add(&s1, &s1, &a->c0);
-  fp6_mul(&s0, &s0, &s1);
-  fp6_sub(&s0, &s0, &t);
-  fp6_mul_nonres(&vt, &t);
-  fp6_sub(&r->c0, &s0, &vt);
-  fp6_add(&r->c1, &t, &t);
-}
-
-HDI void fp12_conj(fp12* r, const fp12* a) {
-  r->c0 = a->c0;
-  fp6_neg(&r->c1, &a->c1);
-}
-
-HDN void fp12_inv(fp12* r, const fp12* a) {
-  fp6 t0, t1;
-  fp6_mul(&t0, &a->c0, &a->c0);
-  fp6_mul(&t1, &a->c1, &a->c1);
-  fp6_mul_nonres(&t1, &t1);
-  fp6_sub(&t0, &t0, &t1);
-  fp6_inv(&t0, &t0);
-  fp6_mul(&r->c0, &a->c0, &t0);
-  fp6_mul(&t1, &a->c1, &t0);
-  fp6_neg(&r->c1, &t1);
-}
-
-HDI void fp12_one(fp12* r) {
-  memset(r, 0, sizeof *r);
-  r->c0.c0.c0 = FP_ONE;
-}
-
-HDI bool fp12_is_one(const fp12* a) {
-  fp one = FP_ONE;
-  if (!fp_eq(&a->c0.c0.c0, &one)) return false;
-  if (!fp_is_zero(&a->c0.c0.c1)) return false;
-  if (!fp2_is_zero(&a->c0.c1) || !fp2_is_zero(&a->c0.c2)) return false;
-  return fp6_is_zero(&a->c1);
-}
-
-// gamma_k = xi^(k (q - 1) / 6), k = 1..5, Montgomery domain
+// frob_gamma(k) = xi^(k (q - 1) / 6), k = 1..5, Montgomery domain
 HDI fp2 frob_gamma(int k) {
   fp2 g;
   switch (k) {
@@ -667,724 +432,551 @@ HDI fp2 frob_gamma(int k) {
   return g;
 }
 
-// f^q: conjugate every coefficient, the one of w^k times gamma_k
-// (c0 = w^0, w^2, w^4; c1 = w^1, w^3, w^5)
-HDN void fp12_frob(fp12* r, const fp12* a) {
-  fp2 t, g;
-  fp2_conj(&t, &a->c0.c0);
-  r->c0.c0 = t;
-  fp2_conj(&t, &a->c0.c1); g = frob_gamma(2); fp2_mul(&r->c0.c1, &t, &g);
-  fp2_conj(&t, &a->c0.c2); g = frob_gamma(4); fp2_mul(&r->c0.c2, &t, &g);
-  fp2_conj(&t, &a->c1.c0); g = frob_gamma(1); fp2_mul(&r->c1.c0, &t, &g);
-  fp2_conj(&t, &a->c1.c1); g = frob_gamma(3); fp2_mul(&r->c1.c1, &t, &g);
-  fp2_conj(&t, &a->c1.c2); g = frob_gamma(5); fp2_mul(&r->c1.c2, &t, &g);
+// R = X^q: each coefficient of w^k (k = p + 3 h) conjugated and multiplied
+// by gamma_k; 15 multiplies
+__device__ __forceinline__ void g_frob(const lanes& g, fp12p* R,
+                                       const fp12p* X) {
+  const int k = g.p + 3 * g.h;
+  fp2 c;
+  fp2_conj(&c, comp(&X->p[g.p], g.h));
+  if (k) {
+    const fp2 gam = frob_gamma(k);
+    fp2_mul(&c, &c, &gam);
+  }
+  __syncwarp(g.mask);
+  *comp(&R->p[g.p], g.h) = c;
+  __syncwarp(g.mask);
 }
 
-// ---------------------------------------------------------- Miller loop
-// csrc/bls12_381.c lines 848-1026: T projective on the twist, lines of
-// eprint 2010/354 Alg 26/27 multiplied in sparse.
-
-struct g2p { fp2 X, Y, Z; };
-
-HDN void fp6_mul_by_01(fp6* r, const fp6* s, const fp2* c0, const fp2* c1) {
-  fp2 a_a, b_b, t1, t2, t3, u;
-  fp2_mul(&a_a, &s->c0, c0);
-  fp2_mul(&b_b, &s->c1, c1);
-  fp2_add(&u, &s->c1, &s->c2);
-  fp2_mul(&t1, &u, c1);
-  fp2_sub(&t1, &t1, &b_b);
-  fp2_mul_nonres(&t1, &t1);
-  fp2_add(&t1, &t1, &a_a);
-  fp2_add(&u, c0, c1);
-  fp2_add(&t2, &s->c0, &s->c1);
-  fp2_mul(&t2, &t2, &u);
-  fp2_sub(&t2, &t2, &a_a);
-  fp2_sub(&t2, &t2, &b_b);
-  fp2_mul(&t3, &s->c2, c0);
-  fp2_add(&t3, &t3, &b_b);
-  r->c0 = t1;
-  r->c1 = t2;
-  r->c2 = t3;
+// R = conj(X) (f^(q^6)): the odd powers of w negated; or a copy
+__device__ __forceinline__ void g_conj(const lanes& g, fp12p* R,
+                                       const fp12p* X, bool negate) {
+  fp2 c = *comp(&X->p[g.p], g.h);
+  if (negate && ((g.p + 3 * g.h) & 1)) fp2_neg(&c, &c);
+  __syncwarp(g.mask);
+  *comp(&R->p[g.p], g.h) = c;
+  __syncwarp(g.mask);
 }
 
-HDN void fp6_mul_by_1(fp6* r, const fp6* s, const fp2* c1) {
-  fp2 t0, t1, t2;
-  fp2_mul(&t0, &s->c2, c1);
-  fp2_mul_nonres(&t0, &t0);
-  fp2_mul(&t1, &s->c0, c1);
-  fp2_mul(&t2, &s->c1, c1);
-  r->c0 = t0;
-  r->c1 = t1;
-  r->c2 = t2;
+// The lanes' fp4 products P_p = A_p B_p, split over the part's two lanes
+// (h = 0: x x' and y y'; h = 1: (x + y)(x' + y')), into W[3 p + k]; then
+// each lane its component of P_p (x x' + xi y y', the cross minus both).
+__device__ __forceinline__ void g_fp4_split_mul(const lanes& g, const fp4* A,
+                                                const fp4* B, fp2* W) {
+  if (g.h) {
+    fp2 sa, sb;
+    fp2_add(&sa, &A->x, &A->y);
+    fp2_add(&sb, &B->x, &B->y);
+    fp2_mul(&W[3 * g.p + 2], &sa, &sb);
+  } else {
+    fp2_mul(&W[3 * g.p], &A->x, &B->x);
+    fp2_mul(&W[3 * g.p + 1], &A->y, &B->y);
+  }
 }
 
-HDN void fp12_mul_by_014(fp12* f, const fp2* c0, const fp2* c1,
-                         const fp2* c4) {
-  fp6 aa, bb, t, o6;
-  fp2 o;
-  fp6_mul_by_01(&aa, &f->c0, c0, c1);
-  fp6_mul_by_1(&bb, &f->c1, c4);
-  fp2_add(&o, c1, c4);
-  fp6_add(&t, &f->c1, &f->c0);
-  fp6_mul_by_01(&t, &t, c0, &o);
-  fp6_sub(&t, &t, &aa);
-  fp6_sub(&t, &t, &bb);
-  fp6_mul_nonres(&o6, &bb);
-  fp6_add(&f->c0, &o6, &aa);
-  f->c1 = t;
+__device__ __forceinline__ void g_fp4_split_out(const lanes& g, fp2* out,
+                                                const fp2* W) {
+  const fp2 m1 = W[3 * g.p], m2 = W[3 * g.p + 1];
+  if (g.h) {
+    fp2_sub(out, &W[3 * g.p + 2], &m1);
+    fp2_sub(out, out, &m2);
+  } else {
+    fp2_mul_xi(out, &m2);
+    fp2_add(out, out, &m1);
+  }
 }
 
-HDN void miller_dbl(g2p* r, fp2* l0, fp2* l1, fp2* l4) {
-  fp2 tmp0, tmp1, tmp2, tmp3, tmp4, tmp5, tmp6, zsq, t;
-  fp2_sqr(&tmp0, &r->X);
-  fp2_sqr(&tmp1, &r->Y);
-  fp2_sqr(&tmp2, &tmp1);
-  fp2_add(&t, &tmp1, &r->X);
-  fp2_sqr(&tmp3, &t);
-  fp2_sub(&tmp3, &tmp3, &tmp0);
-  fp2_sub(&tmp3, &tmp3, &tmp2);
-  fp2_add(&tmp3, &tmp3, &tmp3);
-  fp2_add(&tmp4, &tmp0, &tmp0);
-  fp2_add(&tmp4, &tmp4, &tmp0);
-  fp2_add(&tmp6, &r->X, &tmp4);
-  fp2_sqr(&tmp5, &tmp4);
-  fp2_sqr(&zsq, &r->Z);
-  fp2_sub(&r->X, &tmp5, &tmp3);
-  fp2_sub(&r->X, &r->X, &tmp3);
-  fp2_add(&t, &r->Z, &r->Y);
-  fp2_sqr(&t, &t);
-  fp2_sub(&t, &t, &tmp1);
-  fp2_sub(&r->Z, &t, &zsq);
-  fp2_sub(&t, &tmp3, &r->X);
-  fp2_mul(&r->Y, &t, &tmp4);
-  fp2_add(&tmp2, &tmp2, &tmp2);
-  fp2_add(&tmp2, &tmp2, &tmp2);
-  fp2_add(&tmp2, &tmp2, &tmp2);
-  fp2_sub(&r->Y, &r->Y, &tmp2);
-  fp2_mul(&tmp3, &tmp4, &zsq);
-  fp2_add(&tmp3, &tmp3, &tmp3);
-  fp2_neg(&tmp3, &tmp3);
-  fp2_sqr(&tmp6, &tmp6);
-  fp2_sub(&tmp6, &tmp6, &tmp0);
-  fp2_sub(&tmp6, &tmp6, &tmp5);
-  fp2_add(&tmp1, &tmp1, &tmp1);
-  fp2_add(&tmp1, &tmp1, &tmp1);
-  fp2_sub(&tmp6, &tmp6, &tmp1);
-  fp2_mul(&tmp0, &r->Z, &zsq);
-  fp2_add(&tmp0, &tmp0, &tmp0);
-  *l0 = tmp0;
-  *l1 = tmp3;
-  *l4 = tmp6;
-}
-
-HDN void miller_add(g2p* r, const fp2* qx, const fp2* qy, fp2* l0, fp2* l1,
-                    fp2* l4) {
-  fp2 zsq, ysq, t0, t1, t2, t3, t4, t5, t6, t7, t8, t9, t10, ztsq, t;
-  fp2_sqr(&zsq, &r->Z);
-  fp2_sqr(&ysq, qy);
-  fp2_mul(&t0, &zsq, qx);
-  fp2_add(&t, qy, &r->Z);
-  fp2_sqr(&t1, &t);
-  fp2_sub(&t1, &t1, &ysq);
-  fp2_sub(&t1, &t1, &zsq);
-  fp2_mul(&t1, &t1, &zsq);
-  fp2_sub(&t2, &t0, &r->X);
-  fp2_sqr(&t3, &t2);
-  fp2_add(&t4, &t3, &t3);
-  fp2_add(&t4, &t4, &t4);
-  fp2_mul(&t5, &t4, &t2);
-  fp2_sub(&t6, &t1, &r->Y);
-  fp2_sub(&t6, &t6, &r->Y);
-  fp2_mul(&t9, &t6, qx);
-  fp2_mul(&t7, &t4, &r->X);
-  fp2_sqr(&r->X, &t6);
-  fp2_sub(&r->X, &r->X, &t5);
-  fp2_sub(&r->X, &r->X, &t7);
-  fp2_sub(&r->X, &r->X, &t7);
-  fp2_add(&t, &r->Z, &t2);
-  fp2_sqr(&t, &t);
-  fp2_sub(&t, &t, &zsq);
-  fp2_sub(&r->Z, &t, &t3);
-  fp2_add(&t10, qy, &r->Z);
-  fp2_sub(&t8, &t7, &r->X);
-  fp2_mul(&t8, &t8, &t6);
-  fp2_mul(&t0, &r->Y, &t5);
-  fp2_add(&t0, &t0, &t0);
-  fp2_sub(&r->Y, &t8, &t0);
-  fp2_sqr(&t10, &t10);
-  fp2_sub(&t10, &t10, &ysq);
-  fp2_sqr(&ztsq, &r->Z);
-  fp2_sub(&t10, &t10, &ztsq);
-  fp2_add(&t9, &t9, &t9);
-  fp2_sub(&t9, &t9, &t10);
-  fp2_add(&t10, &r->Z, &r->Z);
-  fp2_neg(&t6, &t6);
-  fp2_add(&t1, &t6, &t6);
-  *l0 = t10;
-  *l1 = t1;
-  *l4 = t9;
-}
-
-HDI void miller_ell(fp12* f, const fp2* l0, const fp2* l1, const fp2* l4,
-                    const fp* px, const fp* py) {
-  fp2 c0, c1;
-  fp2_mul_fp(&c0, l0, py);
-  fp2_mul_fp(&c1, l1, px);
-  fp12_mul_by_014(f, l4, &c1, &c0);
-}
-
-// the Miller value of a live pair (neither point at infinity), conjugated
-// since x < 0
-HDN void miller(fp12* f, const fp* px, const fp* py, const fp2* qx,
-                const fp2* qy) {
-  fp12_one(f);
-  g2p r;
-  r.X = *qx;
-  r.Y = *qy;
-  memset(&r.Z, 0, sizeof r.Z);
-  r.Z.c0 = FP_ONE;
-  fp2 l0, l1, l4;
-  for (int b = 62; b >= 0; b--) {     // below the top bit of X_ABS
-    fp12_sqr(f, f);
-    miller_dbl(&r, &l0, &l1, &l4);
-    miller_ell(f, &l0, &l1, &l4, px, py);
-    if ((X_ABS >> b) & 1) {
-      miller_add(&r, qx, qy, &l0, &l1, &l4);
-      miller_ell(f, &l0, &l1, &l4, px, py);
+// R = X^-1 by the norm of the cubic extension over fp4 (w^3 = s):
+//   t0 = A^2 - s B C, t1 = s C^2 - A B, t2 = B^2 - A C,
+//   d = A t0 + s (C t1 + B t2),  X^-1 = (t0 + t1 w + t2 w^2) / d,
+// d^-1 = (x - y s) / (x^2 - xi y^2) by one fp2 inversion on lane 0.
+// T: a free fp12 slot. 118 multiplies and the fp2 inversion.
+__device__ __forceinline__ void g_inv(const lanes& g, fp12p* R,
+                                      const fp12p* X, fp12p* T, fp4* V) {
+  {
+    const int p1 = g.p == 2 ? 0 : g.p + 1, p2 = g.p == 0 ? 2 : g.p - 1;
+    const fp4 a = X->p[g.h ? p1 : g.p], b = X->p[g.h ? p2 : g.p];
+    fp4 v;
+    fp4_mul(&v, &a, &b);               // V: A^2, BC, B^2, CA, C^2, AB
+    V[g.r] = v;
+  }
+  __syncwarp(g.mask);
+  fp2 t;
+  sum_terms(&t, V, g,
+            TAB6(TERM(0, 0, 0, 0), TERM(0, 1, 0, 0), TERM(4, 1, 0, 1),
+                 TERM(4, 0, 0, 0), TERM(2, 0, 0, 0), TERM(2, 1, 0, 0)),
+            TAB6(TERM(1, 1, 1, 1), TERM(1, 0, 1, 0), TERM(5, 0, 1, 0),
+                 TERM(5, 1, 1, 0), TERM(3, 0, 1, 0), TERM(3, 1, 1, 0)),
+            TAB6(NO_TERM, NO_TERM, NO_TERM, NO_TERM, NO_TERM, NO_TERM),
+            TAB6(NO_TERM, NO_TERM, NO_TERM, NO_TERM, NO_TERM, NO_TERM));
+  *comp(&T->p[g.p], g.h) = t;
+  __syncwarp(g.mask);
+  fp2* W = (fp2*)V;
+  {
+    const int src = g.p == 0 ? 0 : 3 - g.p;    // A t0, C t1, B t2
+    const fp4 a = X->p[src], b = T->p[g.p];
+    g_fp4_split_mul(g, &a, &b, W);
+  }
+  __syncwarp(g.mask);
+  if (g.r == 0) {
+    fp4 P[3];
+#pragma unroll
+    for (int p = 0; p < 3; p++) {
+      const fp2 m1 = W[3 * p], m2 = W[3 * p + 1];
+      fp2 x;
+      fp2_mul_xi(&x, &m2);
+      fp2_add(&P[p].x, &x, &m1);
+      fp2_sub(&P[p].y, &W[3 * p + 2], &m1);
+      fp2_sub(&P[p].y, &P[p].y, &m2);
     }
+    fp4 d, e;
+    fp4_add(&e, &P[1], &P[2]);           // d = P0 + s e
+    fp2_mul_xi(&d.x, &e.y);
+    fp2_add(&d.x, &d.x, &P[0].x);
+    fp2_add(&d.y, &e.x, &P[0].y);
+    fp2 x2, y2, n;
+    fp2_sqr(&x2, &d.x);
+    fp2_sqr(&y2, &d.y);
+    fp2_mul_xi(&y2, &y2);
+    fp2_sub(&n, &x2, &y2);
+    fp2_inv(&n, &n);
+    fp2_mul(&W[9], &d.x, &n);
+    fp2_mul(&y2, &d.y, &n);
+    fp2_neg(&W[10], &y2);
   }
-  fp12_conj(f, f);
+  __syncwarp(g.mask);
+  {
+    fp4 dinv;
+    dinv.x = W[9];
+    dinv.y = W[10];
+    const fp4 a = T->p[g.p];
+    __syncwarp(g.mask);                  // W[9..10] read before products
+    g_fp4_split_mul(g, &a, &dinv, W);
+  }
+  __syncwarp(g.mask);
+  fp2 out;
+  g_fp4_split_out(g, &out, W);
+  __syncwarp(g.mask);
+  *comp(&R->p[g.p], g.h) = out;
+  __syncwarp(g.mask);
 }
 
-// ----------------------------------------------- final exponentiation
-
-HDI void fp4_sqr_parts(fp2* c0, fp2* c1, const fp2* a, const fp2* b) {
-  fp2 t0, t1, t2;
-  fp2_sqr(&t0, a);
-  fp2_sqr(&t1, b);
-  fp2_mul_nonres(&t2, &t1);
-  fp2_add(c0, &t2, &t0);
-  fp2_add(&t2, a, b);
-  fp2_sqr(&t2, &t2);
-  fp2_sub(&t2, &t2, &t0);
-  fp2_sub(c1, &t2, &t1);
+__device__ __forceinline__ void g_set_one(const lanes& g, fp12p* R) {
+  fp2 c;
+  fp2_zero(&c);
+  if (g.r == 0) c.c0 = FP_ONE;
+  *comp(&R->p[g.p], g.h) = c;
+  __syncwarp(g.mask);
 }
 
-HDN void fp12_cyc_sqr(fp12* r, const fp12* f) {
-  fp2 z0 = f->c0.c0, z4 = f->c0.c1, z3 = f->c0.c2;
-  fp2 z2 = f->c1.c0, z1 = f->c1.c1, z5 = f->c1.c2;
-  fp2 t0, t1, t2, t3;
-  fp4_sqr_parts(&t0, &t1, &z0, &z1);
-  fp2_sub(&z0, &t0, &z0);
-  fp2_add(&z0, &z0, &z0);
-  fp2_add(&z0, &z0, &t0);
-  fp2_add(&z1, &t1, &z1);
-  fp2_add(&z1, &z1, &z1);
-  fp2_add(&z1, &z1, &t1);
-  fp4_sqr_parts(&t0, &t1, &z2, &z3);
-  fp4_sqr_parts(&t2, &t3, &z4, &z5);
-  fp2_sub(&z4, &t0, &z4);
-  fp2_add(&z4, &z4, &z4);
-  fp2_add(&z4, &z4, &t0);
-  fp2_add(&z5, &t1, &z5);
-  fp2_add(&z5, &z5, &z5);
-  fp2_add(&z5, &z5, &t1);
-  fp2_mul_nonres(&t0, &t3);
-  fp2_add(&z2, &t0, &z2);
-  fp2_add(&z2, &z2, &z2);
-  fp2_add(&z2, &z2, &t0);
-  fp2_sub(&z3, &t2, &z3);
-  fp2_add(&z3, &z3, &z3);
-  fp2_add(&z3, &z3, &t2);
-  r->c0.c0 = z0; r->c0.c1 = z4; r->c0.c2 = z3;
-  r->c1.c0 = z2; r->c1.c1 = z1; r->c1.c2 = z5;
+__device__ __forceinline__ bool g_is_one(const lanes& g, const fp12p* X) {
+  fp2 want;
+  fp2_zero(&want);
+  if (g.r == 0) want.c0 = FP_ONE;
+  const bool mine = fp2_eq(comp(&X->p[g.p], g.h), &want);
+  return __ballot_sync(g.mask, mine) == g.mask;
 }
 
-HDN void fp12_pow_u64_cyc(fp12* r, const fp12* a, u64 e) {
-  fp12 acc;
-  fp12_one(&acc);
-  bool started = false;
-  for (int b = 63; b >= 0; b--) {
-    if (started) fp12_cyc_sqr(&acc, &acc);
-    if ((e >> b) & 1) {
-      if (!started) {
-        acc = *a;
-        started = true;
-      } else {
-        fp12_mul(&acc, &acc, a);
-      }
+// F *= (l4 + c4 s) + c1 w^2 (the host's mul_by_014 with c0 = l4, c1, c4):
+//   lane 0: A (l4, c4)      lane 1: (A + C)(l4 + c1, c4)  lane 2: B (l4, c4)
+//   lane 3: B (c1, 0)       lane 4: C (c1, 0)             lane 5: idle
+//   F0 = AL + s BC', F1 = BL + s CC', F2 = (A+C)(L+C') - AL - CC'
+// 13 fp2 products (39 multiplies).
+__device__ __forceinline__ void g_mul014(const lanes& g, fp12p* F,
+                                         const fp2* l4, const fp2* c1,
+                                         const fp2* c4, fp4* V) {
+  if (g.r < 5) {
+    fp4 a = F->p[g.p];
+    if (g.r == 1) fp4_add(&a, &a, &F->p[2]);
+    fp2 bx = g.r < 3 ? *l4 : *c1;
+    if (g.r == 1) fp2_add(&bx, &bx, c1);
+    fp2 m1, m2, m3, sa, sb;
+    fp2_add(&sa, &a.x, &a.y);
+    if (g.r < 3) fp2_add(&sb, &bx, c4);
+    else sb = bx;
+    fp2_mul(&m1, &a.x, &bx);
+    fp2_mul(&m3, &sa, &sb);
+    fp2_sub(&m3, &m3, &m1);
+    if (g.r < 3) {
+      fp2_mul(&m2, &a.y, c4);
+      fp2_sub(&m3, &m3, &m2);
+      fp2_mul_xi(&m2, &m2);
+      fp2_add(&m1, &m1, &m2);
     }
+    V[g.r].x = m1;
+    V[g.r].y = m3;
   }
-  *r = acc;
-}
-
-HDI void fp12_pow_x_cyc(fp12* r, const fp12* a) {
-  fp12 t;
-  fp12_pow_u64_cyc(&t, a, X_ABS);
-  fp12_conj(r, &t);
-}
-
-// csrc/bls12_381.c final_exp: f^(3 (q^4 - q^2 + 1) / r) after the easy part
-HDN void final_exp(fp12* r, const fp12* f) {
-  fp12 t0, t1, m, a, b, c;
-  fp12_conj(&t0, f);
-  fp12_inv(&t1, f);
-  fp12_mul(&m, &t0, &t1);
-  fp12_frob(&t0, &m);
-  fp12_frob(&t0, &t0);
-  fp12_mul(&m, &t0, &m);
-  fp12_pow_u64_cyc(&a, &m, X_ABS + 1);
-  fp12_conj(&a, &a);
-  fp12_pow_u64_cyc(&t0, &a, X_ABS + 1);
-  fp12_conj(&a, &t0);
-  fp12_pow_x_cyc(&t0, &a);
-  fp12_frob(&t1, &a);
-  fp12_mul(&b, &t0, &t1);
-  fp12_pow_x_cyc(&t0, &b);
-  fp12_pow_x_cyc(&t0, &t0);
-  fp12_frob(&t1, &b);
-  fp12_frob(&t1, &t1);
-  fp12_mul(&c, &t0, &t1);
-  fp12_conj(&t0, &b);
-  fp12_mul(&c, &c, &t0);
-  fp12_cyc_sqr(&t0, &m);
-  fp12_mul(&t0, &t0, &m);
-  fp12_mul(r, &c, &t0);
-}
-
-// ------------------------------------------------------ decompression
-
-// crypto/bls12_381.py g1_decompress on a packed point: → ok (a valid
-// encoding, and on the curve unless at infinity); (x, y) Montgomery when
-// ok and not at infinity. Every valid finite point pays the same work, on the
-// curve or not.
-HDN bool g1_decompress(fp* x, fp* y, const int32_t* x12, u8 sign, u8 inf,
-                       u8 valid) {
-  if (!valid) return false;
-  if (inf) return true;
-  fp raw, yy, four = FP_FOUR, e = EXP_SQRT, t, half = FP_HALF;
-  fp_from_limbs12(&raw, x12);
-  fp_to_mont(x, &raw);
-  fp_sqr(&yy, x);
-  fp_mul(&yy, &yy, x);
-  fp_add(&yy, &yy, &four);               // x^3 + 4
-  fp_pow(y, &yy, &e);
-  fp_sqr(&t, y);
-  const bool on_curve = fp_eq(&t, &yy);
-  fp_from_mont(&t, y);
-  if (fp_gt(&t, &half) != (sign != 0)) fp_neg(y, y);
-  return on_curve;
-}
-
-// crypto/bls12_381.py g2_decompress: x = c0 + c1 u on y^2 = x^3 + 4(1 + u);
-// the sign is y's (c1, c0) against -y's, lexicographically
-HDN bool g2_decompress(fp2* x, fp2* y, const int32_t* c1, const int32_t* c0,
-                       u8 sign, u8 inf, u8 valid) {
-  if (!valid) return false;
-  if (inf) return true;
-  fp raw, half = FP_HALF, y0, y1;
-  fp_from_limbs12(&raw, c0);
-  fp_to_mont(&x->c0, &raw);
-  fp_from_limbs12(&raw, c1);
-  fp_to_mont(&x->c1, &raw);
-  fp2 yy;
-  fp2_sqr(&yy, x);
-  fp2_mul(&yy, &yy, x);
-  fp four = FP_FOUR;
-  fp_add(&yy.c0, &yy.c0, &four);         // + 4 (1 + u)
-  fp_add(&yy.c1, &yy.c1, &four);
-  const bool on_curve = fp2_sqrt(y, &yy);
-  fp_from_mont(&y0, &y->c0);
-  fp_from_mont(&y1, &y->c1);
-  const bool big = fp_is_zero(&y1) ? fp_gt(&y0, &half) : fp_gt(&y1, &half);
-  if (big != (sign != 0)) fp2_neg(y, y);
-  return on_curve;
-}
-
-// ---------------------------------------------- complete additions (RCB)
-// Renes-Costello-Batina 2016 Alg. 7 (a = 0), the JAX tower's padd_rcb: one
-// formula for every pair of points, the identity (0 : 1 : 0) included.
-
-HDI void f_add(fp* r, const fp* a, const fp* b) { fp_add(r, a, b); }
-HDI void f_sub(fp* r, const fp* a, const fp* b) { fp_sub(r, a, b); }
-HDI void f_mul(fp* r, const fp* a, const fp* b) { fp_mul(r, a, b); }
-HDI void f_mul_b3(fp* r, const fp* a) {            // 3b = 12
-  fp b3 = FP_TWELVE;
-  fp_mul(r, a, &b3);
-}
-HDI void f_add(fp2* r, const fp2* a, const fp2* b) { fp2_add(r, a, b); }
-HDI void f_sub(fp2* r, const fp2* a, const fp2* b) { fp2_sub(r, a, b); }
-HDI void f_mul(fp2* r, const fp2* a, const fp2* b) { fp2_mul(r, a, b); }
-HDI void f_mul_b3(fp2* r, const fp2* a) {          // 3b' = 12 (1 + u)
-  fp2 b3;
-  b3.c0 = FP_TWELVE;
-  b3.c1 = FP_TWELVE;
-  fp2_mul(r, a, &b3);
-}
-
-template <class F>
-struct proj { F X, Y, Z; };
-
-template <class F>
-HDN void rcb_add(proj<F>* r, const proj<F>* p, const proj<F>* q) {
-  F t0, t1, t2, t3, t4, X3, Y3, Z3, u;
-  f_mul(&t0, &p->X, &q->X);
-  f_mul(&t1, &p->Y, &q->Y);
-  f_mul(&t2, &p->Z, &q->Z);
-  f_add(&t3, &p->X, &p->Y);
-  f_add(&t4, &q->X, &q->Y);
-  f_mul(&t3, &t3, &t4);
-  f_add(&t4, &t0, &t1);
-  f_sub(&t3, &t3, &t4);
-  f_add(&t4, &p->Y, &p->Z);
-  f_add(&X3, &q->Y, &q->Z);
-  f_mul(&t4, &t4, &X3);
-  f_add(&X3, &t1, &t2);
-  f_sub(&t4, &t4, &X3);
-  f_add(&X3, &p->X, &p->Z);
-  f_add(&Y3, &q->X, &q->Z);
-  f_mul(&X3, &X3, &Y3);
-  f_add(&Y3, &t0, &t2);
-  f_sub(&Y3, &X3, &Y3);
-  f_add(&X3, &t0, &t0);
-  f_add(&t0, &X3, &t0);
-  f_mul_b3(&t2, &t2);
-  f_add(&Z3, &t1, &t2);
-  f_sub(&t1, &t1, &t2);
-  f_mul_b3(&Y3, &Y3);
-  f_mul(&X3, &t4, &Y3);
-  f_mul(&u, &t3, &t1);
-  f_sub(&X3, &u, &X3);
-  f_mul(&Y3, &Y3, &t0);
-  f_mul(&t1, &t1, &Z3);
-  f_add(&Y3, &t1, &Y3);
-  f_mul(&t0, &t0, &t3);
-  f_mul(&Z3, &Z3, &t4);
-  f_add(&Z3, &Z3, &t0);
-  r->X = X3;
-  r->Y = Y3;
-  r->Z = Z3;
-}
-
-HDI void set_identity(proj<fp>* p) {
-  p->X = FP_ZERO;
-  p->Y = FP_ONE;
-  p->Z = FP_ZERO;
-}
-
-HDI void set_identity(proj<fp2>* p) {
-  memset(p, 0, sizeof *p);
-  p->Y.c0 = FP_ONE;
-}
-
-// Normalized standard-domain coordinates: (x, y, 1), or (0, 1, 0) for the
-// identity, as 12-bit limbs.
-HDN void store_g1(int32_t* X, int32_t* Y, int32_t* Z, const proj<fp>* p) {
-  fp x = FP_ZERO, y = FP_RAW_ONE, z = FP_ZERO;
-  if (!fp_is_zero(&p->Z)) {
-    fp zi;
-    fp_inv(&zi, &p->Z);
-    fp_mul(&x, &p->X, &zi);
-    fp_mul(&y, &p->Y, &zi);
-    fp_from_mont(&x, &x);
-    fp_from_mont(&y, &y);
-    z = FP_RAW_ONE;
-  }
-  fp_to_limbs12(X, &x);
-  fp_to_limbs12(Y, &y);
-  fp_to_limbs12(Z, &z);
-}
-
-// the same for fp2 coordinates, [2][32] limbs each (c0, then c1)
-HDN void store_g2(int32_t* X, int32_t* Y, int32_t* Z, const proj<fp2>* p) {
-  fp2 x, y, z;
-  memset(&x, 0, sizeof x);
-  memset(&z, 0, sizeof z);
-  y = x;
-  y.c0 = FP_RAW_ONE;
-  if (!fp2_is_zero(&p->Z)) {
-    fp2 zi;
-    fp2_inv(&zi, &p->Z);
-    fp2_mul(&x, &p->X, &zi);
-    fp2_mul(&y, &p->Y, &zi);
-    fp_from_mont(&x.c0, &x.c0);
-    fp_from_mont(&x.c1, &x.c1);
-    fp_from_mont(&y.c0, &y.c0);
-    fp_from_mont(&y.c1, &y.c1);
-    z.c0 = FP_RAW_ONE;
-  }
-  fp_to_limbs12(X, &x.c0);
-  fp_to_limbs12(X + BLS_LIMBS12, &x.c1);
-  fp_to_limbs12(Y, &y.c0);
-  fp_to_limbs12(Y + BLS_LIMBS12, &y.c1);
-  fp_to_limbs12(Z, &z.c0);
-  fp_to_limbs12(Z + BLS_LIMBS12, &z.c1);
+  __syncwarp(g.mask);
+  fp2 out;
+  sum_terms(&out, V, g,
+            TAB6(TERM(0, 0, 0, 0), TERM(0, 1, 0, 0), TERM(2, 0, 0, 0),
+                 TERM(2, 1, 0, 0), TERM(1, 0, 0, 0), TERM(1, 1, 0, 0)),
+            TAB6(TERM(3, 1, 0, 1), TERM(3, 0, 0, 0), TERM(4, 1, 0, 1),
+                 TERM(4, 0, 0, 0), TERM(0, 0, 1, 0), TERM(0, 1, 1, 0)),
+            TAB6(NO_TERM, NO_TERM, NO_TERM, NO_TERM, TERM(4, 0, 1, 0),
+                 TERM(4, 1, 1, 0)),
+            TAB6(NO_TERM, NO_TERM, NO_TERM, NO_TERM, NO_TERM, NO_TERM));
+  *comp(&F->p[g.p], g.h) = out;
+  __syncwarp(g.mask);
 }
 
 // ------------------------------------------------------------- kernels
 
-#define SLOT_OK 1        // both points decoded, the pair neutral or live
-#define SLOT_LIVE 2      // ... and live: its Miller value is in the scratch
+struct line3 { fp2 l0, l1, l4; };
 
-// Pairing, first launch: one thread per (job, pair) slot.
-__global__ void __launch_bounds__(PAIR_THREADS)
-bls_miller_kernel(const int32_t* g1x, const u8* g1s, const u8* g1i,
-                  const u8* g1v, const int32_t* g2c1, const int32_t* g2c0,
-                  const u8* g2s, const u8* g2i, const u8* g2v, int slots,
-                  fp12* f_out, u8* state) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+
+// Pairing launch 1. Blocks [0, key_blocks): a trio of lanes per distinct
+// G2 key (KEYS_PER_BLOCK a block): decompress it and, when it is on the
+// curve, store its 68 steps' lines. The other blocks: a thread per (job,
+// pair) slot, its G1 point decompressed into (x, y) Montgomery.
+#define KEYS_PER_BLOCK (10 * (LINES_THREADS / 32))
+
+__global__ void __launch_bounds__(LINES_THREADS)
+bls_lines_kernel(const int32_t* g2c1, const int32_t* g2c0, const u8* g2s,
+                 const u8* g2i, const u8* g2v, int K, int key_blocks,
+                 const int32_t* g1x, const u8* g1s, const u8* g1i,
+                 const u8* g1v, int slots, line3* table, u8* key_ok,
+                 fp2* g1pt, u8* g1_ok) {
+  if ((int)blockIdx.x < key_blocks) {
+    const int lane = threadIdx.x & 31, t = lane / 3;
+    if (t >= 10) return;
+    const int k = blockIdx.x * KEYS_PER_BLOCK + (threadIdx.x >> 5) * 10 + t;
+    if (k >= K) return;
+    trio tr;
+    tr.l = lane % 3;
+    tr.base = 3 * t;
+    tr.mask = 7u << tr.base;
+    g2p T;
+    const bool ok = g2_decompress(&T.X, &T.Y, g2c1 + (size_t)k * BLS_LIMBS12,
+                                  g2c0 + (size_t)k * BLS_LIMBS12, g2s[k],
+                                  g2i[k], g2v[k], tr);
+    if (tr.l == 0) key_ok[k] = ok;
+    if (!ok || g2i[k]) return;
+    const fp2 qx = T.X, qy = T.Y;
+    fp2_zero(&T.Z);
+    T.Z.c0 = FP_ONE;
+    line3* out = table + (size_t)k * MILLER_STEPS;
+    int step = 0;
+    for (int b = 62; b >= 0; b--) {     // below the top bit of X_ABS
+      for (int add = 0; add < 2; add++) {
+        if (add && !((X_ABS >> b) & 1)) break;
+        fp2 l0, l1, l4;
+        if (add) miller_add(&T, &qx, &qy, &l0, &l1, &l4, tr);
+        else miller_dbl(&T, &l0, &l1, &l4, tr);
+        fp2* dst = tr.l == 0 ? &out[step].l0 : tr.l == 1 ? &out[step].l1
+                                                         : &out[step].l4;
+        *dst = tr.l == 0 ? l0 : tr.l == 1 ? l1 : l4;
+        step++;
+      }
+    }
+    return;
+  }
+  const int s = (blockIdx.x - key_blocks) * LINES_THREADS + threadIdx.x;
   if (s >= slots) return;
-  fp px, py;
-  fp2 qx, qy;
-  const bool v1 = g1_decompress(&px, &py, g1x + (size_t)s * BLS_LIMBS12,
-                                g1s[s], g1i[s], g1v[s]);
-  const bool v2 = g2_decompress(&qx, &qy, g2c1 + (size_t)s * BLS_LIMBS12,
-                                g2c0 + (size_t)s * BLS_LIMBS12, g2s[s],
-                                g2i[s], g2v[s]);
-  // a pair both at infinity is neutral; one at infinity fails the job
-  const bool inf1 = g1i[s] != 0, inf2 = g2i[s] != 0;
-  const bool ok = v1 && v2 && (inf1 == inf2);
-  // both encodings valid and finite: the Miller loop runs (on a point off
-  // the curve its value is of no use, and the job fails on `ok`), so the
-  // work follows the packed flags alone
-  const bool finite = g1v[s] && g2v[s] && !inf1 && !inf2;
-  if (finite) {
-    fp12 f;
-    miller(&f, &px, &py, &qx, &qy);
-    f_out[s] = f;
-  }
-  state[s] = (ok ? SLOT_OK : 0) | (ok && finite ? SLOT_LIVE : 0);
+  fp2 pt;
+  g1_ok[s] = g1_decompress(&pt.c0, &pt.c1, g1x + (size_t)s * BLS_LIMBS12,
+                           g1s[s], g1i[s], g1v[s]);
+  g1pt[s] = pt;
 }
 
-// Pairing, second launch: one thread per job, the product of its live
-// pairs' values and the final exponentiation.
-__global__ void __launch_bounds__(FINAL_THREADS)
-bls_final_exp_kernel(const fp12* f_in, const u8* state, int B, int P,
-                     u8* verdict, u8* decode_ok) {
-  const int job = blockIdx.x * blockDim.x + threadIdx.x;
+#define JOB_OK 1         // every pair decoded, none one-sided
+#define JOB_LIVE 2       // ... and some pair has both points finite
+
+struct miller_ws {
+  fp12p F;
+  fp4 V[6];
+  fp2 c1, c4;
+};
+
+// Pairing launch 2: one Miller accumulator a job on six lanes; f (conjugated
+// since x < 0) to f_out, the job's flags to state.
+__global__ void __launch_bounds__(JOB_THREADS, JOB_BLOCKS)
+bls_miller_kernel(const int32_t* kidx, const u8* g1i, const u8* g2i,
+                  const line3* table, const u8* key_ok, const fp2* g1pt,
+                  const u8* g1_ok, int B, int P, fp12p* f_out, u8* state) {
+  __shared__ miller_ws ws[JOBS_PER_BLOCK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane >= LANES * JOBS_PER_WARP) return;
+  const int jb = warp * JOBS_PER_WARP + lane / LANES;
+  const int job = blockIdx.x * JOBS_PER_BLOCK + jb;
   if (job >= B) return;
+  const lanes g = job_lanes();
+  miller_ws* w = &ws[jb];
   bool ok = true;
-  int live = 0;
-  fp12 f;
+  u32 live = 0;                          // a bit a pair (P <= 32 checked)
   for (int p = 0; p < P; p++) {
-    const int s = job * P + p;
-    ok = ok && (state[s] & SLOT_OK);
-    if (state[s] & SLOT_LIVE) {
-      if (live++ == 0) {
-        f = f_in[s];
+    const int s = job * P + p, k = kidx[s];
+    const bool inf1 = g1i[s] != 0, inf2 = g2i[k] != 0;
+    ok = ok && g1_ok[s] && key_ok[k] && inf1 == inf2;
+    if (!inf1 && !inf2) live |= 1u << p;
+  }
+  if (!ok) live = 0;
+  if (g.r == 0) state[job] = (ok ? JOB_OK : 0) | (live ? JOB_LIVE : 0);
+  if (!live) return;
+  g_set_one(g, &w->F);
+  int step = 0;
+  for (int b = 62; b >= 0; b--) {
+    for (int add = 0; add < 2; add++) {
+      if (add && !((X_ABS >> b) & 1)) break;
+      if (!add && b != 62) g_mulsq<true>(g, &w->F, &w->F, &w->F, w->V);
+      for (int p = 0; p < P; p++) {
+        if (!((live >> p) & 1)) continue;
+        const int s = job * P + p;
+        const line3* l = table + (size_t)kidx[s] * MILLER_STEPS + step;
+        if (g.r < 4) {                   // the line at (px, py): 4 multiplies
+          const fp2* src = g.r < 2 ? &l->l1 : &l->l0;
+          const fp* c = (g.r & 1) ? &src->c1 : &src->c0;
+          const fp* pc = g.r < 2 ? &g1pt[s].c0 : &g1pt[s].c1;
+          fp* dst = g.r < 2 ? (g.r & 1 ? &w->c1.c1 : &w->c1.c0)
+                            : (g.r & 1 ? &w->c4.c1 : &w->c4.c0);
+          const fp cv = *c, pv = *pc;
+          fp_mul(dst, &cv, &pv);
+        }
+        __syncwarp(g.mask);
+        const fp2 l4 = l->l4, c1 = w->c1, c4 = w->c4;
+        g_mul014(g, &w->F, &l4, &c1, &c4, w->V);
+      }
+      step++;
+    }
+  }
+  fp2 c = *comp(&w->F.p[g.p], g.h);
+  if ((g.p + 3 * g.h) & 1) fp2_neg(&c, &c);
+  *comp(&f_out[job].p[g.p], g.h) = c;
+}
+
+// The final exponentiation as a program of operations on four fp12 slots
+// of a job: op = kind | dst << 8 | x << 12 | y << 16 | exponent << 20.
+enum { FE_COPY, FE_CONJ, FE_FROB, FE_MUL, FE_CYC, FE_INV, FE_POW };
+#define FE(kind, r, x, y, e) \
+  ((u32)(kind) | (u32)(r) << 8 | (u32)(x) << 12 | (u32)(y) << 16 | \
+   (u32)(e) << 20)
+#define FE_POW_X 0       // |x|
+#define FE_POW_X1 1      // |x| + 1
+__constant__ u32 FE_PROG[] = {
+    // slot 0 holds f
+    FE(FE_CONJ, 1, 0, 0, 0),     // the easy part: m = conj(f) / f
+    FE(FE_INV, 2, 0, 0, 0),
+    FE(FE_MUL, 0, 1, 2, 0),
+    FE(FE_FROB, 1, 0, 0, 0),     //   m = m^(q^2) m
+    FE(FE_FROB, 1, 1, 0, 0),
+    FE(FE_MUL, 0, 1, 0, 0),
+    FE(FE_CYC, 1, 0, 0, 0),      // e = m^2 m (slot 3)
+    FE(FE_MUL, 3, 1, 0, 0),
+    FE(FE_POW, 1, 0, 0, FE_POW_X1),   // a = conj(conj(m^(x+1))^(x+1))
+    FE(FE_CONJ, 1, 1, 0, 0),
+    FE(FE_POW, 0, 1, 0, FE_POW_X1),
+    FE(FE_CONJ, 0, 0, 0, 0),
+    FE(FE_POW, 1, 0, 0, FE_POW_X),    // b = conj(a^|x|) a^q
+    FE(FE_CONJ, 1, 1, 0, 0),
+    FE(FE_FROB, 0, 0, 0, 0),
+    FE(FE_MUL, 1, 1, 0, 0),
+    FE(FE_FROB, 0, 1, 0, 0),     // u = b^(q^2) conj(b)
+    FE(FE_FROB, 0, 0, 0, 0),
+    FE(FE_CONJ, 2, 1, 0, 0),
+    FE(FE_MUL, 0, 0, 2, 0),
+    FE(FE_POW, 2, 1, 0, FE_POW_X),    // c = conj(conj(b^|x|)^|x|) u
+    FE(FE_CONJ, 2, 2, 0, 0),
+    FE(FE_POW, 1, 2, 0, FE_POW_X),
+    FE(FE_CONJ, 1, 1, 0, 0),
+    FE(FE_MUL, 1, 1, 0, 0),
+    FE(FE_MUL, 1, 1, 3, 0),      // c e
+};
+#define FE_RESULT 1
+#define FE_NOPS ((int)(sizeof(FE_PROG) / sizeof(FE_PROG[0])))
+
+struct final_ws {
+  fp12p X[4];
+  fp4 V[6];
+};
+
+// Pairing launch 3: the final exponentiation on six lanes a job; the
+// verdict (the job decoded and its product's exponentiation is one; an
+// empty product is one) and decode_ok.
+__global__ void __launch_bounds__(JOB_THREADS, JOB_BLOCKS)
+bls_final_exp_kernel(const fp12p* f_in, const u8* state, int B, u8* verdict,
+                     u8* decode_ok) {
+  __shared__ final_ws ws[JOBS_PER_BLOCK];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane >= LANES * JOBS_PER_WARP) return;
+  const int jb = warp * JOBS_PER_WARP + lane / LANES;
+  const int job = blockIdx.x * JOBS_PER_BLOCK + jb;
+  if (job >= B) return;
+  const lanes g = job_lanes();
+  const u8 st = state[job];
+  if (!(st & JOB_OK) || !(st & JOB_LIVE)) {
+    if (g.r == 0) {
+      verdict[job] = (st & JOB_OK) != 0;
+      decode_ok[job] = (st & JOB_OK) != 0;
+    }
+    return;
+  }
+  final_ws* w = &ws[jb];
+  *comp(&w->X[0].p[g.p], g.h) = *comp(&f_in[job].p[g.p], g.h);
+  __syncwarp(g.mask);
+  int pc = 0, bit = -1, pr = 0, px = 0;
+  bool pending = false;
+  u64 e = 0;
+  for (;;) {
+    int kind, r, x, y = 0;
+    if (bit >= 0) {                      // inside a power: squarings and
+      r = x = pr;                        // products by the base
+      if (pending) {
+        kind = FE_MUL;
+        y = px;
+        pending = false;
+        bit--;
       } else {
-        fp12_mul(&f, &f, &f_in[s]);
+        kind = FE_CYC;
+        if ((e >> bit) & 1) pending = true;
+        else bit--;
+      }
+    } else {
+      if (pc == FE_NOPS) break;
+      const u32 op = FE_PROG[pc++];
+      kind = op & 0xff;
+      r = (op >> 8) & 15;
+      x = (op >> 12) & 15;
+      y = (op >> 16) & 15;
+      if (kind == FE_POW) {
+        e = ((op >> 20) & 1) ? X_ABS + 1 : X_ABS;
+        bit = 62;                        // below the top bit (63)
+        pr = r;
+        px = x;
+        kind = FE_COPY;
       }
     }
-  }
-  bool is_one = true;                  // an empty product is 1
-  if (ok && live) {
-    fp12 g;
-    final_exp(&g, &f);
-    is_one = fp12_is_one(&g);
-  }
-  verdict[job] = ok && is_one;
-  decode_ok[job] = ok;
-}
-
-// G1 aggregate: a block per job, a thread per share.
-__global__ void __launch_bounds__(AGG_THREADS)
-bls_g1_aggregate_kernel(const int32_t* x12, const u8* sign, const u8* inf,
-                        const u8* valid, int n, int32_t* X, int32_t* Y,
-                        int32_t* Z, u8* ok_out) {
-  __shared__ proj<fp> sh[AGG_THREADS];
-  __shared__ u32 bad;
-  const int job = blockIdx.x, tid = threadIdx.x;
-  if (tid == 0) bad = 0;
-  __syncthreads();
-  proj<fp> acc;
-  set_identity(&acc);
-  for (int j = tid; j < n; j += AGG_THREADS) {
-    const size_t s = (size_t)job * n + j;
-    proj<fp> p;
-    if (!g1_decompress(&p.X, &p.Y, x12 + s * BLS_LIMBS12, sign[s], inf[s],
-                       valid[s]))
-      atomicOr(&bad, 1u);
-    if (valid[s] && !inf[s]) {          // a job with a bad share is void
-      p.Z = FP_ONE;
-      rcb_add(&acc, &acc, &p);
+    fp12p *R = &w->X[r], *A = &w->X[x], *Bv = &w->X[y];
+    switch (kind) {
+      case FE_COPY: g_conj(g, R, A, false); break;
+      case FE_CONJ: g_conj(g, R, A, true); break;
+      case FE_FROB: g_frob(g, R, A); break;
+      case FE_MUL: g_mulsq<false>(g, R, A, Bv, w->V); break;
+      case FE_CYC: g_cyc_sqr(g, R, A, w->V); break;
+      default: g_inv(g, R, A, &w->X[3], w->V); break;
     }
   }
-  sh[tid] = acc;
-  __syncthreads();
-  for (int half = AGG_THREADS / 2; half > 0; half >>= 1) {
-    if (tid < half) rcb_add(&sh[tid], &sh[tid], &sh[tid + half]);
-    __syncthreads();
-  }
-  if (tid == 0) {
-    if (bad) set_identity(&sh[0]);
-    store_g1(X + (size_t)job * BLS_LIMBS12, Y + (size_t)job * BLS_LIMBS12,
-             Z + (size_t)job * BLS_LIMBS12, &sh[0]);
-    ok_out[job] = bad == 0;
+  const bool one = g_is_one(g, &w->X[FE_RESULT]);
+  if (g.r == 0) {
+    verdict[job] = one;
+    decode_ok[job] = 1;
   }
 }
 
-// G2 aggregate: the same over fp2.
-__global__ void __launch_bounds__(AGG_THREADS)
-bls_g2_aggregate_kernel(const int32_t* c1, const int32_t* c0, const u8* sign,
-                        const u8* inf, const u8* valid, int n, int32_t* X,
-                        int32_t* Y, int32_t* Z, u8* ok_out) {
-  __shared__ proj<fp2> sh[AGG_THREADS];
-  __shared__ u32 bad;
-  const int job = blockIdx.x, tid = threadIdx.x;
-  if (tid == 0) bad = 0;
-  __syncthreads();
-  proj<fp2> acc;
-  set_identity(&acc);
-  for (int j = tid; j < n; j += AGG_THREADS) {
-    const size_t s = (size_t)job * n + j;
-    proj<fp2> p;
-    if (!g2_decompress(&p.X, &p.Y, c1 + s * BLS_LIMBS12,
-                       c0 + s * BLS_LIMBS12, sign[s], inf[s], valid[s]))
-      atomicOr(&bad, 1u);
-    if (valid[s] && !inf[s]) {
-      memset(&p.Z, 0, sizeof p.Z);
-      p.Z.c0 = FP_ONE;
-      rcb_add(&acc, &acc, &p);
-    }
+// The field core alone: `chains` threads, each `iters` dependent multiplies
+// (or squarings) of its own value x_t = a (x_t b or x_t^2), out[t] the
+// result; with one chain, cycles[0] the clock64 cycles of the loop.
+__global__ void __launch_bounds__(256)
+bls_fp_chain_kernel(int sqr, int iters, int chains, const fp* a, const fp* b,
+                    fp* out, long long* cycles) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= chains) return;
+  fp x = a[t % 64];
+  const fp y = *b;
+#ifdef __CUDA_ARCH__
+  const long long t0 = clock64();
+#endif
+  for (int i = 0; i < iters; i++) {
+    if (sqr) fp_sqr(&x, &x);
+    else fp_mul(&x, &x, &y);
   }
-  sh[tid] = acc;
-  __syncthreads();
-  for (int half = AGG_THREADS / 2; half > 0; half >>= 1) {
-    if (tid < half) rcb_add(&sh[tid], &sh[tid], &sh[tid + half]);
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const size_t o = (size_t)job * 2 * BLS_LIMBS12;
-    if (bad) set_identity(&sh[0]);
-    store_g2(X + o, Y + o, Z + o, &sh[0]);
-    ok_out[job] = bad == 0;
-  }
-}
-
-// MSM, first launch: a thread per point, a w = 4 table and Horner over the
-// 64 nibbles (most significant first), then a tree sum per block into
-// partial[blockIdx.x]; an undecodable point sets *bad.
-__global__ void __launch_bounds__(MSM_THREADS)
-bls_msm_points_kernel(const int32_t* x12, const u8* sign, const u8* inf,
-                      const u8* valid, const int32_t* digits, int N,
-                      proj<fp>* partial, u32* bad) {
-  __shared__ proj<fp> sh[MSM_THREADS];
-  const int tid = threadIdx.x, i = blockIdx.x * MSM_THREADS + tid;
-  proj<fp> acc;
-  set_identity(&acc);
-  if (i < N) {
-    proj<fp> p;
-    if (!g1_decompress(&p.X, &p.Y, x12 + (size_t)i * BLS_LIMBS12, sign[i],
-                       inf[i], valid[i]))
-      atomicOr(bad, 1u);
-    if (valid[i] && !inf[i]) {
-      p.Z = FP_ONE;
-      proj<fp> tab[16];
-      set_identity(&tab[0]);
-      tab[1] = p;
-      for (int k = 2; k < 16; k++) rcb_add(&tab[k], &tab[k - 1], &p);
-      for (int w = 0; w < 64; w++) {
-        for (int d = 0; d < 4; d++) rcb_add(&acc, &acc, &acc);
-        rcb_add(&acc, &acc, &tab[digits[(size_t)i * 64 + w] & 15]);
-      }
-    }
-  }
-  sh[tid] = acc;
-  __syncthreads();
-  for (int half = MSM_THREADS / 2; half > 0; half >>= 1) {
-    if (tid < half) rcb_add(&sh[tid], &sh[tid], &sh[tid + half]);
-    __syncthreads();
-  }
-  if (tid == 0) partial[blockIdx.x] = sh[0];
-}
-
-// MSM, second launch: one block sums the blocks' partial sums.
-__global__ void __launch_bounds__(MSM_THREADS)
-bls_msm_sum_kernel(const proj<fp>* partial, int nparts, const u32* bad,
-                   int32_t* X, int32_t* Y, int32_t* Z, u8* ok_out) {
-  __shared__ proj<fp> sh[MSM_THREADS];
-  const int tid = threadIdx.x;
-  proj<fp> acc;
-  set_identity(&acc);
-  for (int j = tid; j < nparts; j += MSM_THREADS)
-    rcb_add(&acc, &acc, &partial[j]);
-  sh[tid] = acc;
-  __syncthreads();
-  for (int half = MSM_THREADS / 2; half > 0; half >>= 1) {
-    if (tid < half) rcb_add(&sh[tid], &sh[tid], &sh[tid + half]);
-    __syncthreads();
-  }
-  if (tid == 0) {
-    if (*bad) set_identity(&sh[0]);
-    store_g1(X, Y, Z, &sh[0]);
-    ok_out[0] = *bad == 0;
-  }
+#ifdef __CUDA_ARCH__
+  if (t == 0) cycles[0] = clock64() - t0;
+#else
+  if (t == 0) cycles[0] = 0;
+#endif
+  out[t] = x;
 }
 
 // ------------------------------------------------------------ C entries
 // Each launches on `stream`, reads nothing back and returns the CUDA error
 // of its launches (0 when they were accepted).
 
+
+struct pairing_scratch {
+  line3* table;
+  u8* key_ok;
+  fp2* g1pt;
+  u8* g1_ok;
+  fp12p* f;
+  u8* state;
+  size_t bytes;
+};
+
+static pairing_scratch pairing_layout(void* base, int B, int P, int K) {
+  pairing_scratch s;
+  u8* p = (u8*)base;
+  size_t at = 0;
+  const size_t slots = (size_t)B * P;
+  s.table = (line3*)(p + at);
+  at += align16((size_t)K * MILLER_STEPS * sizeof(line3));
+  s.key_ok = p + at;
+  at += align16(K);
+  s.g1pt = (fp2*)(p + at);
+  at += align16(slots * sizeof(fp2));
+  s.g1_ok = p + at;
+  at += align16(slots);
+  s.f = (fp12p*)(p + at);
+  at += align16((size_t)B * sizeof(fp12p));
+  s.state = p + at;
+  at += align16(B);
+  s.bytes = at;
+  return s;
+}
+
 extern "C" {
 
-// scratch_f: B * P fp12 (576 bytes each); scratch_state: B * P bytes
-int bls_pairing(const int32_t* g1x, const u8* g1s, const u8* g1i,
-                const u8* g1v, const int32_t* g2c1, const int32_t* g2c0,
-                const u8* g2s, const u8* g2i, const u8* g2v, int B, int P,
-                void* scratch_f, u8* scratch_state, u8* verdict,
-                u8* decode_ok, cudaStream_t stream) {
+// the scratch bytes a pairing launch of B jobs x P pairs over K keys needs
+int bls_pairing_scratch_bytes(int B, int P, int K) {
+  return (int)pairing_layout(nullptr, B, P, K).bytes;
+}
+
+// A pairing launch of B jobs x P pairs over K keys, its stages first..last
+// (0: lines and G1 decompression, 1: Miller, 2: final exponentiation; 0..2
+// the whole check): a later stage reads what the earlier ones left in
+// `scratch`. kidx [B * P] indexes the K key rows.
+int bls_pairing_stages(const int32_t* g1x, const u8* g1s, const u8* g1i,
+                       const u8* g1v, const int32_t* kidx,
+                       const int32_t* g2c1, const int32_t* g2c0,
+                       const u8* g2s, const u8* g2i, const u8* g2v, int B,
+                       int P, int K, void* scratch, u8* verdict,
+                       u8* decode_ok, int first, int last,
+                       cudaStream_t stream) {
   if (B <= 0 || P <= 0) return 0;
+  if (P > 32 || K <= 0) return 1;        // cudaErrorInvalidValue
+  const pairing_scratch s = pairing_layout(scratch, B, P, K);
   const int slots = B * P;
-  fp12* f = (fp12*)scratch_f;
-  LAUNCH(bls_miller_kernel, (slots + PAIR_THREADS - 1) / PAIR_THREADS,
-         PAIR_THREADS, stream, g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i,
-         g2v, slots, f, scratch_state);
-  int err = cudaGetLastError();
-  if (err) return err;
-  LAUNCH(bls_final_exp_kernel, (B + FINAL_THREADS - 1) / FINAL_THREADS,
-         FINAL_THREADS, stream, (const fp12*)f, (const u8*)scratch_state, B,
-         P, verdict, decode_ok);
-  return cudaGetLastError();
+  int err = 0;
+  if (first <= 0 && last >= 0) {
+    const int key_blocks = (K + KEYS_PER_BLOCK - 1) / KEYS_PER_BLOCK;
+    const int g1_blocks = (slots + LINES_THREADS - 1) / LINES_THREADS;
+    LAUNCH(bls_lines_kernel, key_blocks + g1_blocks, LINES_THREADS, stream,
+           g2c1, g2c0, g2s, g2i, g2v, K, key_blocks, g1x, g1s, g1i, g1v,
+           slots, s.table, s.key_ok, s.g1pt, s.g1_ok);
+    if ((err = cudaGetLastError())) return err;
+  }
+  const int job_blocks = (B + JOBS_PER_BLOCK - 1) / JOBS_PER_BLOCK;
+  if (first <= 1 && last >= 1) {
+    LAUNCH(bls_miller_kernel, job_blocks, JOB_THREADS, stream, kidx, g1i,
+           g2i, (const line3*)s.table, (const u8*)s.key_ok,
+           (const fp2*)s.g1pt, (const u8*)s.g1_ok, B, P, s.f, s.state);
+    if ((err = cudaGetLastError())) return err;
+  }
+  if (first <= 2 && last >= 2) {
+    LAUNCH(bls_final_exp_kernel, job_blocks, JOB_THREADS, stream,
+           (const fp12p*)s.f, (const u8*)s.state, B, verdict, decode_ok);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
-int bls_g1_aggregate(const int32_t* x12, const u8* sign, const u8* inf,
-                     const u8* valid, int B, int n, int32_t* X, int32_t* Y,
-                     int32_t* Z, u8* ok, cudaStream_t stream) {
-  if (B <= 0) return 0;
-  LAUNCH(bls_g1_aggregate_kernel, B, AGG_THREADS, stream, x12, sign, inf,
-         valid, n, X, Y, Z, ok);
-  return cudaGetLastError();
-}
-
-int bls_g2_aggregate(const int32_t* c1, const int32_t* c0, const u8* sign,
-                     const u8* inf, const u8* valid, int B, int n, int32_t* X,
-                     int32_t* Y, int32_t* Z, u8* ok, cudaStream_t stream) {
-  if (B <= 0) return 0;
-  LAUNCH(bls_g2_aggregate_kernel, B, AGG_THREADS, stream, c1, c0, sign, inf,
-         valid, n, X, Y, Z, ok);
-  return cudaGetLastError();
-}
-
-// the blocks of the first launch, for the scratch's size
-int bls_msm_blocks(int N) { return (N + MSM_THREADS - 1) / MSM_THREADS; }
-
-// scratch: bls_msm_blocks(N) * 144 bytes of partial sums, then a uint32
-// flag that the caller has zeroed
-int bls_g1_msm(const int32_t* x12, const u8* sign, const u8* inf,
-               const u8* valid, const int32_t* digits, int N, void* scratch,
-               int32_t* X, int32_t* Y, int32_t* Z, u8* ok,
-               cudaStream_t stream) {
-  if (N <= 0) return 0;
-  const int blocks = bls_msm_blocks(N);
-  proj<fp>* partial = (proj<fp>*)scratch;
-  u32* bad = (u32*)(partial + blocks);
-  LAUNCH(bls_msm_points_kernel, blocks, MSM_THREADS, stream, x12, sign, inf,
-         valid, digits, N, partial, bad);
-  int err = cudaGetLastError();
-  if (err) return err;
-  LAUNCH(bls_msm_sum_kernel, 1, MSM_THREADS, stream,
-         (const proj<fp>*)partial, blocks, (const u32*)bad, X, Y, Z, ok);
+// the field core's chains (bls_fp_chain_kernel); a [64] operands, b one
+int bls_fp_chain(int sqr, int iters, int chains, const void* a, const void* b,
+                 void* out, long long* cycles, cudaStream_t stream) {
+  if (chains <= 0) return 0;
+  const int threads = chains < 256 ? chains : 256;
+  LAUNCH(bls_fp_chain_kernel, (chains + threads - 1) / threads, threads,
+         stream, sqr, iters, chains, (const fp*)a, (const fp*)b, (fp*)out,
+         cycles);
   return cudaGetLastError();
 }
 

@@ -1,15 +1,18 @@
-// bls381.cu's C entries run on the CPU through cuda_host_shim.h, for tests
-// without a card:
+// The C entries of bls381.cu, bls381_agg.cu and bls381_msm.cu run on the
+// CPU through cuda_host_shim.h, for tests without a card:
 //
 //   g++ -std=c++20 -O1 -pthread -o bls381_host bls381_host.cpp
-//   bls381_host pairing|g1agg|g2agg|msm IN OUT
+//   bls381_host pairing|g1agg|g2agg|msm|fp IN OUT
 //
-// IN holds two int32 (B and P; B and n; B and n; N and 0), then the packed
-// arrays in the order of the entry's arguments (12-bit limbs as int32, a
-// flag a byte, MSM digits as int32). OUT receives the entry's outputs in
-// order: verdict[B] and decode_ok[B] bytes; or X, Y, Z (int32 limbs) and
-// ok bytes. The Montgomery multiplies the launch made, and the squarings
-// among them, are printed on stdout as {"fp_muls": n, "fp_sqrs": s}.
+// IN holds three int32 (B, P and K; B and n; B and n; N, D and the window
+// width c; the operand count n), then the packed arrays in the order of the
+// entry's arguments (12-bit limbs and indices as int32, a flag a byte, MSM
+// digits as int32; for fp, n and n elements as 12 little-endian uint32
+// words each). OUT receives the entry's outputs in order: verdict[B] and
+// decode_ok[B] bytes; or X, Y, Z (int32 limbs) and ok bytes; or for fp the
+// n Montgomery products a_i b_i R^-1 and then the n squares a_i^2 R^-1. The
+// Montgomery multiplies the run made, and the squarings among them, are
+// printed on stdout as {"fp_muls": n, "fp_sqrs": s}.
 #define BLS381_COUNT_MULS
 #include <cstdio>
 #include <memory>
@@ -18,6 +21,8 @@
 
 #include "cuda_host_shim.h"
 #include "bls381.cu"
+#include "bls381_agg.cu"
+#include "bls381_msm.cu"
 
 struct Reader {
   std::vector<uint8_t> buf;
@@ -59,32 +64,33 @@ static bool write_parts(const char* path,
 
 int main(int argc, char** argv) {
   if (argc != 4) {
-    std::fprintf(stderr, "usage: %s pairing|g1agg|g2agg|msm IN OUT\n",
+    std::fprintf(stderr, "usage: %s pairing|g1agg|g2agg|msm|fp IN OUT\n",
                  argv[0]);
     return 2;
   }
   const std::string mode = argv[1];
   Reader in;
   if (!read_file(argv[2], in.buf)) return 2;
-  const int32_t* hdr = in.take<int32_t>(2);
+  const int32_t* hdr = in.take<int32_t>(3);
   if (!hdr) return 2;
-  const int a = hdr[0], b = hdr[1];
+  const int a = hdr[0], b = hdr[1], c = hdr[2];
   const size_t L = BLS_LIMBS12;
   int rc = 0;
   if (mode == "pairing") {
-    const size_t s = (size_t)a * b;
+    const size_t s = (size_t)a * b, k = (size_t)c;
     auto g1x = in.take<int32_t>(s * L);
     auto g1s = in.take<uint8_t>(s), g1i = in.take<uint8_t>(s),
          g1v = in.take<uint8_t>(s);
-    auto g2c1 = in.take<int32_t>(s * L), g2c0 = in.take<int32_t>(s * L);
-    auto g2s = in.take<uint8_t>(s), g2i = in.take<uint8_t>(s),
-         g2v = in.take<uint8_t>(s);
+    auto kidx = in.take<int32_t>(s);
+    auto g2c1 = in.take<int32_t>(k * L), g2c0 = in.take<int32_t>(k * L);
+    auto g2s = in.take<uint8_t>(k), g2i = in.take<uint8_t>(k),
+         g2v = in.take<uint8_t>(k);
     if (!g2v || in.pos != in.buf.size()) return 2;
-    std::vector<fp12> f(s ? s : 1);
-    std::vector<uint8_t> state(s ? s : 1), verdict(a), ok(a);
-    rc = bls_pairing(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v, a, b,
-                     f.data(), state.data(), verdict.data(), ok.data(),
-                     nullptr);
+    std::vector<uint8_t> scratch(bls_pairing_scratch_bytes(a, b, c) + 16);
+    std::vector<uint8_t> verdict(a), ok(a);
+    rc = bls_pairing_stages(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i,
+                            g2v, a, b, c, scratch.data(), verdict.data(),
+                            ok.data(), 0, 2, nullptr);
     write_parts(argv[3], {{verdict.data(), verdict.size()},
                           {ok.data(), ok.size()}});
   } else if (mode == "g1agg" || mode == "g2agg") {
@@ -104,20 +110,31 @@ int main(int argc, char** argv) {
     write_parts(argv[3], {{X.data(), X.size() * 4}, {Y.data(), Y.size() * 4},
                           {Z.data(), Z.size() * 4}, {ok.data(), ok.size()}});
   } else if (mode == "msm") {
-    const size_t n = (size_t)a;
-    auto x = in.take<int32_t>(n * L);
-    auto sg = in.take<uint8_t>(n), inf = in.take<uint8_t>(n),
-         val = in.take<uint8_t>(n);
+    const size_t n = (size_t)a, d = (size_t)b;
+    auto x = in.take<int32_t>(d * L);
+    auto sg = in.take<uint8_t>(d), inf = in.take<uint8_t>(d),
+         val = in.take<uint8_t>(d);
+    auto index = in.take<int32_t>(n);
     auto digits = in.take<int32_t>(n * 64);
     if (!digits || in.pos != in.buf.size()) return 2;
-    const int blocks = bls_msm_blocks(a);
-    std::vector<uint8_t> scratch(blocks * sizeof(proj<fp>) + 8, 0);
+    std::vector<uint8_t> scratch(bls_msm_scratch_bytes(a, b, c), 0);
     std::vector<int32_t> X(L), Y(L), Z(L);
     uint8_t ok = 0;
-    rc = bls_g1_msm(x, sg, inf, val, digits, a, scratch.data(), X.data(),
-                    Y.data(), Z.data(), &ok, nullptr);
+    rc = bls_g1_msm(x, sg, inf, val, b, index, digits, a, c, scratch.data(),
+                    X.data(), Y.data(), Z.data(), &ok, nullptr);
     write_parts(argv[3], {{X.data(), L * 4}, {Y.data(), L * 4},
                           {Z.data(), L * 4}, {&ok, 1}});
+  } else if (mode == "fp") {
+    const size_t n = (size_t)a;
+    auto xs = in.take<fp>(n), ys = in.take<fp>(n);
+    if (!ys || in.pos != in.buf.size()) return 2;
+    std::vector<fp> prod(n), sq(n);
+    for (size_t i = 0; i < n; i++) {
+      fp_mul(&prod[i], &xs[i], &ys[i]);
+      fp_sqr(&sq[i], &xs[i]);
+    }
+    write_parts(argv[3], {{prod.data(), n * sizeof(fp)},
+                          {sq.data(), n * sizeof(fp)}});
   } else {
     return 2;
   }

@@ -55,6 +55,7 @@ struct HostMask {
   int arrived = 0;
   uint64_t gen = 0;
   uint64_t slot[2][32];
+  unsigned char value[2][32][64];   // host_shfl_value's banks
 };
 struct HostWarp {
   std::mutex mu;
@@ -82,6 +83,29 @@ inline const uint64_t* host_exchange(uint32_t mask, uint64_t bits) {
 }
 
 inline void __syncwarp(uint32_t mask = 0xffffffffu) { host_exchange(mask, 0); }
+
+// A shuffle of a whole value of up to 64 bytes, one barrier for all of its
+// words (the kernels' shuffle of a field element word by word, as one).
+#define CUDA_HOST_SHIM 1
+template <class T>
+T host_shfl_value(uint32_t mask, const T& v, int src) {
+  static_assert(sizeof(T) <= 64, "a value shuffle moves at most 64 bytes");
+  HostWarp& w = *host_warp;
+  std::unique_lock<std::mutex> lk(w.mu);
+  HostMask& m = w.masks[mask];
+  const uint64_t gen = m.gen;
+  std::memcpy(m.value[gen & 1][threadIdx.x & 31], &v, sizeof(T));
+  if (++m.arrived == std::popcount(mask)) {
+    m.arrived = 0;
+    ++m.gen;
+    m.cv.notify_all();
+  } else {
+    m.cv.wait(lk, [&] { return m.gen != gen; });
+  }
+  T r;
+  std::memcpy(&r, m.value[gen & 1][src & 31], sizeof(T));
+  return r;
+}
 
 // The threads of one block.
 struct HostBlock {
@@ -155,6 +179,9 @@ T __ldcg(const T* p) {
 }
 inline uint32_t atomicOr(uint32_t* p, uint32_t v) {
   return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
 
 // kernel<<<grid, block>>>(args...) on the host.

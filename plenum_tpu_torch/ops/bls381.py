@@ -4,8 +4,9 @@ compressed G1 and G2 points that the BLS kernels share.
 Port of plenum_tpu/ops/bls381_jax.py (`_aggregate_kernel`, an XLA device
 program, and its host plumbing) and of the host half of
 plenum_tpu/ops/bls381_tower.py (`pack_g2_compressed`, `_be48_to_limbs`,
-`_limbs_lt_q`). The kernels are csrc/bls381.cu; the pairing, the MSM and
-the G2 aggregate are wrapped in ops/bls381_pairing.py.
+`_limbs_lt_q`). The kernels are csrc/bls381.cu (the pairing),
+bls381_agg.cu (the aggregates) and bls381_msm.cu (the MSM); the pairing,
+the MSM and the G2 aggregate are wrapped in ops/bls381_pairing.py.
 
 A packed coordinate keeps the JAX package's layout: 32 limbs of 12 bits in
 int32 ([..., 32], standard domain, x < q checked here), with three flags a
@@ -51,11 +52,12 @@ G2_INF = bytes([0xC0] + [0] * 95)
 # as additions) are not counted. Each is priced in 32-bit multiply-adds
 # (INT32_OPS): a multiply's 12 x 12 word products, low and high halves
 # (288), a square's 78 (156), and the reduction's m*q (288) and m (12).
-# The kernels do more than this (a complete addition where a mixed one
-# would do, a tree padded to the block, a Miller loop and a G2
-# decompression per pair); tests/test_torch_bls381.py builds their own
-# schedule from the same pieces and holds it against the multiplies and
-# squarings that the host build counts.
+# The kernels do a little more than this (the aggregates' complete
+# additions and their tree padded to the block, a G1 decompression per
+# pair, the fp12 inverse's cubic norm, the MSM's bucket sums in segments);
+# tests/test_torch_bls381.py builds their own schedule from the same
+# pieces and holds it against the multiplies and squarings that the host
+# build counts.
 
 M = np.array([1, 0])
 S = np.array([0, 1])
@@ -326,18 +328,29 @@ def _stream(device) -> int:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# csrc/bls381.cu's C entries; set once, when the library loads
+# the C entries of csrc/bls381.cu (the pairing, the field core's chains),
+# csrc/bls381_agg.cu (the aggregates) and csrc/bls381_msm.cu (the MSM),
+# three libraries built at once; set once, when a library loads
 SIGNATURES = {
-    "bls_pairing": [_P] * 9 + [_I, _I] + [_P] * 5,
-    "bls_g1_aggregate": [_P] * 4 + [_I, _I] + [_P] * 5,
-    "bls_g2_aggregate": [_P] * 5 + [_I, _I] + [_P] * 5,
-    "bls_g1_msm": [_P] * 5 + [_I] + [_P] * 6,
-    "bls_msm_blocks": [_I],
+    "bls381": {
+        "bls_pairing_stages": [_P] * 10 + [_I, _I, _I] + [_P] * 3
+        + [_I, _I, _P],
+        "bls_pairing_scratch_bytes": [_I, _I, _I],
+        "bls_fp_chain": [_I, _I, _I] + [_P] * 5,
+    },
+    "bls381_agg": {
+        "bls_g1_aggregate": [_P] * 4 + [_I, _I] + [_P] * 5,
+        "bls_g2_aggregate": [_P] * 5 + [_I, _I] + [_P] * 5,
+    },
+    "bls381_msm": {
+        "bls_g1_msm": [_P] * 4 + [_I] + [_P] * 2 + [_I, _I] + [_P] * 6,
+        "bls_msm_scratch_bytes": [_I, _I, _I],
+    },
 }
 
 
-def library() -> ctypes.CDLL:
-    return cuda_lib.load("bls381", SIGNATURES)
+def library(name: str = "bls381") -> ctypes.CDLL:
+    return cuda_lib.load(name, SIGNATURES[name])
 
 
 def launch_error(entry: str, err: int) -> None:
@@ -397,7 +410,7 @@ def _check_g1_args(x, sign_big, is_inf, valid, B, n):
 
 def g1_aggregate_cuda(x: torch.Tensor, sign_big: torch.Tensor,
                       is_inf: torch.Tensor, valid: torch.Tensor):
-    """The CUDA kernel (csrc/bls381.cu, bls_g1_aggregate) on CUDA tensors,
+    """The CUDA kernel (csrc/bls381_agg.cu, bls_g1_aggregate) on CUDA tensors,
     the function of g1_aggregate_plain: a block per job. Launches on the
     current stream and returns without synchronising; counts each launch
     in `g1_aggregate_cuda.launches`."""
@@ -410,7 +423,7 @@ def g1_aggregate_cuda(x: torch.Tensor, sign_big: torch.Tensor,
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return X, Y, Z, ok
-    fn = library().bls_g1_aggregate
+    fn = library("bls381_agg").bls_g1_aggregate
     with torch.cuda.device(dev):
         err = fn(*_ptrs(x, sign_big, is_inf, valid), B, n,
                  *_ptrs(X, Y, Z, ok), _stream(dev))

@@ -3,8 +3,9 @@ and G2 aggregation on the device.
 
 Port of plenum_tpu/ops/bls381_pairing.py (`_pairing_kernel`, `_msm_kernel`
 and `_g2_aggregate_kernel`, XLA device programs, and their dispatch and
-collect); the kernels are csrc/bls381.cu. The mesh branches of the JAX
-package stay out (ROADMAP A5), and so does its padding of the job and pair
+collect); the kernels are csrc/bls381.cu (the pairing), bls381_msm.cu
+and bls381_agg.cu. The mesh branches of the JAX package stay out
+(ROADMAP A5), and so does its padding of the job and pair
 axes to powers of two, which only let jit reuse a compiled shape: a launch
 takes exactly B jobs of P pairs (the most pairs of any job; shorter jobs
 are padded with infinity pairs, which are neutral).
@@ -14,8 +15,12 @@ are padded with infinity pairs, which are neutral).
   decode_ok[B]. A pair with both points at infinity is neutral, one at
   infinity fails its job. No subgroup checks: crypto/bls.py makes them
   before it builds jobs. The contract is crypto/bls_ops.pairing_job_host.
+  The host packs each distinct G2 encoding once (a launch's jobs share a
+  handful of keys) with an index a pair, so the card decompresses each
+  key and runs its Miller lines once.
 - `msm_*`: Σ sᵢ·Pᵢ over compressed G1 points, scalars mod r as 64 base-16
-  digits (most significant first).
+  digits (most significant first); each distinct point packed once, with
+  an index a scalar.
 - `g2_aggregate_*`: B sets of compressed G2 points (public keys), each
   summed.
 
@@ -48,53 +53,80 @@ MSM_DIGITS = 64
 # ---------------------------------------------------------------- packing
 
 
+def _distinct_rows(raw: np.ndarray):
+    """[N, width] uint8 encodings → (the distinct rows [K, width], the
+    index [N] int32 of each row among them)."""
+    raw = np.ascontiguousarray(raw)
+    if raw.shape[0] == 0:
+        return raw, np.zeros(0, dtype=np.int32)
+    rows = raw.view(np.dtype((np.void, raw.shape[1]))).reshape(-1)
+    _, first, inverse = np.unique(rows, return_index=True,
+                                  return_inverse=True)
+    return raw[first], inverse.reshape(-1).astype(np.int32)
+
+
 def _pack_pair_arrays(jobs, B: int, P: int):
-    """B jobs of at most P (G1, G2) byte pairs → the pairing kernel's nine
+    """B jobs of at most P (G1, G2) byte pairs → the pairing kernel's ten
     numpy arrays: G1 limbs [B, P, 32] and flags [B, P] (sign, infinity,
-    valid), G2 c1 and c0 limbs and flags; short jobs padded with
-    infinity pairs."""
+    valid), the index [B, P] int32 of each pair's G2 key, then the K
+    distinct keys' c1 and c0 limbs [K, 32] and flags [K]; short jobs
+    padded with infinity pairs."""
     g1raw = raw_points([[p[0] for p in j] for j in jobs], P, G1_BYTES)
     g2raw = raw_points([[p[1] for p in j] for j in jobs], P, G2_BYTES)
     l1, s1, i1, v1 = pack_compressed(g1raw.reshape(B * P, G1_BYTES))
-    c1, c0, s2, i2, v2 = pack_g2_compressed(g2raw.reshape(B * P, G2_BYTES))
+    keys, kidx = _distinct_rows(g2raw.reshape(B * P, G2_BYTES))
     return (l1.reshape(B, P, NLIMB), s1.reshape(B, P), i1.reshape(B, P),
-            v1.reshape(B, P), c1.reshape(B, P, NLIMB),
-            c0.reshape(B, P, NLIMB), s2.reshape(B, P), i2.reshape(B, P),
-            v2.reshape(B, P))
+            v1.reshape(B, P), kidx.reshape(B, P)) \
+        + tuple(pack_g2_compressed(keys))
+
+
+def expand_keys(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v):
+    """The pairing's packed arrays (numpy) with each pair's key written
+    out: the nine [B, P] arrays of the JAX package's layout, which
+    pairing_cost counts from."""
+    k = np.asarray(kidx)
+    return (g1x, g1s, g1i, g1v) + tuple(np.asarray(a)[k] for a in
+                                        (g2c1, g2c0, g2s, g2i, g2v))
 
 
 # ---------------------------------------------------------------- pairing
 
-def pairing_plain(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v):
+def pairing_plain(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v):
     """The pairing kernel's function with the port's host arithmetic:
-    packed [B, P] pairs → (verdict [B] bool, decode_ok [B] bool), per job
-    the semantics of crypto/bls_ops.pairing_job_host (a both-infinity pair
-    neutral, a one-sided infinity or an undecodable point failing the
-    job, else the product of the live pairs' pairings equal to 1). G2
-    decompressions are memoized within the call (jobs repeat keys)."""
+    packed [B, P] pairs (each pair's G2 key by its index into [K] key
+    rows) → (verdict [B] bool, decode_ok [B] bool), per job the semantics
+    of crypto/bls_ops.pairing_job_host (a both-infinity pair neutral, a
+    one-sided infinity or an undecodable point failing the job, else the
+    product of the live pairs' pairings equal to 1). Each key is
+    decompressed once a call."""
     from plenum_tpu_torch.crypto import bls_ops
     B, P = int(g1x.shape[0]), int(g1x.shape[1])
-    _check_pairing_args(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v, B, P)
-    a = [t.cpu().numpy() for t in (g1x, g1s, g1i, g1v, g2c1, g2c0, g2s,
-                                   g2i, g2v)]
-    x1, s1, i1, v1, c1, c0, s2, i2, v2 = a
+    K = int(g2c1.shape[0])
+    _check_pairing_args(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v,
+                        B, P, K)
+    x1, s1, i1, v1, ki, c1, c0, s2, i2, v2 = (
+        t.cpu().numpy() for t in (g1x, g1s, g1i, g1v, kidx, g2c1, g2c0,
+                                  g2s, g2i, g2v))
+    if ((ki < 0) | (ki >= K)).any():
+        raise ValueError("kidx holds a key index outside [0, {})".format(K))
     g2_memo = {}
     verdict = np.zeros(B, dtype=bool)
     decode_ok = np.zeros(B, dtype=bool)
     for b in range(B):
         ok, live = True, []
         for p in range(P):
-            if not (v1[b, p] and v2[b, p]) or i1[b, p] != i2[b, p]:
+            k = ki[b, p]
+            if not (v1[b, p] and v2[k]) or i1[b, p] != i2[k]:
                 ok = False
                 continue
             if i1[b, p]:
                 continue
             try:
                 g1 = bls_ops.g1_decompress(g1_bytes(x1[b, p], s1[b, p]))
-                raw2 = g2_bytes(c1[b, p], c0[b, p], s2[b, p])
-                if raw2 not in g2_memo:
-                    g2_memo[raw2] = bls_ops.g2_decompress(raw2)
-                live.append((g1, g2_memo[raw2]))
+                if k not in g2_memo:
+                    g2_memo[k] = bls_ops.g2_decompress(
+                        g2_bytes(c1[k], c0[k], s2[k]))
+                live.append((g1, g2_memo[k]))
             except ValueError:
                 ok = False
         decode_ok[b] = ok
@@ -110,32 +142,52 @@ def pairing_plain(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v):
         torch.from_numpy(decode_ok).to(dev)
 
 
-def _check_pairing_args(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v, B, P):
-    _check(g1x, (B, P, NLIMB), torch.int32, g1x=g1x, g2c1=g2c1, g2c0=g2c0)
-    _check(g1x, (B, P), torch.uint8, g1s=g1s, g1i=g1i, g1v=g1v, g2s=g2s,
-           g2i=g2i, g2v=g2v)
+def _check_pairing_args(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v,
+                        B, P, K):
+    _check(g1x, (B, P, NLIMB), torch.int32, g1x=g1x)
+    _check(g1x, (B, P), torch.uint8, g1s=g1s, g1i=g1i, g1v=g1v)
+    _check(g1x, (B, P), torch.int32, kidx=kidx)
+    _check(g1x, (K, NLIMB), torch.int32, g2c1=g2c1, g2c0=g2c0)
+    _check(g1x, (K,), torch.uint8, g2s=g2s, g2i=g2i, g2v=g2v)
 
 
-def pairing_cuda(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v):
-    """The CUDA kernels (csrc/bls381.cu, bls_pairing: a thread per pair for
-    the decompressions and the Miller loop, then a thread per job for the
-    product and the final exponentiation) on CUDA tensors, the function of
-    pairing_plain. Launches on the current stream, reads nothing back;
-    counts each call in `pairing_cuda.launches`."""
+def pairing_scratch(B: int, P: int, K: int, device) -> torch.Tensor:
+    """The device scratch of a pairing launch: the keys' line tables, the
+    decompressed G1 points, the jobs' Miller values and flags."""
+    return torch.empty((library().bls_pairing_scratch_bytes(B, P, K),),
+                       dtype=torch.uint8, device=device)
+
+
+def pairing_cuda(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v,
+                 scratch=None, stages=(0, 2)):
+    """The CUDA kernels (csrc/bls381.cu, bls_pairing: the keys' Miller
+    lines and the G1 decompressions, one Miller accumulator a job on six
+    lanes, the final exponentiation on six lanes a job) on CUDA tensors,
+    the function of pairing_plain. Launches on the current stream, reads
+    nothing back; counts each call in `pairing_cuda.launches`. `stages`
+    (first, last of 0 lines, 1 Miller, 2 final exponentiation) with a
+    `scratch` from pairing_scratch that an earlier call filled runs part
+    of a launch, for timing."""
     B, P = int(g1x.shape[0]), int(g1x.shape[1])
-    _check_pairing_args(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v, B, P)
+    K = int(g2c1.shape[0])
+    _check_pairing_args(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v,
+                        B, P, K)
     _need_cuda(g1x, "pairing_cuda")
+    if P > 32:
+        raise ValueError("pairing_cuda takes at most 32 pairs a job")
     dev = g1x.device
     verdict = torch.empty((B,), dtype=torch.bool, device=dev)
     decode_ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0 or P == 0:
         return verdict.fill_(True), decode_ok.fill_(True)
-    f = torch.empty((B * P, 12 * 6), dtype=torch.int64, device=dev)
-    state = torch.empty((B * P,), dtype=torch.uint8, device=dev)
-    fn = library().bls_pairing
+    if scratch is None:
+        scratch = pairing_scratch(B, P, K, dev)
+    lib = library()
     with torch.cuda.device(dev):
-        err = fn(*_ptrs(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v), B, P,
-                 *_ptrs(f, state, verdict, decode_ok), _stream(dev))
+        err = lib.bls_pairing_stages(
+            *_ptrs(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v), B,
+            P, K, *_ptrs(scratch, verdict, decode_ok), stages[0], stages[1],
+            _stream(dev))
     launch_error("bls_pairing", err)
     pairing_cuda.launches += 1
     return verdict, decode_ok
@@ -151,12 +203,13 @@ def pairing(*arrays):
 
 def pairing_cost(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v, decode_ok):
     """The (M, S) that one pairing launch's function needs, from its packed
-    inputs (numpy) and its decode_ok [B]: each distinct valid finite G1
-    and G2 point decompressed once; the lines of each distinct G2 point of
-    a live pair (its doubling and addition steps); in each job that
-    decoded with a live pair, one Miller accumulator (its squarings past
-    the first, of one), each live pair's lines evaluated and multiplied
-    in, and one final exponentiation."""
+    inputs (numpy; each pair's key written out, expand_keys) and its
+    decode_ok [B]: each distinct valid finite G1 and G2 point decompressed
+    once; the lines of each distinct G2 point of a live pair (its doubling
+    and addition steps); in each job that decoded with a live pair, one
+    Miller accumulator (its squarings past the first, of one), each live
+    pair's lines evaluated and multiplied in, and one final
+    exponentiation."""
     m = COST
     g1f = np.asarray(g1v, bool) & ~np.asarray(g1i, bool)
     g2f = np.asarray(g2v, bool) & ~np.asarray(g2i, bool)
@@ -224,64 +277,86 @@ def _digits_to_int(row) -> int:
     return v
 
 
-def _check_msm_args(x, s, i, v, digits, N):
-    _check(x, (N, NLIMB), torch.int32, x=x)
-    _check(x, (N,), torch.uint8, sign_big=s, is_inf=i, valid=v)
+def msm_window(N: int) -> int:
+    """The bucket method's window width for N scalars: the c that
+    msm_cost picks when every window of every scalar is nonzero."""
+    best, best_c = None, 1
+    for c in range(1, 17):
+        W = -(-255 // c)
+        cost = int32_ops(N * W * COST["g1_madd"]
+                         + W * (2 ** (c + 1) - 4) * COST["g1_add"]
+                         + (W - 1) * (c * COST["g1_dbl"] + COST["g1_add"]))
+        if best is None or cost < best:
+            best, best_c = cost, c
+    return best_c
+
+
+def _check_msm_args(x, s, i, v, index, digits, D, N):
+    _check(x, (D, NLIMB), torch.int32, x=x)
+    _check(x, (D,), torch.uint8, sign_big=s, is_inf=i, valid=v)
+    _check(x, (N,), torch.int32, index=index)
     _check(x, (N, MSM_DIGITS), torch.int32, digits=digits)
 
 
-def msm_plain(x, sign_big, is_inf, valid, digits):
-    """The MSM kernel's function with the port's host arithmetic: [N, 32]
-    limbs, [N] flags, [N, 64] digits → (X, Y, Z [32] int32 normalized,
-    ok bool scalar tensor): Σ sᵢ·Pᵢ by g1_decompress, g1_mul and g1_add
-    over the finite points; a point that is not a valid encoding or not
-    on the curve gives ok False and the identity."""
+def msm_plain(x, sign_big, is_inf, valid, index, digits):
+    """The MSM kernel's function with the port's host arithmetic: D
+    distinct points ([D, 32] limbs, [D] flags), the [N] index of each
+    scalar's point among them, [N, 64] digits → (X, Y, Z [32] int32
+    normalized, ok bool scalar tensor): Σ sᵢ·P_index[i] by g1_decompress,
+    g1_mul and g1_add over the finite points; a point that is not a valid
+    encoding or not on the curve gives ok False and the identity."""
     from plenum_tpu_torch.crypto import bls_ops
-    N = int(x.shape[0])
-    _check_msm_args(x, sign_big, is_inf, valid, digits, N)
-    xs, sg, inf, val, dig = (t.cpu().numpy() for t in
-                             (x, sign_big, is_inf, valid, digits))
-    agg, ok = None, True
+    D, N = int(x.shape[0]), int(index.shape[0])
+    _check_msm_args(x, sign_big, is_inf, valid, index, digits, D, N)
+    xs, sg, inf, val, idx, dig = (t.cpu().numpy() for t in
+                                  (x, sign_big, is_inf, valid, index, digits))
+    if ((idx < 0) | (idx >= D)).any():
+        raise ValueError("index holds a point outside [0, {})".format(D))
+    points, ok = {}, True
+    for d in range(D):
+        if not val[d]:
+            ok = False
+        elif not inf[d]:
+            try:
+                points[d] = bls_ops.g1_decompress(g1_bytes(xs[d], sg[d]))
+            except ValueError:
+                ok = False
+    agg = None
     for k in range(N):
-        if not val[k]:
-            ok = False
-            continue
-        if inf[k]:
-            continue
-        try:
-            p = bls_ops.g1_decompress(g1_bytes(xs[k], sg[k]))
-        except ValueError:
-            ok = False
-            continue
-        agg = bls_ops.g1_add(agg, bls_ops.g1_mul(p, _digits_to_int(dig[k])))
+        if ok and idx[k] in points:
+            agg = bls_ops.g1_add(agg, bls_ops.g1_mul(
+                points[idx[k]], _digits_to_int(dig[k])))
     X, Y, Z = (torch.from_numpy(a[0]).to(x.device)
                for a in store_points([agg if ok else None]))
     return X, Y, Z, torch.tensor(ok, device=x.device)
 
 
-def msm_cuda(x, sign_big, is_inf, valid, digits):
-    """The CUDA kernels (csrc/bls381.cu, bls_g1_msm: a thread per point and
-    a tree sum per block, then one block over the blocks' sums) on CUDA
-    tensors, the function of msm_plain. Counts each call in
-    `msm_cuda.launches`; reads nothing back."""
-    N = int(x.shape[0])
-    _check_msm_args(x, sign_big, is_inf, valid, digits, N)
+def msm_cuda(x, sign_big, is_inf, valid, index, digits):
+    """The CUDA kernels (csrc/bls381_msm.cu, bls_g1_msm: each distinct point
+    decompressed and each scalar cut into windows of msm_window(N) bits,
+    the buckets by mixed additions, the windows' bucket sums in segments,
+    then one block over the segments and windows) on CUDA tensors, the
+    function of msm_plain. Counts each call in `msm_cuda.launches`; reads
+    nothing back."""
+    D, N = int(x.shape[0]), int(index.shape[0])
+    _check_msm_args(x, sign_big, is_inf, valid, index, digits, D, N)
     _need_cuda(x, "msm_cuda")
     dev = x.device
     X, Y, Z = (torch.empty((NLIMB,), dtype=torch.int32, device=dev)
                for _ in range(3))
     ok = torch.empty((), dtype=torch.bool, device=dev)
-    if N == 0:
+    if N == 0 or D == 0:
         X.zero_(), Z.zero_(), Y.zero_()
         Y[0] = 1
         return X, Y, Z, ok.fill_(True)
-    lib = library()
-    blocks = lib.bls_msm_blocks(N)
-    # the blocks' partial sums (3 x 48 bytes each), then the flag word
-    scratch = torch.zeros((blocks * 144 + 16,), dtype=torch.uint8,
-                          device=dev)
+    lib = library("bls381_msm")
+    c = msm_window(N)
+    scratch = torch.empty((lib.bls_msm_scratch_bytes(N, D, c),),
+                          dtype=torch.uint8, device=dev)
+    scratch[:16].zero_()                 # the undecodable-point flag
     with torch.cuda.device(dev):
-        err = lib.bls_g1_msm(*_ptrs(x, sign_big, is_inf, valid, digits), N,
+        err = lib.bls_g1_msm(*_ptrs(x, sign_big, is_inf, valid), D,
+                             *_ptrs(index, digits), N, c,
                              *_ptrs(scratch, X, Y, Z, ok), _stream(dev))
     launch_error("bls_g1_msm", err)
     msm_cuda.launches += 1
@@ -298,12 +373,13 @@ def msm(*arrays):
 
 def msm_cost(x, sign_big, is_inf, valid, digits, ok, Z):
     """The (M, S) that one MSM call's function needs, from its packed
-    inputs and its outputs ok and Z [32] (numpy): each distinct valid
-    finite point decompressed once, then the bucket method at the window
-    width c that needs least: in each of the ceil(255 / c) windows a mixed
-    addition for each finite point whose digit there is not zero, the
-    running sum of the 2^c - 1 buckets (2^(c+1) - 4 additions), and
-    between windows c doublings and an addition; the result normalized."""
+    inputs (a point row for each scalar: expand_points) and its outputs ok
+    and Z [32] (numpy): each distinct valid finite point decompressed
+    once, then the bucket method at the window width c that needs least:
+    in each of the ceil(255 / c) windows a mixed addition for each finite
+    point whose digit there is not zero, the running sum of the 2^c - 1
+    buckets (2^(c+1) - 4 additions), and between windows c doublings and
+    an addition; the result normalized."""
     m = COST
     finite = np.asarray(valid, bool) & ~np.asarray(is_inf, bool)
     if not bool(ok):
@@ -328,6 +404,26 @@ def msm_cost(x, sign_big, is_inf, valid, digits, ok, Z):
         + best + store_cost(store, FP_INV, M, 2 * M)
 
 
+def expand_points(x, sign_big, is_inf, valid, index, digits):
+    """The MSM's packed arrays (numpy) with each scalar's point written
+    out: (x, sign_big, is_inf, valid, digits), [N] rows, as msm_cost
+    counts from."""
+    k = np.asarray(index)
+    return tuple(np.asarray(a)[k] for a in (x, sign_big, is_inf, valid)) \
+        + (digits,)
+
+
+def pack_msm(points: Sequence[bytes], scalars: Sequence[int]):
+    """N compressed G1 points and N scalars → the MSM kernel's six numpy
+    arrays: the D distinct points' limbs [D, 32] and flags [D], the index
+    [N] of each scalar's point, the digits [N, 64]."""
+    raw = np.frombuffer(b"".join(points), dtype=np.uint8).reshape(-1,
+                                                                  G1_BYTES)
+    distinct, index = _distinct_rows(raw)
+    return tuple(pack_compressed(distinct)) + (
+        index, scalar_digits(scalars, len(points)))
+
+
 def msm_dispatch(points: Sequence[bytes], scalars: Sequence[int],
                  device=None):
     """Enqueue Σ sᵢ·Pᵢ over compressed G1 points on `device` (None means
@@ -335,11 +431,7 @@ def msm_dispatch(points: Sequence[bytes], scalars: Sequence[int],
     dev = resolve_device(device)
     N = len(points)
     _tmy.get_seam_hub().record_launch(_tmy.SEAM_BLS_MSM, N, N, shape=(N,))
-    raw = np.frombuffer(b"".join(points), dtype=np.uint8).reshape(-1,
-                                                                  G1_BYTES)
-    limbs, sign_big, is_inf, valid = pack_compressed(raw)
-    return msm(*upload([limbs, sign_big, is_inf, valid,
-                        scalar_digits(scalars, N)], dev))
+    return msm(*upload(pack_msm(points, scalars), dev))
 
 
 def msm_collect(handles) -> Tuple[Optional[Tuple[int, int]], bool]:
@@ -408,7 +500,7 @@ def g2_aggregate_plain(c1, c0, sign_big, is_inf, valid):
 
 
 def g2_aggregate_cuda(c1, c0, sign_big, is_inf, valid):
-    """The CUDA kernel (csrc/bls381.cu, bls_g2_aggregate: a block per job,
+    """The CUDA kernel (csrc/bls381_agg.cu, bls_g2_aggregate: a block per job,
     a thread per point, a tree sum in shared memory) on CUDA tensors, the
     function of g2_aggregate_plain. Counts each launch in
     `g2_aggregate_cuda.launches`; reads nothing back."""
@@ -421,7 +513,7 @@ def g2_aggregate_cuda(c1, c0, sign_big, is_inf, valid):
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return X, Y, Z, ok
-    fn = library().bls_g2_aggregate
+    fn = library("bls381_agg").bls_g2_aggregate
     with torch.cuda.device(dev):
         err = fn(*_ptrs(c1, c0, sign_big, is_inf, valid), B, n,
                  *_ptrs(X, Y, Z, ok), _stream(dev))

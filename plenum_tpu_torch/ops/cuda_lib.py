@@ -34,7 +34,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SOURCES = ("sha256", "sha3", "ed25519_verify", "sha256_ceilings", "bls381")
+SOURCES = ("sha256", "sha3", "ed25519_verify", "sha256_ceilings", "bls381",
+           "bls381_agg", "bls381_msm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

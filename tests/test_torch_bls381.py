@@ -284,8 +284,10 @@ def bls381_host():
 
 
 def _run_host(exe, tmp_path, mode, header, arrays):
-    """Run one entry of the host build → (its output bytes, the (M, S)
-    it made: multiplies that are not squarings, squarings)."""
+    """Run one entry of the host build (header: three int32) → (its output
+    bytes, the (M, S) it made: multiplies that are not squarings,
+    squarings)."""
+    header = list(header) + [0] * (3 - len(header))
     with open(tmp_path / "in", "wb") as f:
         f.write(np.asarray(header, dtype=np.int32).tobytes())
         for a in arrays:
@@ -310,32 +312,57 @@ def _split(raw, shapes):
     return out
 
 
-# The kernels' own schedule (csrc/bls381.cu) from the bounds' pieces:
-# complete additions with their two multiplies by 3b, the aggregates' tree
-# padded to the 128-thread block, the MSM's w = 4 table and Horner walk per
-# point over 64-point blocks, a Miller loop and both decompressions per
-# pair, an inversion per stored result.
-AGG_THREADS, MSM_THREADS = 128, 64
+# The kernels' own schedule (csrc/bls381.cu) from the bounds' pieces: a G2
+# key's decompression and lines once a launch, a G1 decompression a pair,
+# one Miller accumulator a job (the host's fp12 squaring, line and final
+# exponentiation, the inverse by the cubic norm: 13 multiplies above the
+# host's 105); complete additions with the multiply by 3b as additions,
+# the aggregates' tree padded to the 128-thread block; the MSM's bucket
+# method: mixed additions into the buckets, each window's buckets summed
+# in segments (a running sum of complete additions), the segments and
+# then the windows combined (a doubling's two squarings done as products
+# there); an inversion per stored result.
+AGG_THREADS = 128
 C = bls381.COST
-K_G1_ADD, K_G2_ADD = 14 * bls381.M, 14 * bls381.M2
-K_G1_STORE = bls381.FP_INV + 4 * bls381.M
-K_G2_STORE = bls381.FP2_INV + 2 * bls381.M2 + 4 * bls381.M
-K_MILLER = 63 * (C["fp12_sqr"] + C["miller_dbl"] + C["line"]) \
-    + 5 * (C["miller_add"] + C["line"])
+M, S, M2 = bls381.M, bls381.S, bls381.M2
+K_G1_ADD, K_G2_ADD = C["g1_add"], C["g2_add"]
+K_G1_STORE = bls381.FP_INV + 4 * M
+K_G2_STORE = bls381.FP2_INV + 2 * M2 + 4 * M
+K_G1_DBL = 8 * M         # the six-lane doubling: its squarings as products
+K_LINES = 63 * C["miller_dbl"] + 5 * C["miller_add"]
+K_MILLER_JOB = 62 * C["fp12_sqr"]
+K_LINE = C["line"]
+K_FINAL_EXP = C["final_exp"] + 13 * M
 
 
 def _finite(is_inf, valid):
     return np.asarray(valid, bool) & ~np.asarray(is_inf, bool)
 
 
-def _kernel_pairing(g1i, g1v, g2i, g2v, decode_ok):
-    g1f, g2f = _finite(g1i, g1v), _finite(g2i, g2v)
-    live = (g1f & g2f).sum(axis=1)
+def _kernel_pairing(arrays, key_on_curve, decode_ok):
+    g1x, g1s, g1i, g1v, kidx, c1, c0, g2s, g2i, g2v = arrays
+    keys = _finite(g2i, g2v)
+    live = (_finite(g1i, g1v) & keys[kidx]).sum(axis=1)
     jobs = np.asarray(decode_ok, bool) & (live > 0)
-    return int(g1f.sum()) * C["g1_decompress"] \
-        + int(g2f.sum()) * C["g2_decompress"] + int(live.sum()) * K_MILLER \
-        + int(jobs.sum()) * C["final_exp"] \
-        + int((live[jobs] - 1).sum()) * C["fp12_mul"]
+    return int(_finite(g1i, g1v).sum()) * C["g1_decompress"] \
+        + int(keys.sum()) * C["g2_decompress"] \
+        + int((keys & key_on_curve).sum()) * K_LINES \
+        + int(jobs.sum()) * (K_MILLER_JOB + K_FINAL_EXP) \
+        + int(live[jobs].sum()) * 68 * K_LINE
+
+
+def _key_on_curve(arrays):
+    """The keys whose encoding is valid and decompresses."""
+    c1, c0, g2s, g2i, g2v = arrays[5:]
+    out = np.zeros(len(g2v), dtype=bool)
+    for k in range(len(g2v)):
+        if g2v[k] and not g2i[k]:
+            try:
+                bls_ops.g2_decompress(bls381.g2_bytes(c1[k], c0[k], g2s[k]))
+                out[k] = True
+            except ValueError:
+                pass
+    return out
 
 
 def _kernel_aggregate(is_inf, valid, stores, dec, add, store):
@@ -343,29 +370,146 @@ def _kernel_aggregate(is_inf, valid, stores, dec, add, store):
         + valid.shape[0] * (AGG_THREADS - 1) * add + stores * store
 
 
-def _kernel_msm(is_inf, valid, store):
-    blocks = -(-valid.shape[0] // MSM_THREADS)
-    return int(_finite(is_inf, valid).sum()) \
-        * (C["g1_decompress"] + (14 + 64 * 5) * K_G1_ADD) \
-        + (blocks * MSM_THREADS + MSM_THREADS - 1) * K_G1_ADD \
-        + store * K_G1_STORE
+def _kernel_msm(x, sign, is_inf, valid, index, digits, c, store):
+    """The MSM kernel's multiplies at window width c."""
+    W, seg = -(-255 // c), (16 if c >= 4 else 1 << c)
+    L = (1 << c) // seg
+    fin = _finite(is_inf, valid)
+    windows = np.zeros((len(index), W), dtype=np.int64)
+    for i, row in enumerate(digits):
+        v = bp._digits_to_int(row)
+        windows[i] = [(v >> (c * w)) & ((1 << c) - 1) for w in range(W)]
+    madds = int(((windows != 0) & fin[index][:, None]).sum())
+    adds = W * (seg * 2 * L - 1) + W * (2 * (seg - 1) + seg) + (W - 1)
+    dbls = W * (L.bit_length() - 1) + (W - 1) * c
+    return int(fin.sum()) * C["g1_decompress"] + madds * C["g1_madd"] \
+        + adds * C["g1_add"] + dbls * K_G1_DBL + store * K_G1_STORE
 
 
 def test_host_build_pairing_equals_the_plain_version(bls381_host, tmp_path):
     jobs = _adversarial_jobs()
     Bj, P = len(jobs), 3
     arrays = bp._pack_pair_arrays(jobs, Bj, P)
-    raw, muls = _run_host(bls381_host, tmp_path, "pairing", [Bj, P], arrays)
+    K = arrays[5].shape[0]
+    raw, muls = _run_host(bls381_host, tmp_path, "pairing", [Bj, P, K],
+                          arrays)
     verdict, decode_ok = _split(raw, [(np.uint8, (Bj,)), (np.uint8, (Bj,))])
     want_v, want_ok = bp.pairing_plain(*bls381.upload(arrays, CPU))
     assert verdict.astype(bool).tolist() == want_v.tolist()
     assert decode_ok.astype(bool).tolist() == want_ok.tolist()
     ok = decode_ok.astype(bool)
-    assert np.array_equal(muls, _kernel_pairing(arrays[2], arrays[3],
-                                                arrays[7], arrays[8], ok))
-    need = bp.pairing_cost(*arrays, ok)
+    assert np.array_equal(muls, _kernel_pairing(arrays, _key_on_curve(arrays),
+                                                ok))
+    need = bp.pairing_cost(*bp.expand_keys(*arrays), ok)
     assert (need > 0).all() and bls381.int32_ops(need) \
         < bls381.int32_ops(muls)
+
+
+def _shared_key_jobs():
+    """Verify jobs over three keys, repeated and mixed within and across
+    jobs, with an undecodable key (a valid encoding off the curve) shared
+    by two jobs, a wrong message and a job holding one key twice."""
+    keys = [bls_ops.g2_mul(JB.G2_GEN, k) for k in (3, 5, 7)]
+    neg = JB.g2_compress(JB.g2_neg(JB.G2_GEN))
+    x = 1
+    while True:                          # a G2 x with no point on the curve
+        raw = bytearray((x).to_bytes(96, "big"))
+        raw[0] |= 0x80
+        try:
+            B.g2_decompress(bytes(raw))
+        except ValueError:
+            break
+        x += 1
+    off = bytes(raw)
+
+    def job(sk, msg, key=None):
+        h = JB.hash_to_g1(msg)
+        pk = JB.g2_compress(key if key is not None else keys[sk])
+        sig = bls_ops.g1_mul(h, (3, 5, 7)[sk])
+        return [(JB.g1_compress(sig), neg), (JB.g1_compress(h), pk)]
+    j = [job(i % 3, b"root-%d" % i) for i in range(6)]
+    h = JB.hash_to_g1(b"twice")          # e(15 h, -g) e(2 h, 5 g) e(h, 5 g)
+    both = [(JB.g1_compress(bls_ops.g1_mul(h, 15)), neg),
+            (JB.g1_compress(bls_ops.g1_mul(h, 2)), JB.g2_compress(keys[1])),
+            (JB.g1_compress(h), JB.g2_compress(keys[1]))]
+    return j + [
+        [j[0][0], j[1][1]],                          # wrong key: False
+        [j[2][0], (j[2][1][0], off)],                # undecodable key
+        [(j[3][1][0], off)],                         # ... shared by two
+        [(JB.g1_compress(JB.G1_GEN), neg),
+         (JB.g1_compress(JB.G1_GEN), JB.g2_compress(JB.G2_GEN))],
+        both,                                        # one key twice
+    ]
+
+
+def test_host_build_pairing_on_shared_keys_equals_pairing_job_host(
+        bls381_host, tmp_path):
+    jobs = _shared_key_jobs()
+    want = [jops.pairing_job_host(j) for j in jobs]
+    assert want == [True] * 6 + [False] * 3 + [True] * 2
+    Bj, P = len(jobs), 3
+    arrays = bp._pack_pair_arrays(jobs, Bj, P)
+    K = arrays[5].shape[0]
+    assert K == 7       # -g2, three keys, g2, the bad key, the padding
+    raw, muls = _run_host(bls381_host, tmp_path, "pairing", [Bj, P, K],
+                          arrays)
+    verdict, decode_ok = _split(raw, [(np.uint8, (Bj,)), (np.uint8, (Bj,))])
+    plain_v, plain_ok = bp.pairing_plain(*bls381.upload(arrays, CPU))
+    assert verdict.astype(bool).tolist() == want == plain_v.tolist()
+    assert decode_ok.astype(bool).tolist() == plain_ok.tolist() \
+        == [True] * 7 + [False, False] + [True] * 2
+    assert np.array_equal(muls, _kernel_pairing(
+        arrays, _key_on_curve(arrays), decode_ok.astype(bool)))
+
+
+def test_host_build_pairing_schedule_is_near_the_bound_on_shared_keys(
+        bls381_host, tmp_path):
+    """Config 3's shape at B = 6: honest two-pair verify jobs over one
+    aggregate key (-G2 and the key: two distinct G2 points), every G1
+    point distinct. The counted schedule is within 1.1x of the bound."""
+    rng = random.Random(53)
+    sk = rng.randrange(2, JB.R)
+    jobs = [_good_pair_job(sk=sk, msg=b"commit-%d" % i) for i in range(6)]
+    arrays = bp._pack_pair_arrays(jobs, len(jobs), 2)
+    assert arrays[5].shape[0] == 2
+    raw, muls = _run_host(bls381_host, tmp_path, "pairing",
+                          [len(jobs), 2, 2], arrays)
+    verdict, decode_ok = _split(raw, [(np.uint8, (6,)), (np.uint8, (6,))])
+    assert verdict.all() and decode_ok.all()
+    need = bp.pairing_cost(*bp.expand_keys(*arrays), decode_ok.astype(bool))
+    ratio = bls381.int32_ops(muls) / bls381.int32_ops(need)
+    assert 1.0 < ratio <= 1.1
+
+
+def _fp_words(values):
+    return np.frombuffer(b"".join(int(v).to_bytes(48, "little")
+                                  for v in values), dtype=np.uint32)
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_host_build_field_core_equals_python_integers(bls381_host, tmp_path,
+                                                      op):
+    """The 12 x 32-bit Montgomery core (the card's carry chains, emulated)
+    against a b R^-1 mod q on random operands and the edges 0, 1, q - 1
+    and R mod q."""
+    q, R = JB.Q, 1 << 384
+    rng = random.Random(59)
+    edges = [0, 1, q - 1, R % q]
+    xs = [e for e in edges for _ in edges] + [rng.randrange(q)
+                                              for _ in range(200)]
+    ys = [e for _ in edges for e in edges] + [rng.randrange(q)
+                                              for _ in range(200)]
+    n = len(xs)
+    raw, muls = _run_host(bls381_host, tmp_path, "fp", [n],
+                          [_fp_words(xs), _fp_words(ys)])
+    got = [int.from_bytes(raw[48 * i:48 * i + 48], "little")
+           for i in range(2 * n)]
+    rinv = pow(R, -1, q)
+    if op == "mul":
+        assert got[:n] == [x * y * rinv % q for x, y in zip(xs, ys)]
+    else:
+        assert got[n:] == [x * x * rinv % q for x in xs]
+    assert muls.tolist() == [n, n]
 
 
 def _aggregate_jobs(rng, n):
@@ -423,27 +567,64 @@ def test_host_build_g2_aggregate_equals_the_plain_version(bls381_host,
     assert bls381.int32_ops(need) < bls381.int32_ops(muls)
 
 
-@pytest.mark.parametrize("n", [8, 70])      # one block; two and a tail
-def test_host_build_msm_equals_the_plain_version(bls381_host, tmp_path, n):
-    rng = random.Random(n)
-    pts = [JB.g1_compress(bls_ops.g1_mul(JB.G1_GEN, rng.randrange(1, JB.R)))
-           for _ in range(n - 1)] + [G1_INF]
-    ss = [rng.randrange(0, 1 << 256) for _ in range(n)]
-    raw_pts = np.frombuffer(b"".join(pts), dtype=np.uint8).reshape(-1, 48)
-    arrays = list(bls381.pack_compressed(raw_pts)) + [bp.scalar_digits(ss)]
-    raw, muls = _run_host(bls381_host, tmp_path, "msm", [n, 0], arrays)
+def _run_msm(exe, tmp_path, pts, ss, c=None):
+    arrays = bp.pack_msm(pts, ss)
+    N, D = len(pts), arrays[0].shape[0]
+    c = bp.msm_window(N) if c is None else c
+    raw, muls = _run_host(exe, tmp_path, "msm", [N, D, c], arrays)
     L = bls381.NLIMB
     X, Y, Z, ok = _split(raw, [(np.int32, (L,))] * 3 + [(np.uint8, ())])
     want = bp.msm_plain(*bls381.upload(arrays, CPU))
     for got, w in zip((X, Y, Z, ok.astype(bool)), want):
         assert np.array_equal(got, w.numpy())
-    assert np.array_equal(muls, _kernel_msm(arrays[2], arrays[3],
-                                            int(bool(ok) and Z.any())))
-    need = bp.msm_cost(*arrays, bool(ok), Z)
+    assert np.array_equal(muls, _kernel_msm(
+        *arrays, c, int(bool(ok) and Z.any())))
+    return arrays, (X, Y, Z, bool(ok)), muls
+
+
+@pytest.mark.parametrize("n", [8, 70])      # the small call; a wider one
+def test_host_build_msm_equals_the_plain_version(bls381_host, tmp_path, n):
+    rng = random.Random(n)
+    pts = [JB.g1_compress(bls_ops.g1_mul(JB.G1_GEN, rng.randrange(1, JB.R)))
+           for _ in range(n - 1)] + [G1_INF]
+    pts[1] = pts[0]                      # a repeated point, packed once
+    ss = [rng.randrange(0, 1 << 256) for _ in range(n)]
+    arrays, (X, Y, Z, ok), muls = _run_msm(bls381_host, tmp_path, pts, ss)
+    assert arrays[0].shape[0] == n - 1
+    need = bp.msm_cost(*bp.expand_points(*arrays), ok, Z)
     assert bls381.int32_ops(need) < bls381.int32_ops(muls)
     xy = [bls381.limbs_to_int(a) for a in (X, Y, Z)]
-    assert bls381._proj_to_affine(*xy) == jops.g1_msm(pts[:7], ss[:7]) \
-        if n == 8 else True
+    assert bls381._proj_to_affine(*xy) == jops.g1_msm(pts, ss)
+
+
+@pytest.mark.parametrize("case", ["below_buckets", "zero_windows",
+                                  "infinity_only", "invalid"])
+def test_host_build_msm_edges_equal_the_plain_version(bls381_host, tmp_path,
+                                                      case):
+    """Fewer scalars than buckets (c = 8 at N = 5), scalars whose upper
+    windows are all zero (and a zero scalar), only points at infinity,
+    and an undecodable point (ok False, the identity)."""
+    rng = random.Random(61)
+    pts = [JB.g1_compress(bls_ops.g1_mul(JB.G1_GEN, rng.randrange(1, JB.R)))
+           for _ in range(5)]
+    ss = [rng.randrange(JB.R) for _ in range(5)]
+    c = None
+    if case == "below_buckets":
+        c = 8
+    elif case == "zero_windows":
+        ss = [3, 0, 1 << 17, 255, 12345]
+    elif case == "infinity_only":
+        pts = [G1_INF] * 3
+        ss = ss[:3]
+    else:
+        pts[2] = b"\x00" * 48
+    arrays, (X, Y, Z, ok), _ = _run_msm(bls381_host, tmp_path, pts, ss, c)
+    assert ok == (case != "invalid")
+    if case in ("infinity_only", "invalid"):
+        assert not Z.any()
+    else:
+        xy = [bls381.limbs_to_int(a) for a in (X, Y, Z)]
+        assert bls381._proj_to_affine(*xy) == jops.g1_msm(pts, ss)
 
 
 # ------------------------------------------------ the bounds' own counts
@@ -457,7 +638,7 @@ def test_pairing_bound_counts_shared_g2_points_and_accumulators_once():
     sk = rng.randrange(2, JB.R)
     jobs = [_good_pair_job(sk=sk, msg=b"root-%d" % i) for i in range(4)]
     bad = [(b"\x00" * 48, jobs[0][0][1]), jobs[0][1]]
-    arrays = bp._pack_pair_arrays(jobs + [bad], 5, 2)
+    arrays = bp.expand_keys(*bp._pack_pair_arrays(jobs + [bad], 5, 2))
     ok = np.array([True] * 4 + [False])
     lines = 63 * C["miller_dbl"] + 5 * C["miller_add"]
     want = 8 * C["g1_decompress"] + 2 * C["g2_decompress"] + 2 * lines \
@@ -498,10 +679,10 @@ def test_msm_bound_takes_the_bucket_methods_best_window():
            for _ in range(6)]
     pts = [pts[i % 6] for i in range(n)]
     ss = [rng.randrange(JB.R) for _ in range(n - 1)] + [0]
-    raw = np.frombuffer(b"".join(pts), dtype=np.uint8).reshape(-1, 48)
-    arrays = list(bls381.pack_compressed(raw)) + [bp.scalar_digits(ss)]
+    packed = bp.pack_msm(pts, ss)
     X, Y, Z, ok = (t.numpy() for t in bp.msm_plain(
-        *bls381.upload(arrays, CPU)))
+        *bls381.upload(packed, CPU)))
+    arrays = bp.expand_points(*packed)
     best = None
     for c in range(1, 17):
         W = -(-255 // c)
