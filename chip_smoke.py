@@ -168,7 +168,21 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    exponentiation: "kernel_ms_per_launch") and the verify's own launch
    between CUDA events ("verify_launch_ms", beside its collect), and a
    node's share unroll at n = 4 (four jobs of two pairs) on the kernel
-   and on the host library ("unroll_4_jobs").
+   and on the host library ("unroll_4_jobs"). The aggregates (each
+   distinct point decompressed once, sums on sextets, one inversion
+   by safegcd a job) are also held against their plain versions on
+   adversarial sets (a point repeated within and across jobs, all
+   infinity, an empty job, an undecodable encoding shared by two jobs, P
+   + (-P), an off-curve x, n = 1, more distinct points than a block of
+   the decompression launch holds, and for G2 the sign rule's points);
+   their three launches are timed apart ("kernel_ms_per_stage": prep,
+   sum, store) beside a latency floor ("floor_ms": the critical path's
+   multiplies and squarings at this run's field-core latencies, one
+   inversion's, three empty launches'); the field core line gives one
+   inversion's latency by safegcd and by Fermat; and the host library's
+   g1_aggregate_compressed on the same 256 jobs ("host_library_ms") sits
+   beside aggregate_g1_jobs's wall split into pack, kernel and collect
+   ("wall_ms").
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
@@ -1613,6 +1627,142 @@ def catchup_phase(torch, dev, blobs, profile, ceilings):
         "proofs_per_s": pps}}
 
 
+def aggregate_phase(torch, dev, g1_in, g2_in, agg_jobs, shares, keys, core,
+                    ceilings):
+    """The aggregates beyond the path's check: each against its plain
+    version on the adversarial sets; each launch's three stages timed
+    apart (prep, sum, store: kernel alone on a scratch the full launch
+    filled); the latency floor of each on the path's inputs from this
+    run's field core (a multiply's, a squaring's and an inversion's
+    latency) and an empty launch; the host library's time for the same
+    256 G1 jobs beside the wall of aggregate_g1_jobs split into pack,
+    kernel and collect. → {entry name: fields for its kernels-line row}."""
+    from plenum_tpu_torch import testing
+    from plenum_tpu_torch.crypto import bls_ops
+    from plenum_tpu_torch.ops import bls381, bls381_pairing as bp
+    funcs = {"g1": (bls381.pack_g1_jobs, bls381.g1_aggregate_cuda,
+                    bls381.g1_aggregate_plain, bls381.g1_aggregate_scratch),
+             "g2": (bp.pack_g2_jobs, bp.g2_aggregate_cuda,
+                    bp.g2_aggregate_plain, bp.g2_aggregate_scratch)}
+    # past the distinct points, testing.aggregate_jobs' adversarial cases;
+    # G1 at n = 130, more than a block of the decompression launch holds,
+    # G2 at 34 against its 32 keys
+    sets = {(group, n): testing.aggregate_jobs(group, pts, n)
+            for group, pts, n in (("g1", shares, 5), ("g1", shares, 130),
+                                  ("g2", keys, 34))}
+    for (group, n), jobs in sets.items():
+        pack, cuda_fn, plain_fn, _ = funcs[group]
+        t = bls381.upload(pack(jobs, n), dev)
+        got, want = cuda_fn(*t), plain_fn(*t)
+        check(all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want)),
+              "bls_{}_aggregate equals its plain version on the adversarial "
+              "set at n = {} ({} distinct points)".format(
+                  group, n, int(t[0].shape[0])))
+        check(got[3].cpu().tolist()[:9] == testing.AGGREGATE_JOBS_OK,
+              "bls_{}_aggregate voids exactly the jobs with a bad point "
+              "(n = {})".format(group, n))
+        # an index past the table and a negative one void their jobs
+        index = t[-1].clone()
+        index[1, 0], index[2, 1] = int(t[0].shape[0]), -1
+        got, want = cuda_fn(*t[:-1], index), plain_fn(*t[:-1], index)
+        check(all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+              and got[3].cpu().tolist()[:3] == [True, False, False],
+              "bls_{}_aggregate voids the jobs whose index leaves the table, "
+              "as its plain version (n = {})".format(group, n))
+    log("bls aggregates == plain on the adversarial sets {}".format(
+        [(g, n, len(j)) for (g, n), j in sets.items()]))
+
+    mul_ns, sqr_ns = (core["fp_mul"]["latency_ns"],
+                      core["fp_sqr"]["latency_ns"])
+    inv_ns, fermat_ns = (core["fp_inv_var"]["latency_ns"],
+                         core["fp_inv"]["latency_ns"])
+    # each stage's critical path in (multiplies, squarings): a point's
+    # decompression on one lane; the sum's levels of products (two an
+    # addition: the longest sextet's mixed additions, then the tree);
+    # the store's products around its one inversion
+    prep = {"g1": bls381.COST["g1_decompress"],
+            "g2": bls381.COST["g2_decompress"]}
+    store = {"g1": bls381.G1_STORE, "g2": 2 * bls381.S + 9 * bls381.M}
+    rows = {}
+    for group, tensors in (("g1", g1_in), ("g2", g2_in)):
+        _, cuda_fn, _, scratch_fn = funcs[group]
+        D, (B, n) = int(tensors[0].shape[0]), tuple(tensors[-1].shape)
+        scratch = scratch_fn(B, D, dev)
+        first = cuda_fn(*tensors, scratch=scratch)
+        stage_ms = [kernel_ms(torch, lambda st=st: cuda_fn(
+            *tensors, scratch=scratch, stages=(st, st)), reps=5)
+            for st in range(3)]
+        again = cuda_fn(*tensors, scratch=scratch)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              "bls_{}_aggregate on a reused scratch equals its first "
+              "launch".format(group))
+        inf, valid, index = (t.cpu().numpy() for t in tensors[-3:])
+        finite = (valid != 0) & (inf == 0)
+        groups = bls381.AGG_SUM_GROUPS[group]
+        madds = max(max(int(finite[index[b, g::groups]].sum()) - 1, 0)
+                    for b in range(B) for g in range(groups))
+        levels = 2 * madds + 2 * (groups - 1).bit_length()
+        chain = prep[group] + levels * bls381.M + store[group]
+        floor_ms = (chain[0] * mul_ns + chain[1] * sqr_ns + inv_ns) / 1e6 \
+            + 3 * ceilings["empty_launch_ms"]
+        rows["bls_{}_aggregate".format(group)] = dict(
+            kernel_ms_per_stage={"prep": stage_ms[0], "sum": stage_ms[1],
+                                 "store": stage_ms[2]},
+            floor_ms=floor_ms,
+            floor_chain={"fp_mul": int(chain[0]), "fp_sqr": int(chain[1]),
+                         "inversions": 1, "launches": 3},
+            shape="{} jobs x {}, {} distinct points".format(B, n, D))
+        log("bls_{}_aggregate at {} jobs x {} ({} distinct): per stage prep "
+            "{:.4f} + sum {:.4f} + store {:.4f} ms; latency floor {:.4f} ms "
+            "({} multiplies x {:.1f} ns + {} squarings x {:.1f} ns + an "
+            "inversion {:.1f} ns + 3 launches x {:.5f} ms)".format(
+                group, B, n, D, *stage_ms, floor_ms, int(chain[0]), mul_ns,
+                int(chain[1]), sqr_ns, inv_ns, ceilings["empty_launch_ms"]))
+    log("bls inversion on one thread: safegcd {:.1f} ns, Fermat {:.1f} ns "
+        "({:.1f}x)".format(inv_ns, fermat_ns, fermat_ns / inv_ns))
+
+    # bench.py micro_bls's vs_cpu_floor: the host library on the same 256
+    # jobs, beside aggregate_g1_jobs's wall split into its parts
+    def median3(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[1], out
+    host_ms, host_pts = median3(lambda: [bls_ops.g1_aggregate_compressed(j)
+                                         for j in agg_jobs])
+    n = max(len(j) for j in agg_jobs)
+    parts = {"pack": [], "kernel": [], "collect": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        t = bls381.upload(bls381.pack_g1_jobs(agg_jobs, n), dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = bls381.g1_aggregate_cuda(*t)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pts, _ = bls381.aggregate_collect(out)
+        t3 = time.perf_counter()
+        for key, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(1e3 * v)
+    wall_ms, (wall_pts, _) = median3(lambda: bls381.aggregate_g1_jobs(
+        agg_jobs, dev))
+    check(pts == wall_pts == host_pts,
+          "aggregate_g1_jobs equals the host library's g1_aggregate_compressed"
+          " on the {} jobs".format(len(agg_jobs)))
+    split = {k: sorted(v)[1] for k, v in parts.items()}
+    log("bls G1 aggregate of {} jobs: host library {:.2f} ms; "
+        "aggregate_g1_jobs {:.2f} ms (pack {:.2f}, kernel {:.2f}, collect "
+        "{:.2f})".format(len(agg_jobs), host_ms, wall_ms, split["pack"],
+                         split["kernel"], split["collect"]))
+    rows["bls_g1_aggregate"].update(host_library_ms=host_ms,
+                                    wall_ms=dict(split, total=wall_ms))
+    for row in rows.values():
+        row.update(inversion_ns={"safegcd": inv_ns, "fermat": fermat_ns})
+    return rows
+
+
 BLS_VALIDATORS = (4, 25, 100)   # BASELINE.json config 3
 BLS_AGG_JOBS = 256               # bench.py micro_bls: 256 jobs x 100 shares
 BLS_AGG_MESSAGES = 16            # distinct signed roots among those jobs
@@ -1624,7 +1774,7 @@ READ_WRITES = 4000               # the BLS pool's writes, in two chunks
 READ_TAMPERED = 16
 
 
-def bls_phase(torch, dev):
+def bls_phase(torch, dev, ceilings):
     """Phase 9: the BLS12-381 kernels (csrc/bls381*.cu) on config 3 of
     BASELINE.json and on the read path. Counts are zeroed just before
     each of the two paths and read just after it; the comparisons with
@@ -2090,6 +2240,12 @@ def bls_phase(torch, dev):
     entry("bls_g2_aggregate", bp.g2_aggregate_plain, bp.g2_aggregate_cuda,
           recorded["g2_aggregate"][0],
           lambda h, o: bp.g2_aggregate_cost(*h, o[3], o[2]), 5)
+    for name, extra in aggregate_phase(
+            torch, dev, recorded["g1_aggregate"][0],
+            recorded["g2_aggregate"][0], agg_jobs,
+            [s for m in agg_shares for s in m],
+            [bls.b58_decode(pk) for pk in pks], core, ceilings).items():
+        card_rows[name].update(extra)
     msm_in = [t for t in recorded["msm"] if t[4].shape[0] == max(
         BLS_MSM_POINTS)][0]
     entry("bls_g1_msm", bp.msm_plain, bp.msm_cuda, msm_in,
@@ -2106,8 +2262,9 @@ def bls_phase(torch, dev):
                                            small[4].shape[0]))
     for name, row in card_rows.items():
         log("{}: {} ms {:.4f}, kernel alone {:.4f} ms, bound {:.5f} ms ({}; "
-            "the function's Montgomery multiplies and squarings {}), {:.3%} "
-            "of it; plain {:.1f} ms; == plain".format(
+            "the function's Montgomery multiplies, squarings and inversion "
+            "multiply-adds {}), {:.3%} of it; plain {:.1f} ms; == plain"
+            .format(
                 name, row["shape"], row["ms"], row["kernel_ms"],
                 row["bound_ms"], row["bound_by"], row["fp_mul_sqr"],
                 row["bound_ms"] / row["kernel_ms"], row["plain_ms"]))
@@ -2567,7 +2724,7 @@ def main(argv=None) -> int:
               "library_ms": None}, **catchup["entry"]),
     ] + pool_result["kernels"]
 
-    bls_result = bls_phase(torch, dev)
+    bls_result = bls_phase(torch, dev, ceilings)
     kernels += bls_result["kernels"]
 
     t0 = time.perf_counter()

@@ -1,6 +1,8 @@
 """Measure the BLS12-381 field core of csrc/bls381.cu on one card: the
 latency of one Montgomery multiply and of one squaring on one thread, and
-their rate across the card, on a machine with a CUDA device:
+their rate across the card, and the latency of one inversion by safegcd
+(the aggregates') beside one by Fermat (the pairing's and the MSM's), on a
+machine with a CUDA device:
 
     python3 -m plenum_tpu_torch.bls_field_core
 
@@ -12,8 +14,12 @@ the clock64 cycles of the loop the same way; rate: CHAINS threads (a wave
 of 256-thread blocks at the kernel's registers) of N and 2N steps, their
 multiplies over the difference of the times. Every chain's result is
 checked: chain t starts from operand t mod 64, so each equals the chain of
-its residue, and those 64 equal Python integers. Prints one JSON line;
-`measure()` returns the same dictionary, and chip_smoke.py calls it.
+its residue, and those 64 equal Python integers. An inversion's latency
+the same way on chains x <- x^-1 + b (each inversion's input the last's
+output; safegcd's inverse in the standard domain, Fermat's in the
+Montgomery domain, as the kernels use them) of INV_STEPS and twice as
+many steps. Prints one JSON line; `measure()` returns the same dictionary,
+and chip_smoke.py calls it.
 """
 import json
 import random
@@ -29,6 +35,7 @@ R = 1 << 384
 OPERANDS = 64
 LATENCY_STEPS = 4096
 RATE_STEPS = 256
+INV_STEPS = 64
 CHAINS = 132 * 4 * 256          # four 256-thread blocks an SM
 SEED = 42
 
@@ -38,15 +45,22 @@ def _words(values) -> np.ndarray:
                                   for v in values), dtype=np.int32).copy()
 
 
-def _want(a: int, b: int, steps: int, sqr: bool) -> int:
+MODES = {"fp_mul": 0, "fp_sqr": 1, "fp_inv_var": 2, "fp_inv": 3}
+
+
+def _want(a: int, b: int, steps: int, mode: int) -> int:
     """The chain's result in Python integers."""
     rinv = pow(R, -1, Q)
-    if sqr:
+    if mode == 1:
         return pow(a, 1 << steps, Q) * pow(rinv, (1 << steps) - 1, Q) % Q
-    return a * pow(b * rinv % Q, steps, Q) % Q
+    if mode == 0:
+        return a * pow(b * rinv % Q, steps, Q) % Q
+    for _ in range(steps):   # Fermat's in the Montgomery domain: a^-1 R^2
+        a = (pow(a, Q - 2, Q) * (R * R if mode == 3 else 1) + b) % Q
+    return a
 
 
-def _run(lib, dev, sqr, steps, chains, a, b):
+def _run(lib, dev, mode, steps, chains, a, b):
     """(kernel milliseconds, loop cycles of chain 0, results [chains, 12])
     of one launch after a warm-up launch."""
     out = torch.empty((chains, 12), dtype=torch.int32, device=dev)
@@ -54,7 +68,7 @@ def _run(lib, dev, sqr, steps, chains, a, b):
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        err = lib.bls_fp_chain(int(sqr), steps, chains, a.data_ptr(),
+        err = lib.bls_fp_chain(mode, steps, chains, a.data_ptr(),
                                b.data_ptr(), out.data_ptr(),
                                cycles.data_ptr(), stream)
         bls381.launch_error("bls_fp_chain", err)
@@ -69,15 +83,14 @@ def _run(lib, dev, sqr, steps, chains, a, b):
     return start.elapsed_time(end), int(cycles.item()), out
 
 
-def _check(out, a_vals, b_val, steps, sqr):
+def _check(out, a_vals, b_val, steps, mode):
     first = out[:OPERANDS].cpu().numpy()
     got = [int.from_bytes(first[i].tobytes(), "little")
            for i in range(min(OPERANDS, out.shape[0]))]
-    want = [_want(a, b_val, steps, sqr) for a in a_vals[:len(got)]]
+    want = [_want(a, b_val, steps, mode) for a in a_vals[:len(got)]]
     if got != want:
-        raise RuntimeError("bls_fp_chain: {} chain of {} steps differs "
-                           "from Python integers".format(
-                               "square" if sqr else "multiply", steps))
+        raise RuntimeError("bls_fp_chain: mode {} chain of {} steps differs "
+                           "from Python integers".format(mode, steps))
     n = out.shape[0]
     if n > OPERANDS:
         idx = torch.arange(n, device=out.device) % OPERANDS
@@ -94,21 +107,22 @@ def measure(dev=None) -> dict:
     a = torch.from_numpy(_words(a_vals)).to(dev)
     b = torch.from_numpy(_words([b_val])).to(dev)
     result = {}
-    for name, sqr in (("fp_mul", False), ("fp_sqr", True)):
+    for name in ("fp_mul", "fp_sqr"):
+        mode = MODES[name]
         lat = {}
         for steps in (LATENCY_STEPS, 2 * LATENCY_STEPS):
-            ms, cyc, out = _run(lib, dev, sqr, steps, 1, a, b)
-            _check(out, a_vals, b_val, steps, sqr)
+            ms, cyc, out = _run(lib, dev, mode, steps, 1, a, b)
+            _check(out, a_vals, b_val, steps, mode)
             lat[steps] = (ms, cyc)
         (ms1, c1), (ms2, c2) = lat[LATENCY_STEPS], lat[2 * LATENCY_STEPS]
         rate = {}
         for steps in (RATE_STEPS, 2 * RATE_STEPS):
-            ms, _, out = _run(lib, dev, sqr, steps, CHAINS, a, b)
-            _check(out, a_vals, b_val, steps, sqr)
+            ms, _, out = _run(lib, dev, mode, steps, CHAINS, a, b)
+            _check(out, a_vals, b_val, steps, mode)
             rate[steps] = ms
         per_s = CHAINS * RATE_STEPS / (1e-3 * (rate[2 * RATE_STEPS]
                                                - rate[RATE_STEPS]))
-        ops = 588 if not sqr else 456
+        ops = 588 if mode == 0 else 456
         result[name] = {
             "latency_ns": 1e6 * (ms2 - ms1) / LATENCY_STEPS,
             "latency_cycles": (c2 - c1) / LATENCY_STEPS,
@@ -117,6 +131,16 @@ def measure(dev=None) -> dict:
             "share_of_bound": per_s / (33.5e12 / ops),
             "chains": CHAINS,
         }
+    for name in ("fp_inv_var", "fp_inv"):
+        mode = MODES[name]
+        lat = {}
+        for steps in (INV_STEPS, 2 * INV_STEPS):
+            ms, cyc, out = _run(lib, dev, mode, steps, 1, a, b)
+            _check(out, a_vals, b_val, steps, mode)
+            lat[steps] = (ms, cyc)
+        (ms1, c1), (ms2, c2) = lat[INV_STEPS], lat[2 * INV_STEPS]
+        result[name] = {"latency_ns": 1e6 * (ms2 - ms1) / INV_STEPS,
+                        "latency_cycles": (c2 - c1) / INV_STEPS}
     return result
 
 

@@ -1,5 +1,6 @@
 // BLS12-381 batched pairing-product checks on the card, and the field
-// core's measurement chains (bls_fp_chain).
+// core's measurement chains (bls_fp_chain: multiplies, squarings,
+// inversions).
 //
 // Replaces the JAX package's XLA device program (not a Pallas kernel):
 //   bls_pairing  <- _pairing_kernel  plenum_tpu/ops/bls381_pairing.py:241
@@ -55,49 +56,6 @@
 // JOB_THREADS an SM (12 warps; a thread's registers capped at 168, the
 // final exponentiation's shared memory allows no more blocks)
 #define JOB_BLOCKS 6
-// A trio: three lanes of a warp that hold the same values and split each
-// fp2 product of a chain (lane 0 a0 b0, lane 1 a1 b1, lane 2
-// (a0 + a1)(b0 + b1); a squaring over lanes 0 and 1), exchanging the
-// three results by shuffles, so that a chain's products run three at once.
-struct trio {
-  int l, base;
-  u32 mask;
-  __device__ void mul(fp2* r, const fp2* a, const fp2* b) const {
-    fp x, y, t;
-    if (l == 2) {
-      fp_add(&x, &a->c0, &a->c1);
-      fp_add(&y, &b->c0, &b->c1);
-    } else {
-      x = l ? a->c1 : a->c0;
-      y = l ? b->c1 : b->c0;
-    }
-    fp_mul(&t, &x, &y);
-    const fp t0 = shfl_fp(mask, t, base), t1 = shfl_fp(mask, t, base + 1);
-    fp t2 = shfl_fp(mask, t, base + 2);
-    fp_sub(&t2, &t2, &t0);
-    fp_sub(&r->c1, &t2, &t1);
-    fp_sub(&r->c0, &t0, &t1);
-  }
-  __device__ void sqr(fp2* r, const fp2* a) const {
-    fp x, y, t = FP_ZERO;
-    if (l == 0) {
-      fp_add(&x, &a->c0, &a->c1);
-      fp_sub(&y, &a->c0, &a->c1);
-    } else {
-      x = a->c0;
-      y = a->c1;
-    }
-    if (l < 2) fp_mul(&t, &x, &y);
-    const fp t0 = shfl_fp(mask, t, base), t1 = shfl_fp(mask, t, base + 1);
-    r->c0 = t0;
-    fp_add(&r->c1, &t1, &t1);
-  }
-  __device__ void mul1(fp* r, const fp* a, const fp* b) const {
-    fp t = FP_ZERO;
-    if (l == 0) fp_mul(&t, a, b);
-    *r = shfl_fp(mask, t, base);
-  }
-};
 
 // ------------------------------------------------------------------- fp4
 // fp4 = fp2[s] / (s^2 - xi): the parts of an fp12 (the cyclotomic
@@ -628,7 +586,13 @@ struct line3 { fp2 l0, l1, l4; };
 // Pairing launch 1. Blocks [0, key_blocks): a trio of lanes per distinct
 // G2 key (KEYS_PER_BLOCK a block): decompress it and, when it is on the
 // curve, store its 68 steps' lines. The other blocks: a thread per (job,
-// pair) slot, its G1 point decompressed into (x, y) Montgomery.
+// pair) slot, its G1 point decompressed into (x, y) Montgomery. Each
+// thread keeps its square root's table of odd powers (16 fp, or 8 fp2 for
+// a key) in a slice of shared memory: on the stack the tables would take
+// its frame past the 1 KB a thread that the driver holds by default (to
+// 2,816 B with both windows at 5 bits), and the driver would reserve the
+// excess for every thread the card holds (462 MB). Interleaving the
+// slices, entry i of thread t at [i][t], was slower.
 #define KEYS_PER_BLOCK (10 * (LINES_THREADS / 32))
 
 __global__ void __launch_bounds__(LINES_THREADS)
@@ -637,19 +601,18 @@ bls_lines_kernel(const int32_t* g2c1, const int32_t* g2c0, const u8* g2s,
                  const int32_t* g1x, const u8* g1s, const u8* g1i,
                  const u8* g1v, int slots, line3* table, u8* key_ok,
                  fp2* g1pt, u8* g1_ok) {
+  __shared__ fp pow_tab[LINES_THREADS][POW_TABLE];
+  fp* tab = pow_tab[threadIdx.x];
   if ((int)blockIdx.x < key_blocks) {
     const int lane = threadIdx.x & 31, t = lane / 3;
     if (t >= 10) return;
     const int k = blockIdx.x * KEYS_PER_BLOCK + (threadIdx.x >> 5) * 10 + t;
     if (k >= K) return;
-    trio tr;
-    tr.l = lane % 3;
-    tr.base = 3 * t;
-    tr.mask = 7u << tr.base;
+    const trio tr = lane_trio();
     g2p T;
     const bool ok = g2_decompress(&T.X, &T.Y, g2c1 + (size_t)k * BLS_LIMBS12,
                                   g2c0 + (size_t)k * BLS_LIMBS12, g2s[k],
-                                  g2i[k], g2v[k], tr);
+                                  g2i[k], g2v[k], tr, (fp2*)tab);
     if (tr.l == 0) key_ok[k] = ok;
     if (!ok || g2i[k]) return;
     const fp2 qx = T.X, qy = T.Y;
@@ -675,7 +638,7 @@ bls_lines_kernel(const int32_t* g2c1, const int32_t* g2c0, const u8* g2s,
   if (s >= slots) return;
   fp2 pt;
   g1_ok[s] = g1_decompress(&pt.c0, &pt.c1, g1x + (size_t)s * BLS_LIMBS12,
-                           g1s[s], g1i[s], g1v[s]);
+                           g1s[s], g1i[s], g1v[s], tab);
   g1pt[s] = pt;
 }
 
@@ -887,6 +850,31 @@ bls_fp_chain_kernel(int sqr, int iters, int chains, const fp* a, const fp* b,
   out[t] = x;
 }
 
+// The inversions alone, as above: x_t <- x_t^-1 + b by safegcd (var: the
+// inverse in the standard domain) or by Fermat (in the Montgomery domain)
+__global__ void __launch_bounds__(256)
+bls_fp_inv_chain_kernel(int var, int iters, int chains, const fp* a,
+                        const fp* b, fp* out, long long* cycles) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= chains) return;
+  fp x = a[t % 64];
+  const fp y = *b;
+#ifdef __CUDA_ARCH__
+  const long long t0 = clock64();
+#endif
+  for (int i = 0; i < iters; i++) {
+    if (var) fp_inv_var(&x, &x);
+    else fp_inv(&x, &x);
+    fp_add(&x, &x, &y);
+  }
+#ifdef __CUDA_ARCH__
+  if (t == 0) cycles[0] = clock64() - t0;
+#else
+  if (t == 0) cycles[0] = 0;
+#endif
+  out[t] = x;
+}
+
 // ------------------------------------------------------------ C entries
 // Each launches on `stream`, reads nothing back and returns the CUDA error
 // of its launches (0 when they were accepted).
@@ -969,14 +957,20 @@ int bls_pairing_stages(const int32_t* g1x, const u8* g1s, const u8* g1i,
   return err;
 }
 
-// the field core's chains (bls_fp_chain_kernel); a [64] operands, b one
-int bls_fp_chain(int sqr, int iters, int chains, const void* a, const void* b,
+// the field core's chains: mode 0 multiplies, 1 squarings
+// (bls_fp_chain_kernel), 2 and 3 inversions by safegcd and by Fermat
+// (bls_fp_inv_chain_kernel); a [64] operands, b one
+int bls_fp_chain(int mode, int iters, int chains, const void* a, const void* b,
                  void* out, long long* cycles, cudaStream_t stream) {
   if (chains <= 0) return 0;
   const int threads = chains < 256 ? chains : 256;
-  LAUNCH(bls_fp_chain_kernel, (chains + threads - 1) / threads, threads,
-         stream, sqr, iters, chains, (const fp*)a, (const fp*)b, (fp*)out,
-         cycles);
+  const int blocks = (chains + threads - 1) / threads;
+  if (mode < 2)
+    LAUNCH(bls_fp_chain_kernel, blocks, threads, stream, mode, iters, chains,
+           (const fp*)a, (const fp*)b, (fp*)out, cycles);
+  else
+    LAUNCH(bls_fp_inv_chain_kernel, blocks, threads, stream, (int)(mode == 2),
+           iters, chains, (const fp*)a, (const fp*)b, (fp*)out, cycles);
   return cudaGetLastError();
 }
 

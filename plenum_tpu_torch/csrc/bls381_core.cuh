@@ -1,16 +1,21 @@
 // The BLS12-381 arithmetic that the kernels of bls381.cu (the pairing),
 // bls381_agg.cu (the G1 and G2 aggregates) and bls381_msm.cu (the G1 MSM)
-// share: the field core, fp2, decompression of packed points, the RCB
+// share: the field core, fp2, fixed powers by a sliding window, the
+// variable-time inversion, decompression of packed points, the lane groups
+// (trios, sextets) that split a chain's products over lanes, the RCB
 // additions and the normalized stores. Each of the three sources builds
 // into a library of its own (ops/cuda_lib.py), all at once; the host build
 // (bls381_host.cpp) includes all three.
 //
 // The formulas are those of the port's host library, csrc/bls12_381.c:
 // Montgomery arithmetic mod q with R = 2^384, the fp2 tower over u^2 = -1.
-// Exact departures: inversion is Fermat's (a^(q-2)); the G2 square root
-// computes both candidates and selects, as the JAX tower does
-// (plenum_tpu/ops/bls381_tower.py:290); the multiply by 3b in the RCB
-// additions is additions.
+// Exact departures: fixed powers go by a sliding window (POW_WINDOW bits,
+// POW_WINDOW_FP2 in fp2; the square roots); inversion is Fermat's
+// (a^(q-2), the pairing and the MSM) or Bernstein-Yang's safegcd in its
+// variable-time form (the aggregates, whose inputs are public); the G2
+// square root computes both candidates and selects, as the JAX tower does
+// (plenum_tpu/ops/bls381_tower.py:290), or goes by the norm (the
+// aggregates); the multiply by 3b in the RCB additions is additions.
 //
 // Packed inputs keep the JAX package's layout (its pack_compressed and
 // pack_g2_compressed): an x coordinate as 32 limbs of 12 bits in int32, in
@@ -45,16 +50,20 @@ static inline int cudaGetLastError() { return 0; }
   host_launch((grid), (block), kernel, __VA_ARGS__)
 #endif
 
-// the host build counts every Montgomery multiply, and apart the squarings
-// among them
+// the host build counts every Montgomery multiply, apart the squarings
+// among them, and the inversion's 32 x 32-bit multiply-adds (a 64-bit
+// product counted as two, as ops/bls381.py prices a multiply)
 #ifdef BLS381_COUNT_MULS
 #include <atomic>
-static std::atomic<unsigned long long> bls_fp_muls{0}, bls_fp_sqrs{0};
+static std::atomic<unsigned long long> bls_fp_muls{0}, bls_fp_sqrs{0},
+    bls_int_mads{0};
 #define COUNT_MUL() bls_fp_muls.fetch_add(1, std::memory_order_relaxed)
 #define COUNT_SQR() bls_fp_sqrs.fetch_add(1, std::memory_order_relaxed)
+#define COUNT_MADS(n) bls_int_mads.fetch_add(n, std::memory_order_relaxed)
 #else
 #define COUNT_MUL()
 #define COUNT_SQR()
+#define COUNT_MADS(n)
 #endif
 
 #define HD __host__ __device__
@@ -74,7 +83,12 @@ typedef uint8_t u8;
 #define JOB_THREADS (32 * JOB_WARPS)
 #define JOBS_PER_BLOCK (JOBS_PER_WARP * JOB_WARPS)
 #define MILLER_STEPS 68       // 63 doublings and 5 additions
-#define AGG_THREADS 128       // a power of two: the tree sum halves it
+#define AGG_PREP_THREADS 64   // the aggregates' decompression launch
+#define AGG_STORE_THREADS 128 //   and their normalization: a warp a job
+#define POW_WINDOW 5          // the sliding window of a fixed power in fp,
+#define POW_WINDOW_FP2 4      //   in fp2 (its table as large as fp's)
+#define POW_TABLE (1 << (POW_WINDOW - 1))          // its odd powers
+#define POW_TABLE_FP2 (1 << (POW_WINDOW_FP2 - 1))
 #define MSM_THREADS 128
 #define MSM_BUCKET_THREADS 256
 #define MSM_WINDOW_THREADS 256
@@ -354,6 +368,19 @@ HDI void fp_neg(fp* r, const fp* a) {
   for (int k = 0; k < NW; k++) r->l[k] = t[k] & keep;
 }
 
+// a / 2 mod q (a + q when a is odd, then a shift; a + q < 2^382)
+HDI void fp_half(fp* r, const fp* a) {
+  const u32 q[NW] = Q_WORDS;
+  const u32 odd = 0u - (a->l[0] & 1u);
+  u32 t[NW];
+  t[0] = add_cc(a->l[0], q[0] & odd);
+#pragma unroll
+  for (int k = 1; k < NW; k++) t[k] = addc_cc(a->l[k], q[k] & odd);
+#pragma unroll
+  for (int k = 0; k < NW - 1; k++) r->l[k] = (t[k] >> 1) | (t[k + 1] << 31);
+  r->l[NW - 1] = t[NW - 1] >> 1;
+}
+
 // Montgomery multiply a b R^-1 mod q. The running value is E + 2^32 O:
 // E holds words 0..11, O words 1..12. A row adds a b_i (the even limbs'
 // products into E, the odd limbs' into O: each a carry chain of disjoint
@@ -523,7 +550,8 @@ HDI void fp_sqr(fp* r, const fp* pa) {
 }
 
 // a^e for a public exponent e (standard-domain limbs), square-and-multiply
-// from the top bit
+// from the top bit (Fermat's inversion: the pairing's final
+// exponentiation, the MSM's normalization)
 HDI void fp_pow(fp* r, const fp* a, const fp* e) {
   const fp base = *a;
   fp acc = base;
@@ -545,6 +573,80 @@ HDI void fp_inv(fp* r, const fp* a) {
   const fp e = EXP_INV;
   fp_pow(r, a, &e);
 }
+
+HDI u32 exp_bits(const fp* e, int lo, int len) {
+  const int w = lo >> 5;
+  u64 v = e->l[w];
+  if (w + 1 < NW) v |= (u64)e->l[w + 1] << 32;
+  return (u32)(v >> (lo & 31)) & ((1u << len) - 1);
+}
+
+// The window's width: POW_WINDOW bits in fp, POW_WINDOW_FP2 in fp2, so
+// that either table of odd powers takes 768 B
+template <class F> struct window_bits { static constexpr int w = POW_WINDOW; };
+template <> struct window_bits<fp2> {
+  static constexpr int w = POW_WINDOW_FP2;
+};
+static_assert(POW_TABLE_FP2 * sizeof(fp2) == POW_TABLE * sizeof(fp),
+              "the fp2 table fits a thread's fp table");
+
+// a^e for a public exponent e > 0 by a sliding window of up to W bits over
+// the odd powers a, a^3, .., a^(2^W - 1), which it writes to `tab` (2^(W-1)
+// entries): for the square roots' exponents about 376 squarings and 81
+// products at W = 5, 85 at W = 4, against 378 and 228 square-and-multiply
+// (ops/bls381.py window_cost counts this loop). The exponent is the same
+// on every lane, so the branches are uniform. K runs the products:
+// fp_ops, or for fp2 solo or a trio.
+template <class F, class K>
+HDI void pow_window(F* r, const F* a, const fp* e, const K& k, F* tab) {
+  constexpr int W = window_bits<F>::w;
+  F a2, acc;
+  tab[0] = *a;
+  k.sqr(&a2, a);
+#pragma unroll 1
+  for (int i = 1; i < (1 << (W - 1)); i++)
+    k.mul(&tab[i], &tab[i - 1], &a2);
+  int bit = 32 * NW - 1;
+  while (!exp_bits(e, bit, 1)) bit--;
+  bool started = false;
+#pragma unroll 1
+  while (bit >= 0) {
+    if (!exp_bits(e, bit, 1)) {
+      k.sqr(&acc, &acc);
+      bit--;
+      continue;
+    }
+    int lo = bit - W + 1 < 0 ? 0 : bit - W + 1;
+    while (!exp_bits(e, lo, 1)) lo++;
+    const u32 v = exp_bits(e, lo, bit - lo + 1);
+    if (started) {
+#pragma unroll 1
+      for (int s = lo; s <= bit; s++) k.sqr(&acc, &acc);
+      k.mul(&acc, &acc, &tab[v >> 1]);
+    } else {
+      acc = tab[v >> 1];
+      started = true;
+    }
+    bit = lo - 1;
+  }
+  *r = acc;
+}
+
+// the same with the table on the thread's stack (768 B). The driver holds
+// 1 KB of stack for every thread the card can hold and grows that for a
+// kernel whose frame is larger: the pairing's lines kernel, whose frame
+// holds more, gives a slice of shared memory instead
+template <class F, class K>
+HDI void pow_window(F* r, const F* a, const fp* e, const K& k) {
+  F tab[1 << (window_bits<F>::w - 1)];
+  pow_window(r, a, e, k, tab);
+}
+
+// a chain of fp products on one thread
+struct fp_ops {
+  HDI void mul(fp* r, const fp* a, const fp* b) const { fp_mul(r, a, b); }
+  HDI void sqr(fp* r, const fp* a) const { fp_sqr(r, a); }
+};
 
 HDI void fp_to_mont(fp* r, const fp* raw) {
   const fp r2 = FP_R2;
@@ -671,41 +773,112 @@ HDI void fp2_zero(fp2* r) {
 }
 
 // How a chain of fp2 products runs: on one thread (solo), or each product
-// split over the three lanes of a trio (bls381.cu's lines kernel); a
-// thread's products are one chain of carry flags, so a lane each is what
-// runs three at once.
+// split over the three lanes of a trio; a thread's products are one chain
+// of carry flags, so a lane each is what runs three at once.
 struct solo {
   HDI void mul(fp2* r, const fp2* a, const fp2* b) const { fp2_mul(r, a, b); }
   HDI void sqr(fp2* r, const fp2* a) const { fp2_sqr(r, a); }
   HDI void mul1(fp* r, const fp* a, const fp* b) const { fp_mul(r, a, b); }
 };
 
-template <class K = solo>
-HDI void fp2_pow(fp2* r, const fp2* a, const fp* e, const K& k = K()) {
-  const fp2 base = *a;
-  fp2 acc = base;
-  bool started = false;
-  for (int i = NW - 1; i >= 0; i--) {
-    const u32 w = e->l[i];
-    for (int b = 31; b >= 0; b--) {
-      if (started) k.sqr(&acc, &acc);
-      if ((w >> b) & 1) {
-        if (started) k.mul(&acc, &acc, &base);
-        started = true;
-      }
-    }
+// an element from lane src of `mask` (the host build: one exchange)
+__device__ __forceinline__ fp shfl_fp(u32 mask, const fp& v, int src) {
+#if defined(CUDA_HOST_SHIM) && !defined(__CUDA_ARCH__)
+  return host_shfl_value(mask, v, src);
+#else
+  fp r;
+#pragma unroll
+  for (int i = 0; i < NW; i++) r.l[i] = __shfl_sync(mask, v.l[i], src);
+  return r;
+#endif
+}
+
+// A group of lanes of one warp: lane l of the lanes base .. base + size - 1
+// (mask). A pair holds one G2 key in the aggregates' decompression (a
+// candidate root a lane); a trio splits each fp2 product of a chain (lane
+// 0 a0 b0, lane 1 a1 b1, lane 2 (a0 + a1)(b0 + b1); a squaring over lanes
+// 0 and 1), exchanging the three results by shuffles, so that a chain's
+// products run three at once (bls381.cu's lines, a G2 key's decompression).
+struct lane_span {
+  int l, base;
+  u32 mask;
+};
+
+template <int SIZE>
+__device__ __forceinline__ lane_span lane_group() {
+  lane_span g;
+  const int lane = threadIdx.x & 31;
+  g.l = lane % SIZE;
+  g.base = lane - g.l;
+  g.mask = ((1u << SIZE) - 1) << g.base;
+  return g;
+}
+
+// lane j's part of the product a b: of fp the product; of fp2 (Karatsuba
+// over three lanes) a0 b0, a1 b1 or (a0 + a1)(b0 + b1)
+HDI fp part_mul(int, const fp& a, const fp& b) {
+  fp t;
+  fp_mul(&t, &a, &b);
+  return t;
+}
+
+HDI fp part_mul(int j, const fp2& a, const fp2& b) {
+  fp x, y, t;
+  if (j == 2) {
+    fp_add(&x, &a.c0, &a.c1);
+    fp_add(&y, &b.c0, &b.c1);
+  } else {
+    x = j ? a.c1 : a.c0;
+    y = j ? b.c1 : b.c0;
   }
-  *r = acc;
+  fp_mul(&t, &x, &y);
+  return t;
+}
+
+struct trio : lane_span {
+  __device__ void mul(fp2* r, const fp2* a, const fp2* b) const {
+    const fp t = part_mul(l, *a, *b);
+    const fp t0 = shfl_fp(mask, t, base), t1 = shfl_fp(mask, t, base + 1);
+    fp t2 = shfl_fp(mask, t, base + 2);
+    fp_sub(&t2, &t2, &t0);
+    fp_sub(&r->c1, &t2, &t1);
+    fp_sub(&r->c0, &t0, &t1);
+  }
+  __device__ void sqr(fp2* r, const fp2* a) const {
+    fp x, y, t = FP_ZERO;
+    if (l == 0) {
+      fp_add(&x, &a->c0, &a->c1);
+      fp_sub(&y, &a->c0, &a->c1);
+    } else {
+      x = a->c0;
+      y = a->c1;
+    }
+    if (l < 2) fp_mul(&t, &x, &y);
+    const fp t0 = shfl_fp(mask, t, base), t1 = shfl_fp(mask, t, base + 1);
+    r->c0 = t0;
+    fp_add(&r->c1, &t1, &t1);
+  }
+  __device__ void mul1(fp* r, const fp* a, const fp* b) const {
+    fp t = FP_ZERO;
+    if (l == 0) fp_mul(&t, a, b);
+    *r = shfl_fp(mask, t, base);
+  }
+};
+
+__device__ __forceinline__ trio lane_trio() {
+  trio t;
+  static_cast<lane_span&>(t) = lane_group<3>();
+  return t;
 }
 
 // The square root of crypto/bls12_381.py Fq2.sqrt (q = 3 mod 4), both
 // candidates computed and selected as the JAX tower's fp2_sqrt does; ok is
-// root^2 == a.
-template <class K = solo>
-HDI bool fp2_sqrt(fp2* root, const fp2* a, const K& k = K()) {
+// root^2 == a. tab: its powers' table (POW_TABLE_FP2 entries).
+template <class K>
+HDI bool fp2_sqrt(fp2* root, const fp2* a, const K& k, fp2* tab) {
   const fp e34 = EXP_SQRT34, ehalf = EXP_HALF;
   fp2 a1, alpha, x0, t, cand, ux0;
-  fp2_pow(&a1, a, &e34, k);              // a^((q-3)/4)
+  pow_window(&a1, a, &e34, k, tab);      // a^((q-3)/4)
   k.sqr(&alpha, &a1);
   k.mul(&alpha, &alpha, a);              // a1^2 a
   k.mul(&x0, &a1, a);                    // a1 a
@@ -715,7 +888,7 @@ HDI bool fp2_sqrt(fp2* root, const fp2* a, const K& k = K()) {
   ux0.c1 = x0.c0;
   t = alpha;
   fp_add(&t.c0, &t.c0, &one);            // alpha + 1
-  fp2_pow(&cand, &t, &ehalf, k);
+  pow_window(&cand, &t, &ehalf, k, tab);
   k.mul(&cand, &cand, &x0);
   *root = is_neg1 ? ux0 : cand;
   k.sqr(&t, root);
@@ -727,9 +900,9 @@ HDI bool fp2_sqrt(fp2* root, const fp2* a, const K& k = K()) {
 // crypto/bls12_381.py g1_decompress on a packed point: → ok (a valid
 // encoding, and on the curve unless at infinity); (x, y) Montgomery when
 // ok and not at infinity. Every valid finite point pays the same work, on
-// the curve or not.
+// the curve or not. tab: the square root's table (POW_TABLE entries).
 HDI bool g1_decompress(fp* x, fp* y, const int32_t* x12, u8 sign, u8 inf,
-                       u8 valid) {
+                       u8 valid, fp* tab) {
   if (!valid) return false;
   if (inf) return true;
   fp raw, yy, t;
@@ -739,7 +912,7 @@ HDI bool g1_decompress(fp* x, fp* y, const int32_t* x12, u8 sign, u8 inf,
   fp_sqr(&yy, x);
   fp_mul(&yy, &yy, x);
   fp_add(&yy, &yy, &four);               // x^3 + 4
-  fp_pow(y, &yy, &e);
+  pow_window(y, &yy, &e, fp_ops(), tab);
   fp_sqr(&t, y);
   const bool on_curve = fp_eq(&t, &yy);
   fp_from_mont(&t, y);
@@ -747,38 +920,286 @@ HDI bool g1_decompress(fp* x, fp* y, const int32_t* x12, u8 sign, u8 inf,
   return on_curve;
 }
 
-// crypto/bls12_381.py g2_decompress: x = c0 + c1 u on y^2 = x^3 + 4(1 + u);
-// the sign is y's (c1, c0) against -y's, lexicographically
-template <class K = solo>
-HDI bool g2_decompress(fp2* x, fp2* y, const int32_t* c1, const int32_t* c0,
-                       u8 sign, u8 inf, u8 valid, const K& k = K()) {
-  if (!valid) return false;
-  if (inf) return true;
-  fp raw, y0, y1;
-  const fp half = FP_HALF, four = FP_FOUR, r2 = FP_R2, one = FP_RAW_ONE;
-  fp_from_limbs12(&raw, c0);
-  k.mul1(&x->c0, &raw, &r2);             // to the Montgomery domain
-  fp_from_limbs12(&raw, c1);
-  k.mul1(&x->c1, &raw, &r2);
-  fp2 yy;
-  k.sqr(&yy, x);
-  k.mul(&yy, &yy, x);
-  fp_add(&yy.c0, &yy.c0, &four);         // + 4 (1 + u)
-  fp_add(&yy.c1, &yy.c1, &four);
-  const bool on_curve = fp2_sqrt(y, &yy, k);
+// the same with the table on the thread's stack
+HDI bool g1_decompress(fp* x, fp* y, const int32_t* x12, u8 sign, u8 inf,
+                       u8 valid) {
+  fp tab[POW_TABLE];
+  return g1_decompress(x, y, x12, sign, inf, valid, tab);
+}
+
+// y's sign rule of crypto/bls12_381.py g2_decompress: (c1, c0) against
+// -y's, lexicographically; y Montgomery, negated in place when its "big"
+// does not match the flag (K: the two conversions' products)
+template <class K>
+HDI void g2_sign(fp2* y, u8 sign, const K& k) {
+  const fp half = FP_HALF, one = FP_RAW_ONE;
+  fp y0, y1;
   k.mul1(&y0, &y->c0, &one);             // from the Montgomery domain
   k.mul1(&y1, &y->c1, &one);
   const bool big = fp_is_zero(&y1) ? fp_gt(&y0, &half) : fp_gt(&y1, &half);
   if (big != (sign != 0)) fp2_neg(y, y);
+}
+
+// x from its packed limbs to the Montgomery domain, and y^2 = x^3 + 4(1 + u)
+template <class K>
+HDI void g2_rhs(fp2* x, fp2* yy, const int32_t* c1, const int32_t* c0,
+                const K& k) {
+  fp raw;
+  const fp four = FP_FOUR, r2 = FP_R2;
+  fp_from_limbs12(&raw, c0);
+  k.mul1(&x->c0, &raw, &r2);
+  fp_from_limbs12(&raw, c1);
+  k.mul1(&x->c1, &raw, &r2);
+  k.sqr(yy, x);
+  k.mul(yy, yy, x);
+  fp_add(&yy->c0, &yy->c0, &four);
+  fp_add(&yy->c1, &yy->c1, &four);
+}
+
+// crypto/bls12_381.py g2_decompress: x = c0 + c1 u on y^2 = x^3 + 4(1 + u),
+// the root by fp2_sqrt (the pairing's lines, on a trio; tab as there)
+template <class K>
+HDI bool g2_decompress(fp2* x, fp2* y, const int32_t* c1, const int32_t* c0,
+                       u8 sign, u8 inf, u8 valid, const K& k, fp2* tab) {
+  if (!valid) return false;
+  if (inf) return true;
+  fp2 yy;
+  g2_rhs(x, &yy, c1, c0, k);
+  const bool on_curve = fp2_sqrt(y, &yy, k, tab);
+  g2_sign(y, sign, k);
   return on_curve;
+}
+
+// The same on a pair of lanes, the root by the norm (all in fp): for
+// a = c0 + c1 u, s = (c0^2 + c1^2)^((q+1)/4); lane l takes the candidate
+// t = (c0 + s) / 2 (lane 0) or (c0 - s) / 2 (lane 1), w = t^((q-3)/4),
+// root (t w, c1 w / 2), since t w^2 = 1 when t is a square. Exactly one
+// candidate is a square when a is one and c1 != 0; when c1 = 0 a candidate
+// is 0, and that lane takes t = -c0 with the root (0, t w). A lane keeps
+// its root when it squares to a, lane 0's first. Two fixed powers in a row,
+// each on fp, against fp2_sqrt's two in fp2.
+__device__ __forceinline__ bool g2_decompress_norm(
+    fp2* x, fp2* y, const int32_t* c1, const int32_t* c0, u8 sign, u8 inf,
+    u8 valid, const lane_span& g) {
+  if (!valid) return false;
+  if (inf) return true;
+  const fp e = EXP_SQRT, e34 = EXP_SQRT34;
+  fp2 a, r, sq;
+  fp n, s, t, w;
+  g2_rhs(x, &a, c1, c0, solo());
+  fp_sqr(&n, &a.c0);
+  fp_sqr(&t, &a.c1);
+  fp_add(&n, &n, &t);                    // the norm
+  pow_window(&s, &n, &e, fp_ops());
+  if (g.l) fp_sub(&t, &a.c0, &s);
+  else fp_add(&t, &a.c0, &s);
+  fp_half(&t, &t);
+  const bool rot = fp_is_zero(&t);
+  if (rot) fp_neg(&t, &a.c0);
+  pow_window(&w, &t, &e34, fp_ops());
+  fp_mul(&r.c0, &t, &w);
+  fp_mul(&r.c1, &a.c1, &w);
+  fp_half(&r.c1, &r.c1);
+  if (rot) {
+    r.c1 = r.c0;
+    r.c0 = FP_ZERO;
+  }
+  fp2_sqr(&sq, &r);
+  const u32 votes = (__ballot_sync(g.mask, fp2_eq(&sq, &a)) >> g.base) & 3u;
+  const int src = g.base + (votes & 1u ? 0 : 1);
+  y->c0 = shfl_fp(g.mask, r.c0, src);
+  y->c1 = shfl_fp(g.mask, r.c1, src);
+  g2_sign(y, sign, solo());
+  return votes != 0;
+}
+
+// ------------------------------------------- inversion by safegcd
+// Bernstein and Yang's safegcd in its variable-time form, as libsecp256k1's
+// modinv32_var has it, on 13 signed 30-bit limbs for the 381-bit q: a
+// batch of 30 divsteps on the low words gives a transition matrix (entries
+// within 2^30), which then updates f and g (exactly, divided by 2^30) and
+// d and e (mod q), until g = 0; then f = +-1 and d = +-a^-1. It runs on
+// public values (the aggregates of shares and keys). A batch costs 264
+// multiply-adds (d, e and f, g at full length) against a Montgomery
+// multiply's 588, and a 381-bit q takes at least 13 batches: after N
+// divsteps the integer matrix 2^N T has entries within 2^N, and its row
+// that sends g to 0 is a multiple of (a, -q).
+
+#define SG_LIMBS 13
+#define SG_M30 0x3fffffff
+#define SG_QINV30 0x30003u      // q^-1 mod 2^30
+struct s30 { int32_t v[SG_LIMBS]; };
+
+HDI s30 sg_q() {
+  const s30 q = {{0x3fffaaab, 0x27fbffff, 0x153ffffb, 0x2affffac, 0x30f6241e,
+                  0x034a83da, 0x112bf673, 0x12e13ce1, 0x2cd76477, 0x1ed90d2e,
+                  0x29a4b1ba, 0x3a8e5ff9, 0x001a0111}};
+  return q;
+}
+
+// 30 divsteps on the low words of f (odd) and g from eta = -delta: the
+// matrix (u v; q r) with 2^30 (f', g') = (u f + v g, q f + r g). Zeros of g
+// go at once; an odd g loses up to 8 low bits a step by a multiple of f
+// (f's inverse mod 2^8 by two Newton steps).
+HDI int32_t sg_divsteps(int32_t eta, u32 f, u32 g, int32_t* t) {
+  u32 u = 1, v = 0, q = 0, r = 1;
+  int i = 30;
+  for (;;) {
+    const u32 z = g | (0xffffffffu << i);
+#ifdef __CUDA_ARCH__
+    const int zeros = __ffs(z) - 1;
+#else
+    const int zeros = __builtin_ctz(z);
+#endif
+    g >>= zeros;
+    u <<= zeros;
+    v <<= zeros;
+    eta -= zeros;
+    i -= zeros;
+    if (i == 0) break;
+    if (eta < 0) {
+      u32 tmp;
+      eta = -eta;
+      tmp = f; f = g; g = 0u - tmp;
+      tmp = u; u = q; q = 0u - tmp;
+      tmp = v; v = r; r = 0u - tmp;
+    }
+    const int limit = eta + 1 > i ? i : eta + 1;
+    const u32 m = (0xffffffffu >> (32 - limit)) & 255u;
+    u32 fi = f;                          // f^-1 mod 8, then mod 2^12
+    fi *= 2u - f * fi;
+    fi *= 2u - f * fi;
+    const u32 w = (g * (0u - fi)) & m;
+    g += f * w;
+    q += u * w;
+    r += v * w;
+  }
+  t[0] = (int32_t)u;
+  t[1] = (int32_t)v;
+  t[2] = (int32_t)q;
+  t[3] = (int32_t)r;
+  return eta;
+}
+
+// (d, e) <- (t (d, e) + q (md, me)) / 2^30, md and me chosen so that the
+// low 30 bits vanish and d, e stay within (-2q, q)
+HDI void sg_update_de(s30* d, s30* e, const int32_t* t) {
+  COUNT_MADS(2 * (6 * SG_LIMBS + 2));
+  const s30 mq = sg_q();
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  const int32_t sd = d->v[SG_LIMBS - 1] >> 31, se = e->v[SG_LIMBS - 1] >> 31;
+  int32_t md = (u & sd) + (v & se), me = (q & sd) + (r & se);
+  int64_t cd = (int64_t)u * d->v[0] + (int64_t)v * e->v[0];
+  int64_t ce = (int64_t)q * d->v[0] + (int64_t)r * e->v[0];
+  md -= (int32_t)((SG_QINV30 * (u32)cd + (u32)md) & SG_M30);
+  me -= (int32_t)((SG_QINV30 * (u32)ce + (u32)me) & SG_M30);
+  cd += (int64_t)mq.v[0] * md;
+  ce += (int64_t)mq.v[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < SG_LIMBS; i++) {
+    cd += (int64_t)u * d->v[i] + (int64_t)v * e->v[i];
+    ce += (int64_t)q * d->v[i] + (int64_t)r * e->v[i];
+    cd += (int64_t)mq.v[i] * md;
+    ce += (int64_t)mq.v[i] * me;
+    d->v[i - 1] = (int32_t)cd & SG_M30;
+    cd >>= 30;
+    e->v[i - 1] = (int32_t)ce & SG_M30;
+    ce >>= 30;
+  }
+  d->v[SG_LIMBS - 1] = (int32_t)cd;
+  e->v[SG_LIMBS - 1] = (int32_t)ce;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact
+HDI void sg_update_fg(s30* f, s30* g, const int32_t* t) {
+  COUNT_MADS(2 * 4 * SG_LIMBS);
+  const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+  int64_t cf = (int64_t)u * f->v[0] + (int64_t)v * g->v[0];
+  int64_t cg = (int64_t)q * f->v[0] + (int64_t)r * g->v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < SG_LIMBS; i++) {
+    cf += (int64_t)u * f->v[i] + (int64_t)v * g->v[i];
+    cg += (int64_t)q * f->v[i] + (int64_t)r * g->v[i];
+    f->v[i - 1] = (int32_t)cf & SG_M30;
+    cf >>= 30;
+    g->v[i - 1] = (int32_t)cg & SG_M30;
+    cg >>= 30;
+  }
+  f->v[SG_LIMBS - 1] = (int32_t)cf;
+  g->v[SG_LIMBS - 1] = (int32_t)cg;
+}
+
+// d in (-2q, q), negated when sign < 0 → [0, q), limbs within [0, 2^30)
+HDI void sg_normalize(s30* d, int32_t sign) {
+  const s30 mq = sg_q();
+  int32_t add = d->v[SG_LIMBS - 1] >> 31;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < SG_LIMBS; i++) {
+    d->v[i] += mq.v[i] & add;
+    d->v[i] = (d->v[i] ^ neg) - neg;
+  }
+#pragma unroll
+  for (int i = 0; i < SG_LIMBS - 1; i++) {
+    d->v[i + 1] += d->v[i] >> 30;
+    d->v[i] &= SG_M30;
+  }
+  add = d->v[SG_LIMBS - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < SG_LIMBS; i++) d->v[i] += mq.v[i] & add;
+#pragma unroll
+  for (int i = 0; i < SG_LIMBS - 1; i++) {
+    d->v[i + 1] += d->v[i] >> 30;
+    d->v[i] &= SG_M30;
+  }
+}
+
+// r = a^-1 for a standard-domain a != 0 (variable time)
+HDI void fp_inv_var(fp* r, const fp* a) {
+  s30 d, e, f = sg_q(), g;
+#pragma unroll
+  for (int i = 0; i < SG_LIMBS; i++) {
+    const int bit = 30 * i, w = bit >> 5;
+    u64 v = a->l[w];
+    if (w + 1 < NW) v |= (u64)a->l[w + 1] << 32;
+    g.v[i] = (int32_t)((v >> (bit & 31)) & SG_M30);
+    d.v[i] = e.v[i] = 0;
+  }
+  e.v[0] = 1;
+  int32_t eta = -1, t[4];
+#pragma unroll 1
+  for (;;) {
+    eta = sg_divsteps(eta, (u32)f.v[0], (u32)g.v[0], t);
+    sg_update_de(&d, &e, t);
+    sg_update_fg(&f, &g, t);
+    int32_t nz = 0;
+#pragma unroll
+    for (int i = 0; i < SG_LIMBS; i++) nz |= g.v[i];
+    if (nz == 0) break;
+  }
+  sg_normalize(&d, f.v[SG_LIMBS - 1]);
+#pragma unroll
+  for (int k = 0; k < NW; k++) r->l[k] = 0;
+#pragma unroll
+  for (int i = 0; i < SG_LIMBS; i++) {
+    const int bit = 30 * i, w = bit >> 5, s = bit & 31;
+    const u32 v = (u32)d.v[i];
+    r->l[w] |= v << s;
+    if (s > 2 && w + 1 < NW) r->l[w + 1] |= v >> (32 - s);
+  }
 }
 
 // ---------------------------------------------- complete additions (RCB)
 // Renes-Costello-Batina 2016, a = 0, the multiply by 3b as additions:
 // complete addition (Alg. 7, 12 multiplies) and mixed addition of an
-// affine point (Alg. 8, 11); bls381_msm.cu splits Alg. 7 and the doubling
-// (Alg. 9) over lanes. Alg. 7 is the JAX tower's padd_rcb: one formula for
-// every pair of points, the identity (0 : 1 : 0) included.
+// affine point (Alg. 8, 11). Alg. 7 is the JAX tower's padd_rcb: one
+// formula for every pair of points, the identity (0 : 1 : 0) included;
+// Alg. 8 adds a finite affine point to any point (the curves here have odd
+// order, so no point has y = 0). The lane-split forms (sx_*) follow.
 
 HDI void f_add(fp* r, const fp* a, const fp* b) { fp_add(r, a, b); }
 HDI void f_sub(fp* r, const fp* a, const fp* b) { fp_sub(r, a, b); }
@@ -792,52 +1213,14 @@ HDI void f_mul_b3(fp2* r, const fp2* a) {          // 3b' = 12 (1 + u)
   fp2_mul_xi(&t, a);
   fp2_mul12(r, &t);
 }
-
 template <class F>
 struct proj { F X, Y, Z; };
 
 template <class F>
-HDI void rcb_add(proj<F>* r, const proj<F>* p, const proj<F>* q) {
-  F t0, t1, t2, t3, t4, X3, Y3, Z3, u;
-  f_mul(&t0, &p->X, &q->X);
-  f_mul(&t1, &p->Y, &q->Y);
-  f_mul(&t2, &p->Z, &q->Z);
-  f_add(&t3, &p->X, &p->Y);
-  f_add(&t4, &q->X, &q->Y);
-  f_mul(&t3, &t3, &t4);
-  f_add(&t4, &t0, &t1);
-  f_sub(&t3, &t3, &t4);
-  f_add(&t4, &p->Y, &p->Z);
-  f_add(&X3, &q->Y, &q->Z);
-  f_mul(&t4, &t4, &X3);
-  f_add(&X3, &t1, &t2);
-  f_sub(&t4, &t4, &X3);
-  f_add(&X3, &p->X, &p->Z);
-  f_add(&Y3, &q->X, &q->Z);
-  f_mul(&X3, &X3, &Y3);
-  f_add(&Y3, &t0, &t2);
-  f_sub(&Y3, &X3, &Y3);
-  f_add(&X3, &t0, &t0);
-  f_add(&t0, &X3, &t0);
-  f_mul_b3(&t2, &t2);
-  f_add(&Z3, &t1, &t2);
-  f_sub(&t1, &t1, &t2);
-  f_mul_b3(&Y3, &Y3);
-  f_mul(&X3, &t4, &Y3);
-  f_mul(&u, &t3, &t1);
-  f_sub(&X3, &u, &X3);
-  f_mul(&Y3, &Y3, &t0);
-  f_mul(&t1, &t1, &Z3);
-  f_add(&Y3, &t1, &Y3);
-  f_mul(&t0, &t0, &t3);
-  f_mul(&Z3, &Z3, &t4);
-  f_add(&Z3, &Z3, &t0);
-  r->X = X3;
-  r->Y = Y3;
-  r->Z = Z3;
-}
+struct aff { F x, y; };
 
-// p + (x, y, 1) for a finite affine point
+// p + (x, y, 1) for a finite affine point, on one thread (the MSM's
+// buckets)
 HDI void rcb_madd(proj<fp>* r, const proj<fp>* p, const fp* x, const fp* y) {
   fp t0, t1, t2, t3, t4, X3, Y3, Z3;
   f_mul(&t0, &p->X, x);
@@ -884,8 +1267,206 @@ HDI void set_identity(proj<fp2>* p) {
   p->Y.c0 = FP_ONE;
 }
 
+// ------------------------------------------------------------- sextets
+// A sextet: the lanes of a warp that hold the same point and split each
+// level of an RCB formula's independent products, product i on its own
+// lanes, sharing them by shuffles: an addition or a mixed addition is two
+// levels (five or six products, then six), a doubling two levels of four
+// (its squarings as products). A product of fp takes one lane (six lanes a
+// sextet, five sextets a warp), a product of fp2 three (a trio: a0 b0,
+// a1 b1, (a0 + a1)(b0 + b1); eighteen lanes a sextet, one a warp). A
+// lane's products are one chain of carry flags, so the lanes run them at
+// once: an addition takes two multiplies' latency, not twelve.
+
+template <class F> struct parts;
+template <> struct parts<fp> { static constexpr int n = 1; };
+template <> struct parts<fp2> { static constexpr int n = 3; };
+
+// A sextet of trios combines its products' parts in shared memory (its
+// sx_buf): each component once, on one lane, where shuffling the parts to
+// every lane had each lane combine all of them. A product of fp lies
+// whole on one lane and moves by shuffles (no buffer).
+template <class F> struct sx_buf {};
+template <> struct sx_buf<fp2> {
+  fp part[18];
+  fp2 m[6];
+};
+
+struct sextet : lane_span {
+  void* buf;
+};
+
+template <class F = fp>
+__device__ __forceinline__ sextet lane_sextet(sx_buf<F>* buf = nullptr) {
+  sextet g;
+  static_cast<lane_span&>(g) = lane_group<6 * parts<F>::n>();
+  g.buf = buf;
+  return g;
+}
+
+// the sextet's index in the block, or -1 for the lanes past the warp's last
+template <class F = fp>
+__device__ __forceinline__ int sextet_index() {
+  constexpr int size = 6 * parts<F>::n, per = 32 / size;
+  const int lane = threadIdx.x & 31;
+  return lane >= per * size ? -1 : (threadIdx.x >> 5) * per + lane / size;
+}
+
+// m[k] for k < N from the lanes' parts t (lane l the part of product
+// l / P): fp by shuffles; fp2 through the sextet's buffer, lane 2k + c
+// combining component c of product k (c0 = t0 - t1, c1 = t2 - t0 - t1)
+template <int N>
+__device__ __forceinline__ void gather(const sextet& g, fp* m, const fp& t) {
+#pragma unroll
+  for (int k = 0; k < N; k++) m[k] = shfl_fp(g.mask, t, g.base + k);
+}
+
+template <int N>
+__device__ __forceinline__ void gather(const sextet& g, fp2* m,
+                                       const fp& t) {
+  sx_buf<fp2>* b = (sx_buf<fp2>*)g.buf;
+  b->part[g.l] = t;
+  __syncwarp(g.mask);
+  if (g.l < 2 * N) {
+    const int k = g.l >> 1;
+    fp r;
+    if (g.l & 1) {
+      fp_sub(&r, &b->part[3 * k + 2], &b->part[3 * k]);
+      fp_sub(&b->m[k].c1, &r, &b->part[3 * k + 1]);
+    } else {
+      fp_sub(&b->m[k].c0, &b->part[3 * k], &b->part[3 * k + 1]);
+    }
+  }
+  __syncwarp(g.mask);
+#pragma unroll
+  for (int k = 0; k < N; k++) m[k] = b->m[k];
+}
+
+// m[i] = x y for i < N, where ops(i, &x, &y) gives product i's operands
+// (each lane asks only for its own product's). A lane reads the buffer's
+// products before its next level's part can land (the __syncwarp after
+// the parts), and combines the parts before any lane writes new ones.
+template <int N, class F, class Ops>
+__device__ __forceinline__ void sx_level(const sextet& g, F* m,
+                                         const Ops& ops) {
+  constexpr int P = parts<F>::n;
+  const int i = g.l / P;
+  F x, y;
+  ops(i < N ? i : 0, &x, &y);
+  fp t = FP_ZERO;
+  if (i < N) t = part_mul(g.l % P, x, y);
+  gather<N>(g, m, t);
+}
+
+// a ? b : c, on every limb
+template <class F>
+HDI F pick(bool a, const F& b, const F& c) { return a ? b : c; }
+
+// a coordinate of p (i < 3) or the sum X + Y, Y + Z, X + Z (i = 3, 4, 5)
+template <class F>
+HDI void coord_sum(F* r, const proj<F>* p, int i) {
+  *r = pick(i == 0 || i == 3 || i == 5, p->X, pick(i == 2, p->Z, p->Y));
+  if (i >= 3) {
+    const F b = pick(i == 3, p->Y, p->Z);
+    f_add(r, r, &b);
+  }
+}
+
+// the second level of Alg. 7 and 8 from (t0, t1, t3, t4, Y3, Z3):
+// X3 = t3 t1 - t4 Y3, Y3 = t1 Z3 + Y3 t0, Z3 = Z3 t4 + t0 t3
+template <class F>
+__device__ __forceinline__ void sx_add_tail(const sextet& g, proj<F>* r,
+                                            const F& t0, const F& t1,
+                                            const F& t3, const F& t4,
+                                            const F& Y3, const F& Z3) {
+  F m[6];
+  sx_level<6>(g, m, [&](int i, F* x, F* y) {
+    *x = pick(i == 0, t4, pick(i == 1, t3, pick(i == 2, Y3,
+         pick(i == 3, t1, pick(i == 4, t0, Z3)))));
+    *y = pick(i == 0, Y3, pick(i == 1, t1, pick(i == 2, t0,
+         pick(i == 3, Z3, pick(i == 4, t3, t4)))));
+  });
+  f_sub(&r->X, &m[1], &m[0]);
+  f_add(&r->Y, &m[3], &m[2]);
+  f_add(&r->Z, &m[5], &m[4]);
+}
+
+// rcb_add (RCB Alg. 7) in two levels of six products
+template <class F>
+__device__ __forceinline__ void sx_add(const sextet& g, proj<F>* r,
+                                       const proj<F>* p, const proj<F>* q) {
+  F m[6], t0, t1, t2, t3, t4, Y3, Z3, u;
+  sx_level<6>(g, m, [&](int i, F* x, F* y) {
+    coord_sum(x, p, i);
+    coord_sum(y, q, i);
+  });
+  t0 = m[0]; t1 = m[1]; t2 = m[2];
+  f_add(&u, &t0, &t1); f_sub(&t3, &m[3], &u);
+  f_add(&u, &t1, &t2); f_sub(&t4, &m[4], &u);
+  f_add(&u, &t0, &t2); f_sub(&Y3, &m[5], &u);
+  f_add(&u, &t0, &t0); f_add(&t0, &u, &t0);            // 3 t0
+  f_mul_b3(&t2, &t2);
+  f_add(&Z3, &t1, &t2); f_sub(&t1, &t1, &t2);
+  f_mul_b3(&Y3, &Y3);
+  sx_add_tail(g, r, t0, t1, t3, t4, Y3, Z3);
+}
+
+// p + a for a finite affine a (RCB Alg. 8) in two levels: five products,
+// then six
+template <class F>
+__device__ __forceinline__ void sx_madd(const sextet& g, proj<F>* r,
+                                        const proj<F>* p, const aff<F>* a) {
+  F m[5], t0, t1, t2, t3, t4, Y3, Z3, u;
+  sx_level<5>(g, m, [&](int i, F* x, F* y) {
+    // (X, x), (Y, y), (X + Y, x + y), (Z, y), (Z, x)
+    *x = pick(i == 0, p->X, pick(i == 1, p->Y, p->Z));
+    *y = pick(i == 1 || i == 3, a->y, a->x);
+    if (i == 2) {
+      f_add(x, &p->X, &p->Y);
+      f_add(y, &a->x, &a->y);
+    }
+  });
+  t0 = m[0]; t1 = m[1];
+  f_add(&u, &t0, &t1); f_sub(&t3, &m[2], &u);
+  f_add(&t4, &m[3], &p->Y);
+  f_add(&Y3, &m[4], &p->X);
+  f_add(&u, &t0, &t0); f_add(&t0, &u, &t0);            // 3 t0
+  f_mul_b3(&t2, &p->Z);
+  f_add(&Z3, &t1, &t2); f_sub(&t1, &t1, &t2);
+  f_mul_b3(&Y3, &Y3);
+  sx_add_tail(g, r, t0, t1, t3, t4, Y3, Z3);
+}
+
+// the doubling (RCB Alg. 9, a = 0) in two levels of four products
+__device__ __forceinline__ void sx_dbl(const sextet& g, proj<fp>* r,
+                                       const proj<fp>* p) {
+  fp m[4], t0, t2, Z3, Y3, u;
+  sx_level<4>(g, m, [&](int i, fp* x, fp* y) {
+    // Y^2, Y Z, Z^2, X Y
+    *x = pick(i == 2, p->Z, pick(i == 3, p->X, p->Y));
+    *y = pick(i == 0 || i == 3, p->Y, p->Z);
+  });
+  t0 = m[0];
+  fp_add(&Z3, &t0, &t0); fp_add(&Z3, &Z3, &Z3); fp_add(&Z3, &Z3, &Z3);
+  fp_mul12(&t2, &m[2]);
+  fp_add(&Y3, &t0, &t2);
+  fp_add(&u, &t2, &t2); fp_add(&u, &u, &t2);           // 3 t2
+  fp_sub(&t0, &t0, &u);
+  const fp t1 = m[1], xy = m[3];
+  sx_level<4>(g, m, [&](int i, fp* x, fp* y) {
+    // X3 = t2 Z3, Z3 = t1 Z3, Y3 = t0 Y3, t0 X Y
+    *x = pick(i == 0, t2, pick(i == 1, t1, t0));
+    *y = pick(i <= 1, Z3, pick(i == 2, Y3, xy));
+  });
+  fp_add(&r->Y, &m[0], &m[2]);
+  fp_add(&r->X, &m[3], &m[3]);
+  r->Z = m[1];
+}
+
+// ------------------------------------------------------------- stores
+
 // Normalized standard-domain coordinates: (x, y, 1), or (0, 1, 0) for the
-// identity, as 12-bit limbs.
+// identity, as 12-bit limbs; Z inverted by Fermat (the MSM).
 HDI void store_g1(int32_t* X, int32_t* Y, int32_t* Z, const proj<fp>* p) {
   fp x = FP_ZERO, y = FP_RAW_ONE, z = FP_ZERO;
   if (!fp_is_zero(&p->Z)) {
@@ -902,22 +1483,46 @@ HDI void store_g1(int32_t* X, int32_t* Y, int32_t* Z, const proj<fp>* p) {
   fp_to_limbs12(Z, &z);
 }
 
-// the same for fp2 coordinates, [2][32] limbs each (c0, then c1)
-HDI void store_g2(int32_t* X, int32_t* Y, int32_t* Z, const proj<fp2>* p) {
+// The same by safegcd (the aggregates): z = Z from the Montgomery domain,
+// its inverse in the standard domain, and a Montgomery product of X with
+// it is X / z in the standard domain already.
+HDI void normalize_g1(int32_t* X, int32_t* Y, int32_t* Z,
+                      const proj<fp>* p) {
+  fp x = FP_ZERO, y = FP_RAW_ONE, z = FP_ZERO;
+  if (!fp_is_zero(&p->Z)) {
+    fp_from_mont(&z, &p->Z);
+    fp_inv_var(&z, &z);
+    fp_mul(&x, &p->X, &z);
+    fp_mul(&y, &p->Y, &z);
+    z = FP_RAW_ONE;
+  }
+  fp_to_limbs12(X, &x);
+  fp_to_limbs12(Y, &y);
+  fp_to_limbs12(Z, &z);
+}
+
+// over fp2, [2][32] limbs each (c0, then c1): 1 / Z = conj(Z) / N(Z), the
+// norm N(Z) = Z0^2 + Z1^2 inverted as above
+HDI void normalize_g2(int32_t* X, int32_t* Y, int32_t* Z,
+                      const proj<fp2>* p) {
   fp2 x, y, z;
   fp2_zero(&x);
   fp2_zero(&z);
   y = x;
   y.c0 = FP_RAW_ONE;
   if (!fp2_is_zero(&p->Z)) {
+    fp n, t;
     fp2 zi;
-    fp2_inv(&zi, &p->Z);
+    fp_sqr(&n, &p->Z.c0);
+    fp_sqr(&t, &p->Z.c1);
+    fp_add(&n, &n, &t);
+    fp_from_mont(&n, &n);
+    fp_inv_var(&n, &n);
+    fp_mul(&zi.c0, &p->Z.c0, &n);        // standard domain
+    fp_mul(&t, &p->Z.c1, &n);
+    fp_neg(&zi.c1, &t);
     fp2_mul(&x, &p->X, &zi);
     fp2_mul(&y, &p->Y, &zi);
-    fp_from_mont(&x.c0, &x.c0);
-    fp_from_mont(&x.c1, &x.c1);
-    fp_from_mont(&y.c0, &y.c0);
-    fp_from_mont(&y.c1, &y.c1);
     z.c0 = FP_RAW_ONE;
   }
   fp_to_limbs12(X, &x.c0);
@@ -926,18 +1531,6 @@ HDI void store_g2(int32_t* X, int32_t* Y, int32_t* Z, const proj<fp2>* p) {
   fp_to_limbs12(Y + BLS_LIMBS12, &y.c1);
   fp_to_limbs12(Z, &z.c0);
   fp_to_limbs12(Z + BLS_LIMBS12, &z.c1);
-}
-
-// an element from lane src of `mask` (the host build: one exchange)
-__device__ __forceinline__ fp shfl_fp(u32 mask, const fp& v, int src) {
-#if defined(CUDA_HOST_SHIM) && !defined(__CUDA_ARCH__)
-  return host_shfl_value(mask, v, src);
-#else
-  fp r;
-#pragma unroll
-  for (int i = 0; i < NW; i++) r.l[i] = __shfl_sync(mask, v.l[i], src);
-  return r;
-#endif
 }
 
 static inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }

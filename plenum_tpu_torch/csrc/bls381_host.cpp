@@ -2,17 +2,22 @@
 // CPU through cuda_host_shim.h, for tests without a card:
 //
 //   g++ -std=c++20 -O1 -pthread -o bls381_host bls381_host.cpp
-//   bls381_host pairing|g1agg|g2agg|msm|fp IN OUT
+//   bls381_host pairing|g1agg|g2agg|msm|fp|pow|inv IN OUT
 //
-// IN holds three int32 (B, P and K; B and n; B and n; N, D and the window
-// width c; the operand count n), then the packed arrays in the order of the
-// entry's arguments (12-bit limbs and indices as int32, a flag a byte, MSM
-// digits as int32; for fp, n and n elements as 12 little-endian uint32
-// words each). OUT receives the entry's outputs in order: verdict[B] and
-// decode_ok[B] bytes; or X, Y, Z (int32 limbs) and ok bytes; or for fp the
-// n Montgomery products a_i b_i R^-1 and then the n squares a_i^2 R^-1. The
-// Montgomery multiplies the run made, and the squarings among them, are
-// printed on stdout as {"fp_muls": n, "fp_sqrs": s}.
+// IN holds three int32 (B, P and K; B, n and D; B, n and D; N, D and the
+// window width c; the operand count n; n and the chain; n), then the
+// packed arrays in the order of the entry's arguments (12-bit limbs and
+// indices as int32, a flag a byte, MSM digits as int32; for fp, n and n
+// elements as 12 little-endian uint32 words each; for pow, n elements of
+// the chain's field, an fp2 as c0 then c1; for inv, n nonzero
+// standard-domain elements). OUT receives the entry's outputs in order:
+// verdict[B] and decode_ok[B] bytes; or X, Y, Z (int32 limbs) and ok
+// bytes; or for fp the n Montgomery products a_i b_i R^-1 and then the n
+// squares a_i^2 R^-1; for pow the n powers a_i^e (Montgomery in and out)
+// of chain 0: fp (q+1)/4, 1: fp (q-3)/4, 2: fp2 (q-3)/4, 3: fp2 (q-1)/2;
+// for inv the n inverses by safegcd. The Montgomery multiplies the run
+// made, the squarings among them and the inversions' multiply-adds are
+// printed on stdout as {"fp_muls": n, "fp_sqrs": s, "int_mads": m}.
 #define BLS381_COUNT_MULS
 #include <cstdio>
 #include <memory>
@@ -64,7 +69,7 @@ static bool write_parts(const char* path,
 
 int main(int argc, char** argv) {
   if (argc != 4) {
-    std::fprintf(stderr, "usage: %s pairing|g1agg|g2agg|msm|fp IN OUT\n",
+    std::fprintf(stderr, "usage: %s pairing|g1agg|g2agg|msm|fp|pow|inv IN OUT\n",
                  argv[0]);
     return 2;
   }
@@ -95,18 +100,24 @@ int main(int argc, char** argv) {
                           {ok.data(), ok.size()}});
   } else if (mode == "g1agg" || mode == "g2agg") {
     const bool g2 = mode == "g2agg";
-    const size_t s = (size_t)a * b, w = g2 ? 2 * L : L;
-    auto xa = in.take<int32_t>(s * L);
-    auto xb = g2 ? in.take<int32_t>(s * L) : nullptr;
-    auto sg = in.take<uint8_t>(s), inf = in.take<uint8_t>(s),
-         val = in.take<uint8_t>(s);
-    if (!val || in.pos != in.buf.size()) return 2;
+    const size_t d = (size_t)c, w = g2 ? 2 * L : L;
+    auto xa = in.take<int32_t>(d * L);
+    auto xb = g2 ? in.take<int32_t>(d * L) : nullptr;
+    auto sg = in.take<uint8_t>(d), inf = in.take<uint8_t>(d),
+         val = in.take<uint8_t>(d);
+    auto index = in.take<int32_t>((size_t)a * b);
+    if (!index || in.pos != in.buf.size()) return 2;
+    std::vector<uint8_t> scratch(
+        g2 ? bls_g2_aggregate_scratch_bytes(a, c)
+           : bls_g1_aggregate_scratch_bytes(a, c));
     std::vector<int32_t> X(a * w), Y(a * w), Z(a * w);
     std::vector<uint8_t> ok(a);
-    rc = g2 ? bls_g2_aggregate(xa, xb, sg, inf, val, a, b, X.data(),
-                               Y.data(), Z.data(), ok.data(), nullptr)
-            : bls_g1_aggregate(xa, sg, inf, val, a, b, X.data(), Y.data(),
-                               Z.data(), ok.data(), nullptr);
+    rc = g2 ? bls_g2_aggregate(xa, xb, sg, inf, val, c, index, a, b,
+                               scratch.data(), X.data(), Y.data(), Z.data(),
+                               ok.data(), 0, 2, nullptr)
+            : bls_g1_aggregate(xa, sg, inf, val, c, index, a, b,
+                               scratch.data(), X.data(), Y.data(), Z.data(),
+                               ok.data(), 0, 2, nullptr);
     write_parts(argv[3], {{X.data(), X.size() * 4}, {Y.data(), Y.size() * 4},
                           {Z.data(), Z.size() * 4}, {ok.data(), ok.size()}});
   } else if (mode == "msm") {
@@ -135,11 +146,36 @@ int main(int argc, char** argv) {
     }
     write_parts(argv[3], {{prod.data(), n * sizeof(fp)},
                           {sq.data(), n * sizeof(fp)}});
+  } else if (mode == "pow") {
+    const size_t n = (size_t)a;
+    const int chain = b;
+    const fp e = chain == 0 ? EXP_SQRT : chain == 3 ? EXP_HALF : EXP_SQRT34;
+    if (chain < 2) {
+      auto xs = in.take<fp>(n);
+      if (!xs || in.pos != in.buf.size()) return 2;
+      std::vector<fp> out(n);
+      for (size_t i = 0; i < n; i++) pow_window(&out[i], &xs[i], &e, fp_ops());
+      write_parts(argv[3], {{out.data(), n * sizeof(fp)}});
+    } else {
+      auto xs = in.take<fp2>(n);
+      if (!xs || in.pos != in.buf.size()) return 2;
+      std::vector<fp2> out(n);
+      for (size_t i = 0; i < n; i++) pow_window(&out[i], &xs[i], &e, solo());
+      write_parts(argv[3], {{out.data(), n * sizeof(fp2)}});
+    }
+  } else if (mode == "inv") {
+    const size_t n = (size_t)a;
+    auto xs = in.take<fp>(n);
+    if (!xs || in.pos != in.buf.size()) return 2;
+    std::vector<fp> out(n);
+    for (size_t i = 0; i < n; i++) fp_inv_var(&out[i], &xs[i]);
+    write_parts(argv[3], {{out.data(), n * sizeof(fp)}});
   } else {
     return 2;
   }
-  std::printf("{\"fp_muls\": %llu, \"fp_sqrs\": %llu}\n",
+  std::printf("{\"fp_muls\": %llu, \"fp_sqrs\": %llu, \"int_mads\": %llu}\n",
               (unsigned long long)bls_fp_muls,
-              (unsigned long long)bls_fp_sqrs);
+              (unsigned long long)bls_fp_sqrs,
+              (unsigned long long)bls_int_mads);
   return rc;
 }

@@ -110,106 +110,6 @@ bls_msm_bucket_kernel(const uint16_t* win, const int32_t* index, int N,
   }
 }
 
-// A sextet: six lanes of a warp (five a warp) that hold the same point and
-// split each level of an RCB formula's independent products, lane i the
-// i-th, sharing them by shuffles: an addition is two levels of six
-// products, a doubling two of four (its squarings as products). A lane's
-// products are one chain of carry flags, so six lanes run six at once.
-struct sextet {
-  int l, base;
-  u32 mask;
-};
-
-__device__ __forceinline__ sextet lane_sextet() {
-  sextet g;
-  const int lane = threadIdx.x & 31;
-  g.l = lane % 6;
-  g.base = lane - g.l;
-  g.mask = 0x3fu << g.base;
-  return g;
-}
-
-// the sextet's index in the block, or -1 for lanes 30 and 31
-__device__ __forceinline__ int sextet_index() {
-  const int lane = threadIdx.x & 31;
-  return lane >= 30 ? -1 : (threadIdx.x >> 5) * 5 + lane / 6;
-}
-
-// m[i] = x[i] y[i] for i < N
-template <int N>
-__device__ __forceinline__ void sx_level(const sextet& g, fp* m, const fp* x,
-                                         const fp* y) {
-  fp xa = x[0], ya = y[0];
-#pragma unroll
-  for (int i = 1; i < N; i++) {
-    if (g.l == i) {
-      xa = x[i];
-      ya = y[i];
-    }
-  }
-  fp t = FP_ZERO;
-  if (g.l < N) fp_mul(&t, &xa, &ya);
-#pragma unroll
-  for (int i = 0; i < N; i++) m[i] = shfl_fp(g.mask, t, g.base + i);
-}
-
-// rcb_add (RCB Alg. 7) in two levels of six products
-__device__ __forceinline__ void sx_add(const sextet& g, proj<fp>* r,
-                                       const proj<fp>* p,
-                                       const proj<fp>* q) {
-  fp x[6], y[6], m[6], t0, t1, t2, t3, t4, Y3, Z3, u;
-  x[0] = p->X; y[0] = q->X;
-  x[1] = p->Y; y[1] = q->Y;
-  x[2] = p->Z; y[2] = q->Z;
-  fp_add(&x[3], &p->X, &p->Y); fp_add(&y[3], &q->X, &q->Y);
-  fp_add(&x[4], &p->Y, &p->Z); fp_add(&y[4], &q->Y, &q->Z);
-  fp_add(&x[5], &p->X, &p->Z); fp_add(&y[5], &q->X, &q->Z);
-  sx_level<6>(g, m, x, y);
-  t0 = m[0]; t1 = m[1]; t2 = m[2];
-  fp_add(&u, &t0, &t1); fp_sub(&t3, &m[3], &u);
-  fp_add(&u, &t1, &t2); fp_sub(&t4, &m[4], &u);
-  fp_add(&u, &t0, &t2); fp_sub(&Y3, &m[5], &u);
-  fp_add(&u, &t0, &t0); fp_add(&t0, &u, &t0);          // 3 t0
-  fp_mul12(&t2, &t2);
-  fp_add(&Z3, &t1, &t2); fp_sub(&t1, &t1, &t2);
-  fp_mul12(&Y3, &Y3);
-  x[0] = t4; y[0] = Y3;                                // X3 = t4 Y3
-  x[1] = t3; y[1] = t1;                                // u = t3 t1
-  x[2] = Y3; y[2] = t0;                                // Y3 t0
-  x[3] = t1; y[3] = Z3;                                // t1 Z3
-  x[4] = t0; y[4] = t3;                                // t0 t3
-  x[5] = Z3; y[5] = t4;                                // Z3 t4
-  sx_level<6>(g, m, x, y);
-  fp_sub(&r->X, &m[1], &m[0]);
-  fp_add(&r->Y, &m[3], &m[2]);
-  fp_add(&r->Z, &m[5], &m[4]);
-}
-
-// the doubling (RCB Alg. 9, a = 0) in two levels of four products
-__device__ __forceinline__ void sx_dbl(const sextet& g, proj<fp>* r,
-                                       const proj<fp>* p) {
-  fp x[4], y[4], m[4], t0, t2, Z3, Y3, u;
-  x[0] = p->Y; y[0] = p->Y;                            // Y^2
-  x[1] = p->Y; y[1] = p->Z;                            // Y Z
-  x[2] = p->Z; y[2] = p->Z;                            // Z^2
-  x[3] = p->X; y[3] = p->Y;                            // X Y
-  sx_level<4>(g, m, x, y);
-  t0 = m[0];
-  fp_add(&Z3, &t0, &t0); fp_add(&Z3, &Z3, &Z3); fp_add(&Z3, &Z3, &Z3);
-  fp_mul12(&t2, &m[2]);
-  fp_add(&Y3, &t0, &t2);
-  fp_add(&u, &t2, &t2); fp_add(&u, &u, &t2);           // 3 t2
-  fp_sub(&t0, &t0, &u);
-  x[0] = t2; y[0] = Z3;                                // X3 = t2 Z3
-  x[1] = m[1]; y[1] = Z3;                              // Z3 = t1 Z3
-  x[2] = t0; y[2] = Y3;                                // Y3 = t0 Y3
-  x[3] = t0; y[3] = m[3];                              // t0 X Y
-  sx_level<4>(g, m, x, y);
-  fp_add(&r->Y, &m[0], &m[2]);
-  fp_add(&r->X, &m[3], &m[3]);
-  r->Z = m[1];
-}
-
 // MSM, launch 3: sextet (w, s) of W * seg runs the sums over segment s of
 // window w's buckets, L = 2^c / seg of them (b from (s+1) L down to
 // s L + 1): run = sum S_b, acc = sum (b - s L) S_b.

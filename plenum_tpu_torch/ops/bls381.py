@@ -14,12 +14,13 @@ point (sign_big, is_inf, valid). The kernel returns every aggregate as
 normalized standard-domain coordinates, (x, y, 1) or the identity
 (0, 1, 0), so the card and the plain version give equal tensors.
 
-The plain version (`g1_aggregate_plain`) evaluates each job with the
-port's host arithmetic (crypto/bls_ops: g1_decompress, g1_add); the
-wrapper `g1_aggregate` takes it for CPU tensors only and launches the
-kernel (`g1_aggregate_cuda`) for CUDA tensors. The JAX package pads the
-job axis to a power of two so that jit reuses a compiled shape; the port
-launches the exact B.
+The aggregates take each distinct encoding once, with a [B, n] index of
+each job's points among them (`pack_g1_jobs`). The plain version
+(`g1_aggregate_plain`) evaluates each job with the port's host arithmetic
+(crypto/bls_ops: g1_decompress, g1_add); the wrapper `g1_aggregate` takes
+it for CPU tensors only and launches the kernels (`g1_aggregate_cuda`) for
+CUDA tensors. The JAX package pads the job axis to a power of two so that
+jit reuses a compiled shape; the port launches the exact B.
 """
 from __future__ import annotations
 
@@ -47,22 +48,27 @@ G2_INF = bytes([0xC0] + [0] * 95)
 # ------------------------------------------------------------- the bounds
 # A bound counts the function, not a kernel's schedule: the Montgomery
 # multiplies (M) and squarings (S) of base-field elements that the function
-# needs on a launch's data, with the formulas named below, as vectors
-# (M, S). Additions, subtractions and multiplies by small constants (done
-# as additions) are not counted. Each is priced in 32-bit multiply-adds
+# needs on a launch's data, with the formulas named below, and the 32-bit
+# multiply-adds (O) of the inversion by safegcd, as vectors (M, S, O).
+# Additions, subtractions and multiplies by small constants (done as
+# additions) are not counted. Each is priced in 32-bit multiply-adds
 # (INT32_OPS): a multiply's 12 x 12 word products, low and high halves
 # (288), a square's 78 (156), and the reduction's m*q (288) and m (12).
-# The kernels do a little more than this (the aggregates' complete
-# additions and their tree padded to the block, a G1 decompression per
-# pair, the fp12 inverse's cubic norm, the MSM's bucket sums in segments);
-# tests/test_torch_bls381.py builds their own schedule from the same
-# pieces and holds it against the multiplies and squarings that the host
-# build counts.
+# The kernels do a little more than this (the aggregates' tree of complete
+# additions, a G1 decompression per pair, the pairing's G2 square root by
+# Alg. 9 and Fermat's inversions in the pairing and the MSM, the fp12
+# inverse's cubic norm, the MSM's bucket sums in segments);
+# tests/test_torch_bls381.py builds their own schedule from the same pieces
+# and holds it against the multiplies and squarings that the host build
+# counts.
 
-M = np.array([1, 0])
-S = np.array([0, 1])
-INT32_OPS = np.array([2 * 144 + 2 * 144 + 12, 2 * 78 + 2 * 144 + 12])
+M = np.array([1, 0, 0])
+S = np.array([0, 1, 0])
+O = np.array([0, 0, 1])
+INT32_OPS = np.array([2 * 144 + 2 * 144 + 12, 2 * 78 + 2 * 144 + 12, 1])
 M2, S2 = 3 * M, 2 * M        # in fp2: Karatsuba, the complex squaring
+POW_WINDOW = 5               # csrc/bls381_core.cuh POW_WINDOW
+POW_WINDOW_FP2 = 4           # csrc/bls381_core.cuh POW_WINDOW_FP2
 
 
 def pow_cost(e: int, sqr, mul):
@@ -70,16 +76,44 @@ def pow_cost(e: int, sqr, mul):
     return (e.bit_length() - 1) * sqr + (bin(e).count("1") - 1) * mul
 
 
-FP_INV = pow_cost(Q - 2, S, M)                  # Fermat
-FP2_INV = 2 * S + FP_INV + 2 * M
+def window_cost(e: int, sqr, mul, w: int = POW_WINDOW):
+    """A sliding window of up to w bits over the odd powers (csrc
+    pow_window): a^2 and the 2^(w-1) - 1 odd powers above a, then a
+    squaring a bit below the first window and a product a window past
+    it."""
+    sqrs, muls = 1, (1 << (w - 1)) - 1
+    bit, started = e.bit_length() - 1, False
+    while bit >= 0:
+        if not (e >> bit) & 1:
+            sqrs, bit = sqrs + 1, bit - 1
+            continue
+        lo = max(bit - w + 1, 0)
+        while not (e >> lo) & 1:
+            lo += 1
+        if started:
+            sqrs, muls = sqrs + bit - lo + 1, muls + 1
+        started, bit = True, lo - 1
+    return sqrs * sqr + muls * mul
+
+
+FP_INV_FERMAT = pow_cost(Q - 2, S, M)
+# safegcd (csrc fp_inv_var): batches of 30 divsteps, each updating d and e
+# with 6 products of 32 x 32 bits a limb of 13 and 2 more (two
+# multiply-adds a product); a 381-bit q takes at least 13 batches, since
+# the integer matrix of N divsteps has entries within 2^N and the row that
+# sends g to 0 is a multiple of (a, -q)
+SAFEGCD_MIN_BATCHES = -(-Q.bit_length() // 30)
+FP_INV = SAFEGCD_MIN_BATCHES * 2 * (6 * 13 + 2) * O
+SQRT_CHAIN = window_cost((Q + 1) // 4, S, M)
 COST = {
     # to Montgomery, x^2, x^3, the (q+1)/4 power, y^2 == x^3 + 4, from
     # Montgomery for the sign
-    "g1_decompress": 3 * M + 2 * S + pow_cost((Q + 1) // 4, S, M),
-    # the same over fp2 (its square root: both candidates, as the JAX
-    # tower computes them)
-    "g2_decompress": 4 * M + 3 * S2 + 4 * M2
-    + pow_cost((Q - 3) // 4, S2, M2) + pow_cost((Q - 1) // 2, S2, M2),
+    "g1_decompress": 3 * M + 2 * S + SQRT_CHAIN,
+    # over fp2 with the root by the norm (one candidate): to Montgomery,
+    # x^2, x^3, the norm, its square root, the candidate's (q-3)/4 power,
+    # the root's two products, its square against y^2, from Montgomery
+    "g2_decompress": 2 * M + S2 + M2 + 2 * S + SQRT_CHAIN
+    + window_cost((Q - 3) // 4, S, M) + 2 * M + S2 + 2 * M,
     # Renes-Costello-Batina 2016 for a = 0: complete addition (Alg. 7),
     # mixed addition of an affine point (Alg. 8), doubling (Alg. 9)
     "g1_add": 12 * M, "g1_madd": 11 * M, "g1_dbl": 6 * M + 2 * S,
@@ -91,15 +125,21 @@ COST = {
     "miller_dbl": 8 * S2 + 3 * M2, "miller_add": 8 * S2 + 7 * M2,
     "line": 4 * M + 13 * M2, "fp12_sqr": 12 * M2, "fp12_mul": 18 * M2,
     # the easy and the hard part (HHT chain, cyclotomic squarings), as the
-    # host build counts them
-    "final_exp": 7934 * M + 382 * S,
+    # host build counts them, with its one inversion by safegcd
+    "final_exp": 7934 * M + 382 * S - FP_INV_FERMAT + FP_INV,
 }
 MILLER_DOUBLINGS = 63        # |x| = 0xd201000000010000 below its top bit
 MILLER_ADDITIONS = 5         # its other set bits
+# a normalized result beside the shared inversion: G1 Z from Montgomery,
+# x and y; G2 the norm of Z, from Montgomery, 1/Z from its inverse, x, y
+G1_STORE = 3 * M
+G2_STORE = 2 * S + 3 * M + 2 * M2
+# csrc/bls381_agg.cu: the sextets that sum one job (G1, G2)
+AGG_SUM_GROUPS = {"g1": 20, "g2": 8}
 
 
 def int32_ops(cost) -> int:
-    """An (M, S) count → 32-bit multiply-adds."""
+    """An (M, S, O) count → 32-bit multiply-adds."""
     return int(np.dot(cost, INT32_OPS))
 
 
@@ -113,15 +153,25 @@ def distinct_points(*coords, finite) -> int:
     return int(np.unique(np.concatenate(cols, axis=1), axis=0).shape[0])
 
 
-def store_cost(k: int, inv, mul, from_mont):
+def store_cost(k: int, per):
     """k finite results normalized to (x, y, 1) in the standard domain:
-    one inversion for all (Montgomery's trick, 3 (k - 1) products), two
-    products and two conversions each."""
+    one inversion for all (Montgomery's trick, 3 (k - 1) products), `per`
+    each."""
     if k == 0:
         return 0 * M
-    return inv + 3 * (k - 1) * mul + k * (2 * mul + from_mont)
+    return FP_INV + 3 * (k - 1) * M + k * per
 
 
+def distinct_rows(raw: np.ndarray):
+    """[N, width] uint8 encodings → (the distinct rows [K, width], the
+    index [N] int32 of each row among them)."""
+    raw = np.ascontiguousarray(raw)
+    if raw.shape[0] == 0:
+        return raw, np.zeros(0, dtype=np.int32)
+    rows = raw.view(np.dtype((np.void, raw.shape[1]))).reshape(-1)
+    _, first, inverse = np.unique(rows, return_index=True,
+                                  return_inverse=True)
+    return raw[first], inverse.reshape(-1).astype(np.int32)
 
 
 def _int_to_limbs(v: int, n: int = NLIMB) -> np.ndarray:
@@ -339,8 +389,12 @@ SIGNATURES = {
         "bls_fp_chain": [_I, _I, _I] + [_P] * 5,
     },
     "bls381_agg": {
-        "bls_g1_aggregate": [_P] * 4 + [_I, _I] + [_P] * 5,
-        "bls_g2_aggregate": [_P] * 5 + [_I, _I] + [_P] * 5,
+        "bls_g1_aggregate": [_P] * 4 + [_I, _P, _I, _I] + [_P] * 5
+        + [_I, _I, _P],
+        "bls_g2_aggregate": [_P] * 5 + [_I, _P, _I, _I] + [_P] * 5
+        + [_I, _I, _P],
+        "bls_g1_aggregate_scratch_bytes": [_I, _I],
+        "bls_g2_aggregate_scratch_bytes": [_I, _I],
     },
     "bls381_msm": {
         "bls_g1_msm": [_P] * 4 + [_I] + [_P] * 2 + [_I, _I] + [_P] * 6,
@@ -368,65 +422,122 @@ def store_points(points) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return _ints_to_limbs(xs), _ints_to_limbs(ys), _ints_to_limbs(zs)
 
 
+def affine_or_none(x: int, y: int, z: int) -> Optional[Tuple[int, int]]:
+    """A normalized result (x, y, 1) → (x, y); (0, 1, 0) → None."""
+    if z not in (0, 1):
+        raise ValueError("a normalized point has Z 0 or 1, not {}".format(z))
+    return (x, y) if z else None
+
+
+def agg_stages_arg(stages) -> Tuple[int, int]:
+    first, last = (int(v) for v in stages)
+    if not 0 <= first <= last <= 2:
+        raise ValueError("stages must be (first, last) within 0..2, got "
+                         "{}".format(stages))
+    return first, last
+
+
 # ------------------------------------------------------- G1 aggregation
 
-def g1_aggregate_plain(x: torch.Tensor, sign_big: torch.Tensor,
-                       is_inf: torch.Tensor, valid: torch.Tensor):
-    """The G1 aggregate kernel's function with the port's host arithmetic:
-    [B, n, 32] int32 limbs and [B, n] uint8 flags → (X, Y, Z [B, 32]
-    int32, ok [B] bool). Each job sums its finite shares (crypto/bls_ops
-    g1_decompress, g1_add); a job with a share that is not a valid
-    encoding or not on the curve gives ok False and the identity."""
-    from plenum_tpu_torch.crypto import bls_ops
-    B, n = int(x.shape[0]), int(x.shape[1])
-    _check_g1_args(x, sign_big, is_inf, valid, B, n)
-    xs, sg = x.cpu().numpy(), sign_big.cpu().numpy()
-    inf, val = is_inf.cpu().numpy(), valid.cpu().numpy()
-    points, ok = [], np.ones(B, dtype=bool)
-    for b in range(B):
-        agg = None
-        for j in range(n):
-            if not val[b, j]:
-                ok[b] = False
-                continue
-            if inf[b, j]:
-                continue
+def _check_g1_args(x, sign_big, is_inf, valid, index, D, B, n):
+    _check(x, (D, NLIMB), torch.int32, x=x)
+    _check(x, (D,), torch.uint8, sign_big=sign_big, is_inf=is_inf,
+           valid=valid)
+    _check(x, (B, n), torch.int32, index=index)
+
+
+def decompressed_table(valid, is_inf, decode) -> list:
+    """Each distinct packed point decompressed once (decode(d)): the
+    point, None at infinity, or False for one that is not a valid encoding
+    or not on the curve."""
+    table = []
+    for d in range(len(valid)):
+        if not valid[d]:
+            table.append(False)
+        elif is_inf[d]:
+            table.append(None)
+        else:
             try:
-                p = bls_ops.g1_decompress(g1_bytes(xs[b, j], sg[b, j]))
+                table.append(decode(d))
             except ValueError:
+                table.append(False)
+    return table
+
+
+def job_sums(table: list, idx: np.ndarray, add):
+    """Each job's sum of the table rows its index row names → (points,
+    ok [B]): a point, or None for the identity and for a job that names a
+    bad row or a row outside the table (ok False)."""
+    points, ok = [], np.ones(len(idx), dtype=bool)
+    for b, row in enumerate(idx):
+        agg = None
+        for d in row:
+            p = table[d] if 0 <= d < len(table) else False
+            if p is False:
                 ok[b] = False
-                continue
-            agg = bls_ops.g1_add(agg, p)
+            elif p is not None:
+                agg = add(agg, p)
         points.append(agg if ok[b] else None)
+    return points, ok
+
+
+def g1_aggregate_plain(x: torch.Tensor, sign_big: torch.Tensor,
+                       is_inf: torch.Tensor, valid: torch.Tensor,
+                       index: torch.Tensor):
+    """The G1 aggregate kernel's function with the port's host arithmetic:
+    D distinct packed shares ([D, 32] int32 limbs, [D] uint8 flags) and the
+    [B, n] index of each job's shares among them → (X, Y, Z [B, 32] int32,
+    ok [B] bool). Each distinct share is decompressed once (crypto/bls_ops
+    g1_decompress) and each job sums its finite shares (g1_add); a job
+    with a share that is not a valid encoding or not on the curve, or with
+    an index outside [0, D), gives ok False and the identity."""
+    from plenum_tpu_torch.crypto import bls_ops
+    D, (B, n) = int(x.shape[0]), tuple(index.shape)
+    _check_g1_args(x, sign_big, is_inf, valid, index, D, B, n)
+    idx = index.cpu().numpy()
+    xs, sg = x.cpu().numpy(), sign_big.cpu().numpy()
+    table = decompressed_table(
+        valid.cpu().numpy(), is_inf.cpu().numpy(),
+        lambda d: bls_ops.g1_decompress(g1_bytes(xs[d], sg[d])))
+    points, ok = job_sums(table, idx, bls_ops.g1_add)
     X, Y, Z = (torch.from_numpy(a).to(x.device) for a in store_points(points))
     return X, Y, Z, torch.from_numpy(ok).to(x.device)
 
 
-def _check_g1_args(x, sign_big, is_inf, valid, B, n):
-    _check(x, (B, n, NLIMB), torch.int32, x=x)
-    _check(x, (B, n), torch.uint8, sign_big=sign_big, is_inf=is_inf,
-           valid=valid)
+def g1_aggregate_scratch(B: int, D: int, device) -> torch.Tensor:
+    """The device scratch of a G1 aggregate launch: the decompressed
+    points, their status, the jobs' sums and flags."""
+    return torch.empty((library("bls381_agg").bls_g1_aggregate_scratch_bytes(
+        B, D),), dtype=torch.uint8, device=device)
 
 
 def g1_aggregate_cuda(x: torch.Tensor, sign_big: torch.Tensor,
-                      is_inf: torch.Tensor, valid: torch.Tensor):
-    """The CUDA kernel (csrc/bls381_agg.cu, bls_g1_aggregate) on CUDA tensors,
-    the function of g1_aggregate_plain: a block per job. Launches on the
-    current stream and returns without synchronising; counts each launch
-    in `g1_aggregate_cuda.launches`."""
-    B, n = int(x.shape[0]), int(x.shape[1])
-    _check_g1_args(x, sign_big, is_inf, valid, B, n)
+                      is_inf: torch.Tensor, valid: torch.Tensor,
+                      index: torch.Tensor, scratch=None, stages=(0, 2)):
+    """The CUDA kernels (csrc/bls381_agg.cu, bls_g1_aggregate: each
+    distinct share decompressed once, each job summed on sextets, each sum
+    normalized by one inversion) on CUDA tensors, the function of
+    g1_aggregate_plain. Launches on the current stream and returns without
+    synchronising; counts each call in `g1_aggregate_cuda.launches`.
+    `stages` (first, last of 0 decompression, 1 sums, 2 normalization)
+    with a `scratch` from g1_aggregate_scratch that an earlier call filled
+    runs part of a launch, for timing."""
+    D, (B, n) = int(x.shape[0]), tuple(index.shape)
+    _check_g1_args(x, sign_big, is_inf, valid, index, D, B, n)
     _need_cuda(x, "g1_aggregate_cuda")
+    first, last = agg_stages_arg(stages)
     dev = x.device
     X, Y, Z = (torch.empty((B, NLIMB), dtype=torch.int32, device=dev)
                for _ in range(3))
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return X, Y, Z, ok
+    if scratch is None:
+        scratch = g1_aggregate_scratch(B, D, dev)
     fn = library("bls381_agg").bls_g1_aggregate
     with torch.cuda.device(dev):
-        err = fn(*_ptrs(x, sign_big, is_inf, valid), B, n,
-                 *_ptrs(X, Y, Z, ok), _stream(dev))
+        err = fn(*_ptrs(x, sign_big, is_inf, valid), D, index.data_ptr(), B,
+                 n, *_ptrs(scratch, X, Y, Z, ok), first, last, _stream(dev))
     launch_error("bls_g1_aggregate", err)
     g1_aggregate_cuda.launches += 1
     return X, Y, Z, ok
@@ -435,42 +546,43 @@ def g1_aggregate_cuda(x: torch.Tensor, sign_big: torch.Tensor,
 g1_aggregate_cuda.launches = 0
 
 
-def g1_aggregate(x, sign_big, is_inf, valid):
+def g1_aggregate(x, sign_big, is_inf, valid, index):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     return _route(g1_aggregate_cuda, g1_aggregate_plain, x, x, sign_big,
-                  is_inf, valid)
+                  is_inf, valid, index)
 
 
 def pack_g1_jobs(jobs: Sequence[Sequence[bytes]], n: int):
-    """B jobs of at most n compressed shares → the kernel's four numpy
-    arrays ([B, n, 32] limbs, [B, n] flags), short jobs padded with
-    infinity shares (the identity under addition)."""
+    """B jobs of at most n compressed shares → the kernel's five numpy
+    arrays: the D distinct encodings' limbs [D, 32] and flags [D] (sign,
+    infinity, valid), and the [B, n] index of each job's shares among
+    them; short jobs padded with the infinity encoding (the identity under
+    addition), which is one row too."""
     B = len(jobs)
-    raw = raw_points(jobs, n, G1_BYTES)
-    limbs, sign_big, is_inf, valid = pack_compressed(raw.reshape(B * n, 48))
-    return (limbs.reshape(B, n, NLIMB), sign_big.reshape(B, n),
-            is_inf.reshape(B, n), valid.reshape(B, n))
+    distinct, index = distinct_rows(raw_points(jobs, n, G1_BYTES).reshape(
+        B * n, G1_BYTES))
+    return tuple(pack_compressed(distinct)) + (index.reshape(B, n),)
 
 
-def g1_aggregate_cost(x, sign_big, is_inf, valid, ok, Z):
-    """The (M, S) that one G1 aggregate launch's function needs, from its
-    packed inputs ([B, n, 32] limbs, [B, n] flags) and its outputs ok [B]
-    and Z [B, 32] (numpy): each distinct valid finite share decompressed
-    once; in each job that decoded, a mixed addition for each finite
-    share past the first; the finite aggregates normalized."""
+def g1_aggregate_cost(x, sign_big, is_inf, valid, index, ok, Z):
+    """The (M, S, O) that one G1 aggregate launch's function needs, from
+    its packed inputs ([D, 32] limbs, [D] flags, [B, n] index) and its
+    outputs ok [B] and Z [B, 32] (numpy): each distinct valid finite share
+    decompressed once; in each job that decoded, a mixed addition for each
+    finite share past the first; the finite aggregates normalized."""
     finite = np.asarray(valid, bool) & ~np.asarray(is_inf, bool)
     ok = np.asarray(ok, bool)
-    per_job = finite.sum(axis=1)
+    per_job = finite[np.asarray(index)].sum(axis=1)
     stores = int((ok & np.asarray(Z).any(axis=-1)).sum())
     return distinct_points(x, sign_big, finite=finite) \
         * COST["g1_decompress"] \
         + int(np.maximum(per_job[ok] - 1, 0).sum()) * COST["g1_madd"] \
-        + store_cost(stores, FP_INV, M, 2 * M)
+        + store_cost(stores, G1_STORE)
 
 
 def aggregate_dispatch(jobs: Sequence[Sequence[bytes]], n: int, device=None):
     """Enqueue the aggregation of B share-sets (each at most n compressed
-    G1 signatures) on `device` (None means CUDA): one upload and one launch
+    G1 signatures) on `device` (None means CUDA): one upload and one call
     of exactly B jobs, nothing read back. → the handles for
     aggregate_collect."""
     dev = resolve_device(device)
@@ -484,16 +596,17 @@ def aggregate_collect(handles) -> Tuple[List[Optional[Tuple[int, int]]],
                                         np.ndarray]:
     """The one read-back of an aggregate_dispatch → (points, valid):
     points[i] the affine aggregate (x, y), or None for the identity or a
-    job with an undecodable share; valid[i] False for such a job."""
+    job with an undecodable share; valid[i] False for such a job. The
+    results come normalized: (x, y) is read as it is."""
     X, Y, Z, ok = (h.cpu().numpy() for h in handles)
     xs, ys, zs = _limbs_to_ints(X), _limbs_to_ints(Y), _limbs_to_ints(Z)
-    pts = [_proj_to_affine(int(xs[i]), int(ys[i]), int(zs[i]))
+    pts = [affine_or_none(int(xs[i]), int(ys[i]), int(zs[i]))
            if ok[i] else None for i in range(len(ok))]
     return pts, ok.astype(bool)
 
 
 def aggregate_g1_jobs(jobs: Sequence[Sequence[bytes]], device=None):
-    """Aggregate B independent share-sets in one launch → (points, valid)
+    """Aggregate B independent share-sets in one call → (points, valid)
     as aggregate_collect gives them."""
     if len(jobs) == 0:
         return [], np.zeros(0, dtype=bool)

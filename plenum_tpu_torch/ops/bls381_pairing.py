@@ -22,7 +22,7 @@ are padded with infinity pairs, which are neutral).
   digits (most significant first); each distinct point packed once, with
   an index a scalar.
 - `g2_aggregate_*`: B sets of compressed G2 points (public keys), each
-  summed.
+  summed; each distinct encoding packed once, with a [B, n] index.
 
 Each kernel has its plain version here, on the port's host arithmetic
 (crypto/bls_ops: the pairing check of pairing_job_host, g1_decompress,
@@ -41,28 +41,16 @@ import torch
 from plenum_tpu_torch.observability import telemetry as _tmy
 from plenum_tpu_torch.ops import resolve_device
 from plenum_tpu_torch.ops.bls381 import (
-    COST, FP2_INV, FP_INV, G1_BYTES, G2_BYTES, M, M2, MILLER_ADDITIONS,
-    MILLER_DOUBLINGS, NLIMB, Q, R_ORD, _check, _ints_to_limbs,
-    _limbs_to_ints, _need_cuda, _proj_to_affine, _ptrs, _route, _stream,
-    distinct_points, g1_bytes, g2_bytes, int32_ops, launch_error, library,
-    pack_compressed, pack_g2_compressed, raw_points, store_points,
-    store_cost, upload)
+    COST, G1_BYTES, G1_STORE, G2_BYTES, G2_STORE, MILLER_ADDITIONS,
+    MILLER_DOUBLINGS, NLIMB, R_ORD, _check, _ints_to_limbs, _limbs_to_ints,
+    _need_cuda, _proj_to_affine, _ptrs, _route, _stream, agg_stages_arg,
+    decompressed_table, distinct_points, distinct_rows, g1_bytes, g2_bytes,
+    int32_ops, job_sums, launch_error, library, pack_compressed,
+    pack_g2_compressed, raw_points, store_cost, store_points, upload)
 
 MSM_DIGITS = 64
 
 # ---------------------------------------------------------------- packing
-
-
-def _distinct_rows(raw: np.ndarray):
-    """[N, width] uint8 encodings → (the distinct rows [K, width], the
-    index [N] int32 of each row among them)."""
-    raw = np.ascontiguousarray(raw)
-    if raw.shape[0] == 0:
-        return raw, np.zeros(0, dtype=np.int32)
-    rows = raw.view(np.dtype((np.void, raw.shape[1]))).reshape(-1)
-    _, first, inverse = np.unique(rows, return_index=True,
-                                  return_inverse=True)
-    return raw[first], inverse.reshape(-1).astype(np.int32)
 
 
 def _pack_pair_arrays(jobs, B: int, P: int):
@@ -74,7 +62,7 @@ def _pack_pair_arrays(jobs, B: int, P: int):
     g1raw = raw_points([[p[0] for p in j] for j in jobs], P, G1_BYTES)
     g2raw = raw_points([[p[1] for p in j] for j in jobs], P, G2_BYTES)
     l1, s1, i1, v1 = pack_compressed(g1raw.reshape(B * P, G1_BYTES))
-    keys, kidx = _distinct_rows(g2raw.reshape(B * P, G2_BYTES))
+    keys, kidx = distinct_rows(g2raw.reshape(B * P, G2_BYTES))
     return (l1.reshape(B, P, NLIMB), s1.reshape(B, P), i1.reshape(B, P),
             v1.reshape(B, P), kidx.reshape(B, P)) \
         + tuple(pack_g2_compressed(keys))
@@ -202,7 +190,7 @@ def pairing(*arrays):
 
 
 def pairing_cost(g1x, g1s, g1i, g1v, g2c1, g2c0, g2s, g2i, g2v, decode_ok):
-    """The (M, S) that one pairing launch's function needs, from its packed
+    """The (M, S, O) that one pairing launch's function needs, from its packed
     inputs (numpy; each pair's key written out, expand_keys) and its
     decode_ok [B]: each distinct valid finite G1 and G2 point decompressed
     once; the lines of each distinct G2 point of a live pair (its doubling
@@ -372,7 +360,7 @@ def msm(*arrays):
 
 
 def msm_cost(x, sign_big, is_inf, valid, digits, ok, Z):
-    """The (M, S) that one MSM call's function needs, from its packed
+    """The (M, S, O) that one MSM call's function needs, from its packed
     inputs (a point row for each scalar: expand_points) and its outputs ok
     and Z [32] (numpy): each distinct valid finite point decompressed
     once, then the bucket method at the window width c that needs least:
@@ -401,7 +389,7 @@ def msm_cost(x, sign_big, is_inf, valid, digits, ok, Z):
             best = cost
     store = int(bool(np.asarray(Z).any()))
     return distinct_points(x, sign_big, finite=finite) * m["g1_decompress"] \
-        + best + store_cost(store, FP_INV, M, 2 * M)
+        + best + store_cost(store, G1_STORE)
 
 
 def expand_points(x, sign_big, is_inf, valid, index, digits):
@@ -419,7 +407,7 @@ def pack_msm(points: Sequence[bytes], scalars: Sequence[int]):
     [N] of each scalar's point, the digits [N, 64]."""
     raw = np.frombuffer(b"".join(points), dtype=np.uint8).reshape(-1,
                                                                   G1_BYTES)
-    distinct, index = _distinct_rows(raw)
+    distinct, index = distinct_rows(raw)
     return tuple(pack_compressed(distinct)) + (
         index, scalar_digits(scalars, len(points)))
 
@@ -454,42 +442,32 @@ def msm_g1(points: Sequence[bytes], scalars: Sequence[int], device=None):
 
 # ------------------------------------------------------- G2 aggregation
 
-def _check_g2agg_args(c1, c0, s, i, v, B, n):
-    _check(c1, (B, n, NLIMB), torch.int32, c1=c1, c0=c0)
-    _check(c1, (B, n), torch.uint8, sign_big=s, is_inf=i, valid=v)
+def _check_g2agg_args(c1, c0, s, i, v, index, D, B, n):
+    _check(c1, (D, NLIMB), torch.int32, c1=c1, c0=c0)
+    _check(c1, (D,), torch.uint8, sign_big=s, is_inf=i, valid=v)
+    _check(c1, (B, n), torch.int32, index=index)
 
 
-def g2_aggregate_plain(c1, c0, sign_big, is_inf, valid):
+def g2_aggregate_plain(c1, c0, sign_big, is_inf, valid, index):
     """The G2 aggregate kernel's function with the port's host arithmetic:
-    [B, n, 32] c1 and c0 limbs and [B, n] flags → (X, Y, Z [B, 2, 32]
-    int32, c0 then c1, normalized; ok [B] bool): each job the sum of its
-    finite points (g2_decompress, g2_add), or the identity with ok False
-    when a point is not a valid encoding or not on the curve."""
+    D distinct packed points ([D, 32] c1 and c0 limbs, [D] flags) and the
+    [B, n] index of each job's points among them → (X, Y, Z [B, 2, 32]
+    int32, c0 then c1, normalized; ok [B] bool): each distinct point
+    decompressed once (g2_decompress), each job the sum of its finite
+    points (g2_add), or the identity with ok False when a point is not a
+    valid encoding or not on the curve, or an index lies outside [0, D)."""
     from plenum_tpu_torch.crypto import bls_ops
-    B, n = int(c1.shape[0]), int(c1.shape[1])
-    _check_g2agg_args(c1, c0, sign_big, is_inf, valid, B, n)
-    a1, a0, sg, inf, val = (t.cpu().numpy() for t in
-                            (c1, c0, sign_big, is_inf, valid))
+    D, (B, n) = int(c1.shape[0]), tuple(index.shape)
+    _check_g2agg_args(c1, c0, sign_big, is_inf, valid, index, D, B, n)
+    idx = index.cpu().numpy()
+    a1, a0, sg = (t.cpu().numpy() for t in (c1, c0, sign_big))
+    table = decompressed_table(
+        valid.cpu().numpy(), is_inf.cpu().numpy(),
+        lambda d: bls_ops.g2_decompress(g2_bytes(a1[d], a0[d], sg[d])))
+    points, ok = job_sums(table, idx, bls_ops.g2_add)
     out = np.zeros((3, B, 2, NLIMB), dtype=np.int32)
-    ok = np.ones(B, dtype=bool)
-    memo = {}
-    for b in range(B):
-        agg = None
-        for j in range(n):
-            if not val[b, j]:
-                ok[b] = False
-                continue
-            if inf[b, j]:
-                continue
-            raw = g2_bytes(a1[b, j], a0[b, j], sg[b, j])
-            try:
-                if raw not in memo:
-                    memo[raw] = bls_ops.g2_decompress(raw)
-            except ValueError:
-                ok[b] = False
-                continue
-            agg = bls_ops.g2_add(agg, memo[raw])
-        if agg is None or not ok[b]:
+    for b, agg in enumerate(points):
+        if agg is None:
             coords = ((0, 0), (1, 0), (0, 0))
         else:
             coords = ((agg[0].c0, agg[0].c1), (agg[1].c0, agg[1].c1), (1, 0))
@@ -499,24 +477,38 @@ def g2_aggregate_plain(c1, c0, sign_big, is_inf, valid):
     return X, Y, Z, torch.from_numpy(ok).to(c1.device)
 
 
-def g2_aggregate_cuda(c1, c0, sign_big, is_inf, valid):
-    """The CUDA kernel (csrc/bls381_agg.cu, bls_g2_aggregate: a block per job,
-    a thread per point, a tree sum in shared memory) on CUDA tensors, the
-    function of g2_aggregate_plain. Counts each launch in
-    `g2_aggregate_cuda.launches`; reads nothing back."""
-    B, n = int(c1.shape[0]), int(c1.shape[1])
-    _check_g2agg_args(c1, c0, sign_big, is_inf, valid, B, n)
+def g2_aggregate_scratch(B: int, D: int, device) -> torch.Tensor:
+    """The device scratch of a G2 aggregate launch (as
+    bls381.g1_aggregate_scratch)."""
+    return torch.empty((library("bls381_agg").bls_g2_aggregate_scratch_bytes(
+        B, D),), dtype=torch.uint8, device=device)
+
+
+def g2_aggregate_cuda(c1, c0, sign_big, is_inf, valid, index, scratch=None,
+                      stages=(0, 2)):
+    """The CUDA kernels (csrc/bls381_agg.cu, bls_g2_aggregate: each
+    distinct key decompressed once on a pair of lanes, each job summed on
+    sextets of trios, each sum normalized by one inversion) on CUDA
+    tensors, the function of g2_aggregate_plain. Counts each call in
+    `g2_aggregate_cuda.launches`; reads nothing back. `scratch` and
+    `stages` as bls381.g1_aggregate_cuda takes them."""
+    D, (B, n) = int(c1.shape[0]), tuple(index.shape)
+    _check_g2agg_args(c1, c0, sign_big, is_inf, valid, index, D, B, n)
     _need_cuda(c1, "g2_aggregate_cuda")
+    first, last = agg_stages_arg(stages)
     dev = c1.device
     X, Y, Z = (torch.empty((B, 2, NLIMB), dtype=torch.int32, device=dev)
                for _ in range(3))
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return X, Y, Z, ok
+    if scratch is None:
+        scratch = g2_aggregate_scratch(B, D, dev)
     fn = library("bls381_agg").bls_g2_aggregate
     with torch.cuda.device(dev):
-        err = fn(*_ptrs(c1, c0, sign_big, is_inf, valid), B, n,
-                 *_ptrs(X, Y, Z, ok), _stream(dev))
+        err = fn(*_ptrs(c1, c0, sign_big, is_inf, valid), D,
+                 index.data_ptr(), B, n, *_ptrs(scratch, X, Y, Z, ok), first,
+                 last, _stream(dev))
     launch_error("bls_g2_aggregate", err)
     g2_aggregate_cuda.launches += 1
     return X, Y, Z, ok
@@ -531,27 +523,28 @@ def g2_aggregate(*arrays):
 
 
 def pack_g2_jobs(jobs: Sequence[Sequence[bytes]], n: int):
-    """B jobs of at most n compressed G2 points → the G2 kernel's five
-    numpy arrays, short jobs padded with infinity points."""
+    """B jobs of at most n compressed G2 points → the G2 kernel's six
+    numpy arrays: the D distinct encodings' c1 and c0 limbs [D, 32] and
+    flags [D], and the [B, n] index of each job's points among them; short
+    jobs padded with the infinity encoding."""
     B = len(jobs)
-    raw = raw_points(jobs, n, G2_BYTES)
-    c1, c0, sg, inf, valid = pack_g2_compressed(raw.reshape(B * n, 96))
-    return (c1.reshape(B, n, NLIMB), c0.reshape(B, n, NLIMB),
-            sg.reshape(B, n), inf.reshape(B, n), valid.reshape(B, n))
+    distinct, index = distinct_rows(raw_points(jobs, n, G2_BYTES).reshape(
+        B * n, G2_BYTES))
+    return tuple(pack_g2_compressed(distinct)) + (index.reshape(B, n),)
 
 
-def g2_aggregate_cost(c1, c0, sign_big, is_inf, valid, ok, Z):
-    """The (M, S) that one G2 aggregate launch's function needs, as
+def g2_aggregate_cost(c1, c0, sign_big, is_inf, valid, index, ok, Z):
+    """The (M, S, O) that one G2 aggregate launch's function needs, as
     bls381.g1_aggregate_cost counts them over fp2 (Z [B, 2, 32])."""
     finite = np.asarray(valid, bool) & ~np.asarray(is_inf, bool)
     ok = np.asarray(ok, bool)
-    per_job = finite.sum(axis=1)
+    per_job = finite[np.asarray(index)].sum(axis=1)
     stores = int((ok & np.asarray(Z).reshape(len(ok), -1).any(axis=-1))
                  .sum())
     return distinct_points(c1, c0, sign_big, finite=finite) \
         * COST["g2_decompress"] \
         + int(np.maximum(per_job[ok] - 1, 0).sum()) * COST["g2_madd"] \
-        + store_cost(stores, FP2_INV, M2, 4 * M)
+        + store_cost(stores, G2_STORE)
 
 
 def g2_aggregate_dispatch(jobs: Sequence[Sequence[bytes]], n: int,
@@ -568,23 +561,16 @@ def g2_aggregate_dispatch(jobs: Sequence[Sequence[bytes]], n: int,
 def g2_aggregate_collect(handles):
     """The one read-back of a g2_aggregate_dispatch → (points, valid):
     points[i] = affine ((x.c0, x.c1), (y.c0, y.c1)) ints, or None for the
-    identity or a job with an undecodable point."""
+    identity or a job with an undecodable point. The results come
+    normalized: (x, y) is read as it is."""
     X, Y, Z, ok = (h.cpu().numpy() for h in handles)
     out: List[Optional[Tuple[Tuple[int, int], Tuple[int, int]]]] = []
     for i in range(len(ok)):
         x0, x1 = (int(v) for v in _limbs_to_ints(X[i]))
         y0, y1 = (int(v) for v in _limbs_to_ints(Y[i]))
         z0, z1 = (int(v) for v in _limbs_to_ints(Z[i]))
-        if not ok[i] or (z0 == 0 and z1 == 0):
-            out.append(None)
-            continue
-        den = (z0 * z0 + z1 * z1) % Q
-        di = pow(den, Q - 2, Q)
-        iz = (z0 * di % Q, (-z1) * di % Q)
-
-        def fq2mul(a, b):
-            return ((a[0] * b[0] - a[1] * b[1]) % Q,
-                    (a[0] * b[1] + a[1] * b[0]) % Q)
-
-        out.append((fq2mul((x0, x1), iz), fq2mul((y0, y1), iz)))
+        if z1 or z0 not in (0, 1):
+            raise ValueError("a normalized G2 point has Z 0 or 1, not "
+                             "({}, {})".format(z0, z1))
+        out.append(((x0, x1), (y0, y1)) if ok[i] and z0 else None)
     return out, ok.astype(bool)

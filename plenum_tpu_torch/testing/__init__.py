@@ -4,8 +4,10 @@
 the verifier must reject one (or, for small-order keys, the way a
 cofactorless verifier accepts one); `nym_requests` builds signed NYM
 writes in the shape bench.py's make_requests sends, some of them
-tampered; `nym_txn_blobs` the serialized NYM txns of a ledger's history.
-Everything is derived from the seed.
+tampered; `nym_txn_blobs` the serialized NYM txns of a ledger's history;
+`aggregate_jobs` the BLS aggregates' adversarial job sets (with
+`off_curve_g1`, `off_curve_g2` and `g2_sign_points`). Everything is
+derived from the seed.
 """
 import hashlib
 import random
@@ -173,3 +175,78 @@ def nym_txn_blobs(n: int, seed: int, txn_time: int = 1700000000
                 {"from": author, "value": sig_pool[i & 255]}]},
             "ver": "1"}))
     return blobs
+
+
+# ------------------------------------------------- BLS aggregate job sets
+
+def off_curve_g1() -> bytes:
+    """A valid compressed G1 encoding whose x has no point on the curve."""
+    from plenum_tpu_torch.crypto import bls_ops
+    q, x = bls_ops.Q, 1
+    while pow((x ** 3 + 4) % q, (q - 1) // 2, q) == 1:
+        x += 1
+    raw = bytearray(x.to_bytes(48, "big"))
+    raw[0] |= 0x80
+    return bytes(raw)
+
+
+def off_curve_g2() -> bytes:
+    """A valid compressed G2 encoding whose x has no point on the curve."""
+    from plenum_tpu_torch.crypto import bls_ops
+    x = 1
+    while True:
+        raw = bytearray(x.to_bytes(96, "big"))
+        raw[0] |= 0x80
+        try:
+            bls_ops.g2_decompress(bytes(raw))
+        except ValueError:
+            return bytes(raw)
+        x += 1
+
+
+def g2_sign_points() -> List[bytes]:
+    """Compressed G2 points whose y has c1 above (q-1)/2 and c0 below, and
+    the reverse, each with both sign flags (the point and its negation)."""
+    from plenum_tpu_torch.crypto import bls_ops
+    half = (bls_ops.Q - 1) // 2
+    out, kinds, k = [], set(), 2
+    while len(kinds) < 2:
+        p = bls_ops.g2_mul(bls_ops.G2_GEN, k)
+        k += 1
+        kind = (p[1].c1 > half, p[1].c0 > half)
+        if kind in ((True, False), (False, True)) and kind not in kinds:
+            kinds.add(kind)
+            out += [bls_ops.g2_compress(p),
+                    bls_ops.g2_compress(bls_ops.g2_neg(p))]
+    return out
+
+
+# the verdicts (ok) of aggregate_jobs' first nine jobs
+AGGREGATE_JOBS_OK = [True] * 4 + [False, False, True, False, True]
+
+
+def aggregate_jobs(group: str, points: List[bytes], n: int
+                   ) -> List[List[bytes]]:
+    """The BLS aggregates' adversarial jobs over compressed G1 (group
+    "g1") or G2 ("g2") points, at least five of them: the first n in one
+    job (past a block of the decompression launch when n is large), then
+    a point repeated within a job and across jobs, all infinity, an empty
+    job, an undecodable encoding shared by two jobs (both void), P + (-P),
+    an off-curve x, n = 1 (AGGREGATE_JOBS_OK); for G2 also each point of
+    g2_sign_points() in a job of its own."""
+    from plenum_tpu_torch.crypto import bls_ops
+    from plenum_tpu_torch.ops.bls381 import G1_INF, G2_INF
+    if group == "g1":
+        inf, bad, off = G1_INF, bytes(48), off_curve_g1()
+        neg = bls_ops.g1_compress(bls_ops.g1_neg(bls_ops.g1_decompress(
+            points[1])))
+    else:
+        inf, bad, off = G2_INF, b"\x80" + bytes(95), off_curve_g2()
+        neg = bls_ops.g2_compress(bls_ops.g2_neg(bls_ops.g2_decompress(
+            points[1])))
+    jobs = [list(points[:n]), points[:3] + [points[0]], [inf] * 2, [],
+            [points[0], bad], [bad, points[2]], [points[1], neg],
+            [points[3], off], [points[4]]]
+    if group == "g2":
+        jobs += [[r] for r in g2_sign_points()]
+    return jobs

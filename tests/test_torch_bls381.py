@@ -8,7 +8,8 @@ tests/test_bls381_pairing.py; the G1 and G2 aggregates and the MSM against
 the JAX package's host sums; and the host build of bls381.cu (g++ behind
 cuda_host_shim.h) against the plain versions, its Montgomery multiplies
 and squarings against the kernels' schedule built from the pieces that the
-bounds count; the bounds' own counts of the function on shapes whose
+bounds count, its fixed powers and its inversion by safegcd against
+Python's pow; the bounds' own counts of the function on shapes whose
 least work is known. The JAX package's XLA kernels are not
 called (a warm launch is ~17 s on one core). Tolerance: none, verdicts
 and points are exact."""
@@ -29,6 +30,7 @@ from plenum_tpu.ops import bls381_jax as jagg
 from plenum_tpu.ops import bls381_tower as jtower
 from plenum_tpu_torch.crypto import bls12_381 as B
 from plenum_tpu_torch.crypto import bls_ops
+from plenum_tpu_torch import testing
 from plenum_tpu_torch.ops import bls381, bls381_pairing as bp, cuda_lib
 
 CPU = torch.device("cpu")
@@ -179,12 +181,15 @@ def test_g1_aggregate_equals_the_jax_packages_host_sum():
     rng = random.Random(5)
     shares = [JB.g1_compress(bls_ops.g1_mul(JB.G1_GEN, rng.randrange(1, JB.R)))
               for _ in range(9)]
+    bad = b"\x00" * 48
     jobs = [shares[:4], shares[4:], [shares[0], G1_INF], [G1_INF], [],
             [shares[1], JB.g1_compress(JB.g1_neg(JB.g1_decompress(
                 shares[1])))],
-            [shares[2], b"\x00" * 48]]
+            [shares[2], bad],
+            [shares[0], shares[3], shares[0]],   # repeated, within and across
+            [bad, shares[5]]]                    # the bad share, shared
     points, ok = bls381.aggregate_g1_jobs(jobs, device="cpu")
-    assert ok.tolist() == [True] * 6 + [False]
+    assert ok.tolist() == [True] * 6 + [False, True, False]
     for job, point, good in zip(jobs, points, ok):
         if good:
             assert point == jops.g1_aggregate_compressed(job)
@@ -196,21 +201,26 @@ def test_g1_aggregate_equals_the_jax_packages_host_sum():
 
 def test_g2_aggregate_equals_the_jax_packages_g2_add():
     keys = [bls_ops.g2_mul(JB.G2_GEN, k) for k in (3, 5, 9, 11, 13)]
+    bad = b"\x80" + bytes(95)
     sets = [[JB.g2_compress(k) for k in keys[:2]],
             [JB.g2_compress(keys[2]), G2_INF],
             [JB.g2_compress(k) for k in keys],
             [JB.g2_compress(keys[0]), JB.g2_compress(JB.g2_neg(keys[0]))],
-            [b"\x80" + bytes(95)]]
+            [bad],
+            [JB.g2_compress(k) for k in (keys[0], keys[1], keys[0])],
+            [JB.g2_compress(keys[3]), bad]]
     pts, ok = bp.g2_aggregate_collect(bp.g2_aggregate_dispatch(sets, 5,
                                                                "cpu"))
-    assert ok.tolist() == [True, True, True, True, False]
-    for s, got in zip(sets[:4], pts):
+    assert ok.tolist() == [True, True, True, True, False, True, False]
+    for s, got, good in zip(sets, pts, ok):
+        if not good:
+            assert got is None
+            continue
         want = None
         for raw in s:
             want = JB.g2_add(want, JB.g2_decompress(raw))
         assert got == (None if want is None else
                        ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1)))
-    assert pts[4] is None
 
 
 def test_msm_equals_the_jax_packages_host_path():
@@ -233,24 +243,8 @@ def test_msm_equals_the_jax_packages_host_path():
                        device_min=2, device="cpu")
 
 
-def _g2_sign_points():
-    """Compressed G2 points whose y has c1 above (q-1)/2 and c0 below, and
-    the reverse, each with both sign flags (the point and its negation)."""
-    half = (JB.Q - 1) // 2
-    out, kinds = [], set()
-    k = 2
-    while len(kinds) < 2:
-        p = bls_ops.g2_mul(JB.G2_GEN, k)
-        k += 1
-        kind = (p[1].c1 > half, p[1].c0 > half)
-        if kind in ((True, False), (False, True)) and kind not in kinds:
-            kinds.add(kind)
-            out += [JB.g2_compress(p), JB.g2_compress(JB.g2_neg(p))]
-    return out
-
-
 def test_g2_decompression_keeps_the_sign_rule():
-    raws = _g2_sign_points()
+    raws = testing.g2_sign_points()
     assert len({r[0] & 0x20 for r in raws}) == 2
     pts, ok = bp.g2_aggregate_collect(bp.g2_aggregate_dispatch(
         [[r] for r in raws], 1, "cpu"))
@@ -285,8 +279,8 @@ def bls381_host():
 
 def _run_host(exe, tmp_path, mode, header, arrays):
     """Run one entry of the host build (header: three int32) → (its output
-    bytes, the (M, S) it made: multiplies that are not squarings,
-    squarings)."""
+    bytes, the (M, S, O) it made: multiplies that are not squarings,
+    squarings, the inversions' 32-bit multiply-adds)."""
     header = list(header) + [0] * (3 - len(header))
     with open(tmp_path / "in", "wb") as f:
         f.write(np.asarray(header, dtype=np.int32).tobytes())
@@ -298,7 +292,7 @@ def _run_host(exe, tmp_path, mode, header, arrays):
                           capture_output=True, text=True)
     counts = json.loads(proc.stdout)
     muls = np.array([counts["fp_muls"] - counts["fp_sqrs"],
-                     counts["fp_sqrs"]])
+                     counts["fp_sqrs"], counts["int_mads"]])
     return (tmp_path / "out").read_bytes(), muls
 
 
@@ -312,27 +306,34 @@ def _split(raw, shapes):
     return out
 
 
-# The kernels' own schedule (csrc/bls381.cu) from the bounds' pieces: a G2
-# key's decompression and lines once a launch, a G1 decompression a pair,
-# one Miller accumulator a job (the host's fp12 squaring, line and final
-# exponentiation, the inverse by the cubic norm: 13 multiplies above the
-# host's 105); complete additions with the multiply by 3b as additions,
-# the aggregates' tree padded to the 128-thread block; the MSM's bucket
-# method: mixed additions into the buckets, each window's buckets summed
-# in segments (a running sum of complete additions), the segments and
-# then the windows combined (a doubling's two squarings done as products
-# there); an inversion per stored result.
-AGG_THREADS = 128
+# The kernels' own schedule (csrc/bls381*.cu) from the bounds' pieces: a G2
+# key's decompression (Alg. 9 in fp2 on a trio) and lines once a launch, a
+# G1 decompression a pair, one Miller accumulator a job (the host's fp12
+# squaring, line and final exponentiation with Fermat's inversion, the
+# inverse by the cubic norm: 13 multiplies above the host's 105); the
+# aggregates' decompression once a distinct point (G2 on a pair of lanes:
+# each lane the norm route's work), a sextet's mixed additions over its
+# share of a job's points, the tree of the 20 (G1) or 8 (G2) sextets'
+# sums by complete additions, a normalization by safegcd a stored result;
+# the MSM's bucket method: mixed additions into the buckets, each window's
+# buckets summed in segments (a running sum of complete additions), the
+# segments and then the windows combined (a doubling's two squarings done
+# as products there), Fermat's inversion for the result.
+G1_SUM_GROUPS = bls381.AGG_SUM_GROUPS["g1"]
+G2_SUM_GROUPS = bls381.AGG_SUM_GROUPS["g2"]
+SAFEGCD_BATCH_MADS = 2 * (6 * 13 + 2) + 2 * 4 * 13
 C = bls381.COST
-M, S, M2 = bls381.M, bls381.S, bls381.M2
-K_G1_ADD, K_G2_ADD = C["g1_add"], C["g2_add"]
-K_G1_STORE = bls381.FP_INV + 4 * M
-K_G2_STORE = bls381.FP2_INV + 2 * M2 + 4 * M
+M, S, M2, S2 = bls381.M, bls381.S, bls381.M2, bls381.S2
+K_G2_ADD = C["g2_add"]
+K_G1_STORE = bls381.FP_INV_FERMAT + 4 * M
 K_G1_DBL = 8 * M         # the six-lane doubling: its squarings as products
 K_LINES = 63 * C["miller_dbl"] + 5 * C["miller_add"]
 K_MILLER_JOB = 62 * C["fp12_sqr"]
 K_LINE = C["line"]
-K_FINAL_EXP = C["final_exp"] + 13 * M
+K_FINAL_EXP = C["final_exp"] - bls381.FP_INV + bls381.FP_INV_FERMAT + 13 * M
+K_G2_DEC_ALG9 = 4 * M + 3 * S2 + 4 * M2 \
+    + bls381.window_cost((JB.Q - 3) // 4, S2, M2, bls381.POW_WINDOW_FP2) \
+    + bls381.window_cost((JB.Q - 1) // 2, S2, M2, bls381.POW_WINDOW_FP2)
 
 
 def _finite(is_inf, valid):
@@ -345,7 +346,7 @@ def _kernel_pairing(arrays, key_on_curve, decode_ok):
     live = (_finite(g1i, g1v) & keys[kidx]).sum(axis=1)
     jobs = np.asarray(decode_ok, bool) & (live > 0)
     return int(_finite(g1i, g1v).sum()) * C["g1_decompress"] \
-        + int(keys.sum()) * C["g2_decompress"] \
+        + int(keys.sum()) * K_G2_DEC_ALG9 \
         + int((keys & key_on_curve).sum()) * K_LINES \
         + int(jobs.sum()) * (K_MILLER_JOB + K_FINAL_EXP) \
         + int(live[jobs].sum()) * 68 * K_LINE
@@ -365,9 +366,31 @@ def _key_on_curve(arrays):
     return out
 
 
-def _kernel_aggregate(is_inf, valid, stores, dec, add, store):
-    return int(_finite(is_inf, valid).sum()) * (dec + add) \
-        + valid.shape[0] * (AGG_THREADS - 1) * add + stores * store
+def _kernel_aggregate(arrays, on_curve, stores, groups, dec, madd, add,
+                      store):
+    """The aggregates' schedule: the distinct valid finite points'
+    decompressions, each sextet's mixed additions past its first point,
+    the tree's groups - 1 complete additions a job, the stores."""
+    is_inf, valid, index = arrays[-3:]
+    live = _finite(is_inf, valid) & on_curve
+    madds = sum(max(int(live[index[b, g::groups]].sum()) - 1, 0)
+                for b in range(index.shape[0]) for g in range(groups))
+    return int(_finite(is_inf, valid).sum()) * dec + madds * madd \
+        + index.shape[0] * (groups - 1) * add + stores * store
+
+
+def _on_curve(arrays, decompress, to_bytes):
+    """The rows whose encoding is valid and finite and decompresses."""
+    *coords, sign, is_inf, valid, _ = arrays
+    out = np.zeros(len(valid), dtype=bool)
+    for d in range(len(valid)):
+        if valid[d] and not is_inf[d]:
+            try:
+                decompress(to_bytes(*(c[d] for c in coords), sign[d]))
+                out[d] = True
+            except ValueError:
+                pass
+    return out
 
 
 def _kernel_msm(x, sign, is_inf, valid, index, digits, c, store):
@@ -509,62 +532,161 @@ def test_host_build_field_core_equals_python_integers(bls381_host, tmp_path,
         assert got[:n] == [x * y * rinv % q for x, y in zip(xs, ys)]
     else:
         assert got[n:] == [x * x * rinv % q for x in xs]
-    assert muls.tolist() == [n, n]
+    assert muls.tolist() == [n, n, 0]
 
 
-def _aggregate_jobs(rng, n):
-    shares = [JB.g1_compress(bls_ops.g1_mul(JB.G1_GEN, rng.randrange(1, JB.R)))
-              for _ in range(n)]
-    return [shares, shares[:3], [G1_INF] * 2, [shares[0], b"\x00" * 48],
-            [shares[1], JB.g1_compress(JB.g1_neg(JB.g1_decompress(
-                shares[1])))]]
+def _agg_store_check(muls, ok, Z, inversions_min):
+    """The stored results' inversions by safegcd: at least 13 batches
+    each, whole batches."""
+    stores = int((ok.astype(bool) & Z.reshape(len(ok), -1).any(axis=-1))
+                 .sum())
+    assert muls[2] % SAFEGCD_BATCH_MADS == 0
+    assert muls[2] >= stores * bls381.SAFEGCD_MIN_BATCHES \
+        * SAFEGCD_BATCH_MADS
+    assert stores >= inversions_min
+    return stores
 
 
-@pytest.mark.parametrize("n", [5, 130])     # one share a thread; past 128
+@pytest.mark.parametrize("n", [5, 130])     # a few a sextet; past a block
 def test_host_build_g1_aggregate_equals_the_plain_version(bls381_host,
                                                          tmp_path, n):
-    jobs = _aggregate_jobs(random.Random(n), n)
+    rng = random.Random(n)
+    shares = [JB.g1_compress(bls_ops.g1_mul(JB.G1_GEN, rng.randrange(1, JB.R)))
+              for _ in range(n)]
+    jobs = testing.aggregate_jobs("g1", shares, n)
     arrays = bls381.pack_g1_jobs(jobs, n)
-    raw, muls = _run_host(bls381_host, tmp_path, "g1agg", [len(jobs), n],
-                          arrays)
+    D, Bj = arrays[0].shape[0], len(jobs)
+    assert D == n + 4                    # the shares, bad, -P, off, infinity
+    raw, muls = _run_host(bls381_host, tmp_path, "g1agg", [Bj, n, D], arrays)
     L = bls381.NLIMB
-    X, Y, Z, ok = _split(raw, [(np.int32, (len(jobs), L))] * 3
-                         + [(np.uint8, (len(jobs),))])
+    X, Y, Z, ok = _split(raw, [(np.int32, (Bj, L))] * 3
+                         + [(np.uint8, (Bj,))])
     want = bls381.g1_aggregate_plain(*bls381.upload(arrays, CPU))
     for got, w in zip((X, Y, Z, ok.astype(bool)), want):
         assert np.array_equal(got, w.numpy())
-    assert ok.tolist() == [1, 1, 1, 0, 1]
-    stores = int((ok.astype(bool) & Z.any(axis=-1)).sum())
-    assert np.array_equal(muls, _kernel_aggregate(
-        arrays[2], arrays[3], stores, C["g1_decompress"], K_G1_ADD,
-        K_G1_STORE))
+    assert ok.astype(bool).tolist() == testing.AGGREGATE_JOBS_OK
+    assert not Z[2:4].any() and not Z[6].any()
+    stores = _agg_store_check(muls, ok, Z, 3)
+    on_curve = _on_curve(arrays, bls_ops.g1_decompress, bls381.g1_bytes)
+    assert np.array_equal(muls[:2], _kernel_aggregate(
+        arrays, on_curve, stores, G1_SUM_GROUPS, C["g1_decompress"],
+        C["g1_madd"], C["g1_add"], bls381.G1_STORE)[:2])
     need = bls381.g1_aggregate_cost(*arrays, ok.astype(bool), Z)
     assert bls381.int32_ops(need) < bls381.int32_ops(muls)
 
 
 def test_host_build_g2_aggregate_equals_the_plain_version(bls381_host,
                                                          tmp_path):
-    keys = [JB.g2_compress(bls_ops.g2_mul(JB.G2_GEN, k)) for k in (3, 5, 9)]
-    sets = [keys, [keys[0], G2_INF], [b"\x80" + bytes(95)],
-            _g2_sign_points()]
-    n = 4
+    """34 distinct keys (past a block of the decompression launch, 32),
+    then the cases of the G1 test, and each point of g2_sign_points() in
+    a job of its own (the sign rule under the norm route)."""
+    keys = [JB.g2_compress(bls_ops.g2_mul(JB.G2_GEN, k)) for k in range(3, 37)]
+    n = len(keys)
+    sets = testing.aggregate_jobs("g2", keys, n)
     arrays = bp.pack_g2_jobs(sets, n)
-    raw, muls = _run_host(bls381_host, tmp_path, "g2agg", [len(sets), n],
-                          arrays)
-    shape = (len(sets), 2, bls381.NLIMB)
+    D, Bj = arrays[0].shape[0], len(sets)
+    raw, muls = _run_host(bls381_host, tmp_path, "g2agg", [Bj, n, D], arrays)
+    shape = (Bj, 2, bls381.NLIMB)
     X, Y, Z, ok = _split(raw, [(np.int32, shape)] * 3
-                         + [(np.uint8, (len(sets),))])
+                         + [(np.uint8, (Bj,))])
     want = bp.g2_aggregate_plain(*bls381.upload(arrays, CPU))
     for got, w in zip((X, Y, Z, ok.astype(bool)), want):
         assert np.array_equal(got, w.numpy())
-    assert ok.tolist() == [1, 1, 0, 1]
-    stores = int((ok.astype(bool) & Z.reshape(len(ok), -1).any(axis=-1))
-                 .sum())
-    assert np.array_equal(muls, _kernel_aggregate(
-        arrays[3], arrays[4], stores, C["g2_decompress"], K_G2_ADD,
-        K_G2_STORE))
+    assert ok.astype(bool).tolist() == testing.AGGREGATE_JOBS_OK + [True] * 4
+    stores = _agg_store_check(muls, ok, Z, 7)
+    on_curve = _on_curve(arrays, bls_ops.g2_decompress, bls381.g2_bytes)
+    assert np.array_equal(muls[:2], _kernel_aggregate(
+        arrays, on_curve, stores, G2_SUM_GROUPS, 2 * C["g2_decompress"],
+        C["g2_madd"], K_G2_ADD, bls381.G2_STORE)[:2])
     need = bp.g2_aggregate_cost(*arrays, ok.astype(bool), Z)
     assert bls381.int32_ops(need) < bls381.int32_ops(muls)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_host_build_aggregate_voids_a_job_whose_index_leaves_the_table(
+        bls381_host, tmp_path, group):
+    """An index past the D distinct points and a negative one: the sum
+    reads no row for them and voids their jobs (ok False, the identity),
+    as the plain version does."""
+    rng = random.Random(73)
+    if group == "g1":
+        pts = [JB.g1_compress(bls_ops.g1_mul(JB.G1_GEN, rng.randrange(
+            1, JB.R))) for _ in range(5)]
+        pack, plain, shape = (bls381.pack_g1_jobs, bls381.g1_aggregate_plain,
+                              (bls381.NLIMB,))
+    else:
+        pts = [JB.g2_compress(bls_ops.g2_mul(JB.G2_GEN, k))
+               for k in range(3, 8)]
+        pack, plain, shape = (bp.pack_g2_jobs, bp.g2_aggregate_plain,
+                              (2, bls381.NLIMB))
+    jobs = testing.aggregate_jobs(group, pts, 5)
+    arrays = list(pack(jobs, 5))
+    D, Bj = arrays[0].shape[0], len(jobs)
+    arrays[-1] = arrays[-1].copy()
+    arrays[-1][1, 0], arrays[-1][2, 1] = D, -1
+    raw, _ = _run_host(bls381_host, tmp_path, group + "agg", [Bj, 5, D],
+                       arrays)
+    X, Y, Z, ok = _split(raw, [(np.int32, (Bj,) + shape)] * 3
+                         + [(np.uint8, (Bj,))])
+    want = plain(*bls381.upload(arrays, CPU))
+    for got, w in zip((X, Y, Z, ok.astype(bool)), want):
+        assert np.array_equal(got, w.numpy())
+    assert ok.astype(bool).tolist()[:9] == [True, False, False] \
+        + testing.AGGREGATE_JOBS_OK[3:]
+    assert not Z[1:3].any()
+
+
+def test_host_build_inversion_equals_fermat(bls381_host, tmp_path):
+    """fp_inv_var (safegcd) against pow(a, q - 2, q) on the edges 1, 2,
+    q - 1, q - 2, (q + 1) / 2, 2^380 and random values; each at least 13
+    batches."""
+    q = JB.Q
+    rng = random.Random(67)
+    xs = [1, 2, q - 1, q - 2, (q + 1) // 2, 1 << 380] \
+        + [rng.randrange(1, q) for _ in range(100)]
+    raw, muls = _run_host(bls381_host, tmp_path, "inv", [len(xs)],
+                          [_fp_words(xs)])
+    got = [int.from_bytes(raw[48 * i:48 * i + 48], "little")
+           for i in range(len(xs))]
+    assert got == [pow(x, q - 2, q) for x in xs]
+    assert muls[:2].tolist() == [0, 0]
+    assert muls[2] >= len(xs) * 13 * SAFEGCD_BATCH_MADS
+
+
+@pytest.mark.parametrize("chain", [0, 1, 2, 3])
+def test_host_build_window_chains_equal_python_pow(bls381_host, tmp_path,
+                                                   chain):
+    """pow_window's fixed powers (Montgomery in and out) against Python's
+    pow, and their products against window_cost: fp (q+1)/4 (the square
+    roots), fp (q-3)/4 (the norm route's candidate), fp2 (q-3)/4 and
+    (q-1)/2 (Alg. 9, the pairing's keys)."""
+    q, R = JB.Q, 1 << 384
+    e = ((q + 1) // 4, (q - 3) // 4, (q - 3) // 4, (q - 1) // 2)[chain]
+    rng = random.Random(71 + chain)
+    rinv = pow(R, -1, q)
+    if chain < 2:
+        xs = [0, 1, q - 1, R % q] + [rng.randrange(q) for _ in range(12)]
+        raw, muls = _run_host(bls381_host, tmp_path, "pow", [len(xs), chain],
+                              [_fp_words(xs)])
+        got = [int.from_bytes(raw[48 * i:48 * i + 48], "little")
+               for i in range(len(xs))]
+        assert got == [pow(x * rinv % q, e, q) * R % q for x in xs]
+        assert np.array_equal(muls, len(xs) * bls381.window_cost(e, S, M))
+        return
+    xs = [(0, 1), (R % q, 0)] + [(rng.randrange(q), rng.randrange(q))
+                                 for _ in range(6)]
+    raw, muls = _run_host(bls381_host, tmp_path, "pow", [len(xs), chain],
+                          [_fp_words([v for x in xs for v in x])])
+    got = [(int.from_bytes(raw[96 * i:96 * i + 48], "little"),
+            int.from_bytes(raw[96 * i + 48:96 * i + 96], "little"))
+           for i in range(len(xs))]
+    want = []
+    for a0, a1 in xs:
+        z = JB.Fq2(a0 * rinv % q, a1 * rinv % q) ** e
+        want.append((z.c0 * R % q, z.c1 * R % q))
+    assert got == want
+    assert np.array_equal(muls, len(xs) * bls381.window_cost(
+        e, S2, M2, bls381.POW_WINDOW_FP2))
 
 
 def _run_msm(exe, tmp_path, pts, ss, c=None):
@@ -644,7 +766,7 @@ def test_pairing_bound_counts_shared_g2_points_and_accumulators_once():
     want = 8 * C["g1_decompress"] + 2 * C["g2_decompress"] + 2 * lines \
         + 8 * 68 * C["line"] + 4 * (62 * C["fp12_sqr"] + C["final_exp"])
     assert np.array_equal(bp.pairing_cost(*arrays, ok), want)
-    assert bls381.int32_ops(want) == int(np.dot(want, [588, 456]))
+    assert bls381.int32_ops(want) == int(np.dot(want, [588, 456, 1]))
 
 
 def test_aggregate_bounds_decompress_each_share_once_and_add_n_minus_1():
@@ -657,15 +779,14 @@ def test_aggregate_bounds_decompress_each_share_once_and_add_n_minus_1():
         *bls381.upload(arrays, CPU)))
     assert ok.tolist() == [True, True, True, False]
     want = 5 * C["g1_decompress"] + (4 + 4 + 1) * C["g1_madd"] \
-        + bls381.FP_INV + 3 * 2 * bls381.M + 3 * 4 * bls381.M
+        + bls381.FP_INV + 3 * 2 * M + 3 * 3 * M
     assert np.array_equal(bls381.g1_aggregate_cost(*arrays, ok, Z), want)
     keys = [JB.g2_compress(bls_ops.g2_mul(JB.G2_GEN, k)) for k in (3, 5, 7)]
     g2 = bp.pack_g2_jobs([keys[:1], keys, keys[:2]], 3)
     X, Y, Z, ok = (t.numpy() for t in bp.g2_aggregate_plain(
         *bls381.upload(g2, CPU)))
     want = 3 * C["g2_decompress"] + (0 + 2 + 1) * C["g2_madd"] \
-        + bls381.FP2_INV + 2 * 3 * bls381.M2 \
-        + 3 * (2 * bls381.M2 + 4 * bls381.M)
+        + bls381.FP_INV + 2 * 3 * M + 3 * (2 * S + 3 * M + 2 * M2)
     assert np.array_equal(bp.g2_aggregate_cost(*g2, ok, Z), want)
 
 
@@ -693,5 +814,5 @@ def test_msm_bound_takes_the_bucket_methods_best_window():
         if best is None or bls381.int32_ops(cost) < bls381.int32_ops(best):
             best, best_c = cost, c
     assert 4 <= best_c <= 8
-    want = 6 * C["g1_decompress"] + best + bls381.FP_INV + 4 * bls381.M
+    want = 6 * C["g1_decompress"] + best + bls381.FP_INV + 3 * M
     assert np.array_equal(bp.msm_cost(*arrays, bool(ok), Z), want)
