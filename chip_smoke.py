@@ -7,7 +7,14 @@ Run it from the root of a checkout: it builds the CUDA kernels from
 plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
 
 1. prints the card's name and power limit, the build time and ptxas's
-   registers, stack and spills per kernel;
+   registers, stack and spills per kernel, and one {"native": ...} line:
+   the port's native host branches (csrc/fastpath.c, rlp_c.c and mpt_c.c
+   as CPython extensions, csrc/kvlog.c through ctypes, each built by
+   ops/cuda_lib.py at the package's first import), each one's backend
+   ("native" or "python"), the trie class PruningState chose, the store
+   class bootstrap chose, each source's compile time and whether Python.h
+   was found; kvlog must load, and the three extensions must load where
+   Python.h is;
 2. holds each kernel against its plain PyTorch version on the card:
    ed25519 verify (four lanes per signature) on 16,384 signatures that mix
    valid ones with every rejection path, on its first 1, 3, 5, 127, 129
@@ -69,7 +76,13 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    written DIDs with state proofs from one node. It checks the ordered
    count on every node, equal ledger and state roots across the nodes,
    the domain root against hashlib, the domain state root against a
-   host-only trie fed the same writes, the nacks, and the reads;
+   host-only trie fed the same writes, the nacks, and the reads. The
+   pool's writes then run once more in a child process
+   (`chip_smoke.py --pool-turn`) with PLENUM_TPU_NO_NATIVE=1, on the
+   port's pure-Python host branches: both turns print wall, ordered
+   req/s and ORDERED_E2E_MS p50/p99, and their domain, audit and state
+   roots must be equal (under --profile each side's writes run once more
+   under cProfile for a host table by area);
 6. holds ed25519 verify and SHA-256's ragged entry against their plain
    versions (and hashlib) on the pool's own launches — the hub's
    deduplicated batches, the ledgers' staged leaf batches and tree
@@ -102,7 +115,8 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    host (the port's Ledger with hashlib leaves and its host trie, no
    kernel), and a
    BLS multi-signature on each node's latest state root that verifies
-   under the pool's keys; each node process must run on the card, and in
+   under the pool's keys; each node process must run on the card and
+   choose KeyValueStorageNative through bootstrap, and in
    the remote runs launch sha256_ragged and sha3_ragged, the daemon
    ed25519_verify. It prints each run's wall and ordered requests/s, the
    daemon's launches and their sizes and each node process's device and
@@ -800,6 +814,187 @@ def pool_requests(signer):
     return chunks, reqs, {r["reqId"] for r in bad}
 
 
+def native_line():
+    """The native host branches of this process: each branch's backend
+    ("native" or "python"), the trie class PruningState chose, the store
+    class bootstrap chose, the compile time of each of the four sources
+    (built at the port's first import; null when _build/ held it already)
+    and whether Python.h was found. kvlog needs only the C compiler and
+    must load; the three extensions need Python.h and must load where it
+    is. → the backends."""
+    import sysconfig
+    from plenum_tpu_torch.bootstrap import native_backends
+    from plenum_tpu_torch.ops import cuda_lib
+    native = native_backends()
+    sources = cuda_lib.HOST_EXT_SOURCES + ("kvlog",)
+    build_s = {n: cuda_lib.host_build_seconds.get(n) for n in sources}
+    headers = cuda_lib.python_headers()
+    include = sysconfig.get_paths()["include"]
+    log(json.dumps({"native": dict(
+        native, build_s=build_s,
+        build_wall_s=sum(v for v in build_s.values() if v is not None),
+        python_h=headers, include=include)}))
+    check(native["kvlog"] == "native"
+          and native["store"] == "KeyValueStorageNative",
+          "csrc/kvlog.c builds and bootstrap chooses KeyValueStorageNative")
+    if os.environ.get(cuda_lib.NO_NATIVE_ENV):
+        log("native: {} is set, so fastpath, rlp_c and mpt_c keep their "
+            "Python branches".format(cuda_lib.NO_NATIVE_ENV))
+    elif headers:
+        check(all(native[n] == "native" for n in cuda_lib.HOST_EXT_SOURCES)
+              and native["trie"] == "NativeTrie",
+              "fastpath, rlp_c and mpt_c load as the port's extensions and "
+              "PruningState chooses NativeTrie")
+    else:
+        log("native: no Python.h under {}, so fastpath, rlp_c and mpt_c "
+            "cannot build here; their Python branches run".format(include))
+    return native
+
+
+def pool_turns(torch, dev, signer, native, profile):
+    """The pool's writes with the C host branches (the pool path's own
+    run, in this process) and without them (python_pool_turn's child):
+    each turn's wall, ordered req/s and ORDERED_E2E_MS p50/p99, and their
+    domain, audit and state roots, which must be equal (the C turn's are
+    the roots the pool path checked). With `profile`, each side's writes
+    run once more under cProfile for a host table by area."""
+    if profile:
+        import cProfile
+        chunks, _, _ = pool_requests(signer)
+        prof = cProfile.Profile()
+        prof.enable()
+        run_pool_writes(torch, dev, chunks)
+        prof.disable()
+        host_table(prof, "pool writes, C branches", depth=2)
+    python = python_pool_turn(profile)
+    for name, turn in (("this process", native),
+                       ("child, PLENUM_TPU_NO_NATIVE=1", python)):
+        log("pool turn, {}: {} writes ordered on every node in {:.3f} s "
+            "wall, {:.1f} ordered requests/s; ORDERED_E2E_MS p50 {} p99 {}; "
+            "branches {}".format(name, turn["ordered"], turn["wall_s"],
+                                 turn["req_s"], turn["ordered_e2e_ms_p50"],
+                                 turn["ordered_e2e_ms_p99"],
+                                 turn["native"]))
+    log("pool turns: wall this process / child {:.4f}; the child process "
+        "took {:.1f} s in all; its launches {}".format(
+            native["wall_s"] / python["wall_s"], python["process_s"],
+            {k: v for k, v in python["launches"].items() if v}))
+    check(python["ordered"] == native["ordered"] == POOL_REQS,
+          "both pool turns ordered every write")
+    check(python["native"]["fastpath"] == python["native"]["rlp_c"]
+          == python["native"]["mpt_c"] == "python"
+          and python["native"]["trie"] == "Trie",
+          "PLENUM_TPU_NO_NATIVE=1 keeps the Python branches")
+    check(python["roots"] == native["roots"],
+          "the pool's domain, audit and state roots are equal with the C "
+          "branches and with the Python branches")
+
+
+def run_pool_writes(torch, dev, chunks):
+    """The pool's writes: four nodes (make_sim_pool, one hub on the card)
+    order every chunk. → (nodes, what each node sent, wall seconds)."""
+    from plenum_tpu_torch.testing import pool
+    nodes, timer = pool.make_sim_pool(pool.NAMES, "torch_hub", device=dev)
+    # No client transport is attached (as in bench.py's pool, so no node
+    # builds Replies for the writes); each node's reply callback collects
+    # what it sends: the nacks, then the read replies.
+    sent = [[] for _ in nodes]
+    for node, out in zip(nodes, sent):
+        node._reply_to_client = lambda c, m, out=out: out.append(m)
+    per_chunk = [len(c) for c in chunks]
+    valid = [CLIENT_BATCH] * len(chunks)
+
+    def expected(injected):
+        done = 0
+        for n_sent, n_valid in zip(per_chunk, valid):
+            if injected >= n_sent:
+                injected -= n_sent
+                done += n_valid
+        return done
+
+    t_w = time.perf_counter()
+    pool.pipelined_intake(nodes, timer, chunks, "bench-client",
+                          expected=expected)
+    deadline = time.perf_counter() + 300
+    while time.perf_counter() < deadline and not all(
+            nd.domain_ledger.size >= POOL_REQS for nd in nodes):
+        for nd in nodes:
+            nd.service()
+        timer.run_for(0.01)
+    torch.cuda.synchronize()
+    return nodes, sent, time.perf_counter() - t_w
+
+
+def pool_turn_line(nodes, writes_s):
+    """One pool turn's numbers and roots: wall, ordered req/s,
+    ORDERED_E2E_MS p50/p99, the native branches, and node Alpha's domain,
+    audit and domain state roots (hex)."""
+    from plenum_tpu_torch.bootstrap import native_backends
+    from plenum_tpu_torch.common.constants import (
+        AUDIT_LEDGER_ID, DOMAIN_LEDGER_ID)
+    from plenum_tpu_torch.testing import pool
+    p50, p99, _ = pool.pool_latency_summary(nodes)
+    db = nodes[0].db_manager
+    return {"wall_s": writes_s, "req_s": POOL_REQS / writes_s,
+            "ordered": min(n.domain_ledger.size for n in nodes),
+            "ordered_e2e_ms_p50": p50, "ordered_e2e_ms_p99": p99,
+            "native": native_backends(),
+            "roots": {"domain": db.get_ledger(DOMAIN_LEDGER_ID).root_hash,
+                      "audit": db.get_ledger(AUDIT_LEDGER_ID).root_hash,
+                      "state": db.get_state(DOMAIN_LEDGER_ID)
+                      .committedHeadHash.hex()}}
+
+
+def python_pool_turn(profile):
+    """The pool's writes in a fresh child process with
+    PLENUM_TPU_NO_NATIVE=1 (the port's pure-Python host branches; the
+    kernels and kvlog as before) on the card; with `profile`, the child
+    then runs them again under cProfile and its host table is printed
+    here. → its pool_turn_line, with the child's launches and its process
+    wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--pool-turn"]
+        + (["--profile"] if profile else []),
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+        env=dict(os.environ, PLENUM_TPU_NO_NATIVE="1"))
+    if proc.returncode != 0:
+        raise RuntimeError("the pool turn without the C branches failed "
+                           "(rc {}):\n{}".format(proc.returncode,
+                                                 proc.stderr[-4000:]))
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    turn = json.loads(lines[-1])["pool_turn"]
+    turn["process_s"] = time.perf_counter() - t0
+    return turn
+
+
+def pool_turn_main(torch, profile):
+    """--pool-turn: the pool's writes alone on the card, printed as one
+    {"pool_turn": ...} line with the launches this process made; with
+    `profile`, first the host table of a second run under cProfile."""
+    from plenum_tpu_torch.crypto.signer import SimpleSigner
+    from plenum_tpu_torch.ops import launch_counts
+    dev = torch.device("cuda")
+    signer = SimpleSigner(seed=hashlib.sha256(b"trustee").digest())
+    chunks, _, _ = pool_requests(signer)
+    nodes, _, writes_s = run_pool_writes(torch, dev, chunks)
+    line = pool_turn_line(nodes, writes_s)
+    line["launches"] = launch_counts()
+    if profile:
+        import cProfile
+        prof = cProfile.Profile()
+        prof.enable()
+        run_pool_writes(torch, dev, chunks)
+        prof.disable()
+        host_table(prof, "pool writes, {}".format(
+            "Python branches" if os.environ.get("PLENUM_TPU_NO_NATIVE")
+            else "C branches"), depth=2)
+    print(json.dumps({"pool_turn": line}), flush=True)
+    return 0
+
+
 def pool_path(torch, dev, signer, profile, sha3_errs):
     """Phases 5 and 6: the pool path, and every kernel it ran held against
     its plain version on the pool's own inputs. → {"launches": per
@@ -864,37 +1059,8 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
         """Order every chunk on four nodes, then serve the reads from one.
         → (nodes, hub, nacks per node, read replies, wall seconds of the
         writes, of the reads)."""
-        nodes, timer = pool.make_sim_pool(pool.NAMES, "torch_hub",
-                                          device=dev)
+        nodes, sent, writes_s = run_pool_writes(torch, dev, chunks)
         hub = nodes[0].authnr._verifier
-        # No client transport is attached (as in bench.py's pool, so no
-        # node builds Replies for the writes); each node's reply callback
-        # collects what it sends: the nacks, then the read replies.
-        sent = [[] for _ in nodes]
-        for node, out in zip(nodes, sent):
-            node._reply_to_client = lambda c, m, out=out: out.append(m)
-        per_chunk = [len(c) for c in chunks]
-        valid = [CLIENT_BATCH] * len(chunks)
-
-        def expected(injected):
-            done = 0
-            for n_sent, n_valid in zip(per_chunk, valid):
-                if injected >= n_sent:
-                    injected -= n_sent
-                    done += n_valid
-            return done
-
-        t_w = time.perf_counter()
-        pool.pipelined_intake(nodes, timer, chunks, "bench-client",
-                              expected=expected)
-        deadline = time.perf_counter() + 300
-        while time.perf_counter() < deadline and not all(
-                nd.domain_ledger.size >= POOL_REQS for nd in nodes):
-            for nd in nodes:
-                nd.service()
-            timer.run_for(0.01)
-        torch.cuda.synchronize()
-        writes_s = time.perf_counter() - t_w
         nacks = [[m for m in out if isinstance(m, RequestNack)]
                  for out in sent]
         reader = nodes[1]
@@ -1000,6 +1166,8 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
         "every node, {} reads verified ({:.1f} s)".format(
             len(bad_ids), len(got), time.perf_counter() - t0))
 
+    turn = pool_turn_line(nodes, writes_s)
+
     if profile:
         where_the_time_goes(torch, run_pool_path, "pool path")
 
@@ -1086,7 +1254,7 @@ def pool_path(torch, dev, signer, profile, sha3_errs):
          "round_trip_ms": times["sha3_ragged_eq"]["round_trip_ms"]},
     ]
     return {"launches": launches, "ed_err": ed_err, "rag_err": rag_err,
-            "kernels": kernels}
+            "kernels": kernels, "turn": turn}
 
 
 def deployment_phase(torch, dev, profile):
@@ -1201,6 +1369,14 @@ def deployment_phase(torch, dev, profile):
               "{}: every node process ran on the card".format(provider))
         per_node = {name: {k: c for k, c in v["kernels"].items() if c}
                     for name, v in nodes.items()}
+        check(all(v["native"] == nodes["Alpha"]["native"]
+                  and v["native"]["store"] == "KeyValueStorageNative"
+                  for v in nodes.values()),
+              "{}: every node process chose KeyValueStorageNative through "
+              "bootstrap and the same host branches".format(provider))
+        if i == 0:
+            log("deployment: the node processes' host branches {}".format(
+                nodes["Alpha"]["native"]))
         if provider.startswith("remote"):
             check(all(v["kernels"]["sha256_ragged"] > 0
                       and v["kernels"]["sha3_ragged"] > 0
@@ -2313,6 +2489,11 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile the main path (device busy "
                              "time, host functions)")
+    parser.add_argument("--pool-turn", action="store_true",
+                        help="run the pool's writes alone and print one "
+                             "{\"pool_turn\": ...} line (the pool path "
+                             "runs this in a child process with "
+                             "PLENUM_TPU_NO_NATIVE=1)")
     args = parser.parse_args(argv)
     profile = args.profile
     sys.path.insert(0, REPO)
@@ -2336,6 +2517,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.pool_turn:
+        return pool_turn_main(torch, profile)
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -2363,6 +2546,7 @@ def main(argv=None) -> int:
         cuda_lib.load_host(name)
     log("build: {:.1f} s ({} libraries compiled)".format(
         time.perf_counter() - t0, len(built)))
+    native_line()
 
     # ----------------------------------------- 2. kernels vs plain versions
     t0 = time.perf_counter()
@@ -2673,6 +2857,7 @@ def main(argv=None) -> int:
         where_the_time_goes(torch, run_main_path, "ledger path")
 
     pool_result = pool_path(torch, dev, signer, profile, sha3_errs)
+    pool_turns(torch, dev, signer, pool_result["turn"], profile)
 
     t0 = time.perf_counter()
     catchup = catchup_phase(torch, dev, blobs, profile, ceilings)

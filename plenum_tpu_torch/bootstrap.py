@@ -199,6 +199,36 @@ def client_ha_from_pool_genesis(base_dir: str, name: str):
 
 # ----------------------------------------------------------------- start
 
+def node_store_class():
+    """The KV store class of a node's durable stores: the native C engine
+    (storage/kv_native.py over csrc/kvlog.c) when it builds here, else the
+    pure-Python KeyValueStorageFile. Both write the same .kvlog format, so
+    either opens stores the other wrote; the native one keeps values on
+    disk (bounded RAM)."""
+    from plenum_tpu_torch.storage import kv_native
+    if kv_native.available():
+        return kv_native.KeyValueStorageNative
+    from plenum_tpu_torch.storage.kv_file import KeyValueStorageFile
+    return KeyValueStorageFile
+
+
+def native_backends() -> dict:
+    """Which branch each native host source serves in this process:
+    "native" (its C build) or "python" (the pure-Python branch, when it
+    did not build or PLENUM_TPU_NO_NATIVE is set), with the classes
+    PruningState and node_store_class chose."""
+    from plenum_tpu_torch.common.serializers import serializers
+    from plenum_tpu_torch.state import pruning_state, rlp
+    trie = pruning_state._TrieBackend.__name__
+    store = node_store_class().__name__
+    return {"fastpath": "python" if serializers._fp is None else "native",
+            "rlp_c": rlp.BACKEND,
+            "mpt_c": "native" if trie == "NativeTrie" else "python",
+            "kvlog": "native" if store == "KeyValueStorageNative"
+            else "python",
+            "trie": trie, "store": store}
+
+
 def build_networked_node(name: str, base_dir: str, config=None,
                          device=None):
     """Construct a NetworkedNode from on-disk keys + genesis, with
@@ -206,16 +236,15 @@ def build_networked_node(name: str, base_dir: str, config=None,
     layered from <base>/plenum_tpu_config.py + PLENUM_TPU_* env vars
     unless one is passed explicitly. `device` serves the node's kernels:
     None means CUDA and raises without a card; "cpu" runs their plain
-    versions. The stores are always KeyValueStorageFile (the JAX package
-    prefers its native kvlog engine, ROADMAP A8; both write the same
-    .kvlog format), and no validator-info dump is written (ROADMAP A9)."""
+    versions. The stores are `node_store_class()`'s (the native kvlog
+    engine when csrc/kvlog.c builds, else KeyValueStorageFile), and no
+    validator-info dump is written (ROADMAP A9)."""
     from plenum_tpu_torch.ops import resolve_device
     device = resolve_device(device)
     if config is None:
         from plenum_tpu_torch.common.config import Config
         config = Config.load(base_dir)
     from plenum_tpu_torch.server.networked_node import NetworkedNode
-    from plenum_tpu_torch.storage.kv_file import KeyValueStorageFile
 
     keys, _info = load_node_keys(name, base_dir)
     pool_txns = pool_genesis_txns(base_dir)
@@ -225,8 +254,10 @@ def build_networked_node(name: str, base_dir: str, config=None,
     data_dir = os.path.join(base_dir, name, "data")
     os.makedirs(data_dir, exist_ok=True)
 
+    store_class = node_store_class()
+
     def storage_factory(store_name: str):
-        return KeyValueStorageFile(data_dir, store_name)
+        return store_class(data_dir, store_name)
 
     domain_txns = list(
         GenesisTxnInitiatorFromFile(base_dir, DOMAIN_GENESIS_FILE)())

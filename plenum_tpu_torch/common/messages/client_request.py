@@ -5,7 +5,7 @@ ClientMessageValidator checks the envelope; operation schemas are
 per-txn-type (registered by request handlers for static validation).
 """
 from plenum_tpu_torch.common.constants import (
-    IDENTIFIER, OPERATION, REQ_ID, SIGNATURE,
+    CURRENT_PROTOCOL_VERSION, IDENTIFIER, OPERATION, REQ_ID, SIGNATURE,
     SIGNATURES, TAA_ACCEPTANCE, TAA_ACCEPTANCE_DIGEST,
     TAA_ACCEPTANCE_MECHANISM, TAA_ACCEPTANCE_TIME, TXN_TYPE)
 from plenum_tpu_torch.common.exceptions import InvalidClientRequest
@@ -13,6 +13,9 @@ from plenum_tpu_torch.common.messages.fields import (
     IdentifierField, LimitedLengthStringField, MapField, NonEmptyStringField,
     NonNegativeNumberField, ProtocolVersionField, Sha256HexField,
     SignatureField, TimestampField)
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext
+
+_fp = try_load_host_ext("fastpath")
 
 
 class ClientTAAAcceptance:
@@ -41,6 +44,17 @@ class ClientMessageValidator:
         self._strict = operation_schema_is_strict
 
     def validate(self, dct: dict):
+        # C fast path (fastpath.c validate_client_request): returns None
+        # only when the envelope is PROVABLY valid; anything else falls
+        # through to the Python checks below, which either pass or raise
+        # with their exact error message — clients never see C-made text
+        if _fp is not None:
+            try:
+                if _fp.validate_client_request(
+                        dct, CURRENT_PROTOCOL_VERSION) is None:
+                    return
+            except TypeError:
+                pass
         self._validate_py(dct)
 
     def _validate_py(self, dct: dict):

@@ -11,6 +11,9 @@ from plenum_tpu_torch.common.constants import (
     CURRENT_PROTOCOL_VERSION, IDENTIFIER, OPERATION, REQ_ID, SIGNATURE,
     SIGNATURES, TAA_ACCEPTANCE)
 from plenum_tpu_torch.common.serializers.serialization import serialize_msg_for_signing
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext
+
+_fp = try_load_host_ext("fastpath")
 
 
 class Request:
@@ -37,6 +40,9 @@ class Request:
         self._digest = None
         self._payload_digest = None
         self._payload_state = None  # cached signingPayloadState()
+        # canonical signing bytes, pre-computed by the C intake path
+        # (fastpath.request_intake) — authentication reuses them
+        self._signing_ser = None
 
     @property
     def digest(self) -> str:
@@ -51,9 +57,19 @@ class Request:
         return self._payload_digest
 
     def getDigest(self) -> str:
+        if _fp is not None:
+            try:
+                return _fp.digest_hex(self.signingState())
+            except TypeError:
+                pass
         return sha256(serialize_msg_for_signing(self.signingState())).hexdigest()
 
     def getPayloadDigest(self) -> str:
+        if _fp is not None:
+            try:
+                return _fp.digest_hex(self.signingPayloadState())
+            except TypeError:
+                pass
         return sha256(serialize_msg_for_signing(
             self.signingPayloadState())).hexdigest()
 

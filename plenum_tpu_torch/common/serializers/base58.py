@@ -86,8 +86,17 @@ def _b58decode_py(s) -> bytes:
     return b'\x00' * pad + full
 
 
-_encode_backend = _b58encode_raw
-b58decode = _b58decode_py
+# csrc/fastpath.c's codec when it builds (byte-identical output;
+# tests/test_torch_native.py cross-checks both directions)
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext as _try_load
+
+_fp = _try_load("fastpath")
+if _fp is not None:
+    _encode_backend = _fp.b58encode
+    b58decode = _fp.b58decode
+else:
+    _encode_backend = _b58encode_raw
+    b58decode = _b58decode_py
 
 
 def is_b58(s, length: int = None) -> bool:

@@ -1,9 +1,10 @@
 """Serializer implementations (reference: common/serializers/*.py).
 
-MsgPack for the ledger (the port's own pure-Python codec, byte-equal to
-the `msgpack` package's), ordered JSON for state values (bit-identical
-across nodes — consensus-critical), Base58 for roots, Base64 for proof
-nodes, and the canonical signing serialization.
+MsgPack for the ledger (csrc/fastpath.c's canonical packer when it builds,
+else the port's own pure-Python codec; both byte-equal to the `msgpack`
+package's), ordered JSON for state values (bit-identical across nodes —
+consensus-critical), Base58 for roots, Base64 for proof nodes, and the
+canonical signing serialization.
 """
 import base64
 import json
@@ -12,6 +13,9 @@ from typing import Any
 
 from plenum_tpu_torch.common.serializers.base58 import b58decode, b58encode
 from plenum_tpu_torch.common.serializers.msgpack_codec import packb, unpackb
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext
+
+_fp = try_load_host_ext("fastpath")
 
 
 class Serializer(ABC):
@@ -30,6 +34,11 @@ class MsgPackSerializer(Serializer):
     across nodes (consensus digests depend on it)."""
 
     def serialize(self, data: Any, to_bytes=True) -> bytes:
+        if _fp is not None:
+            try:
+                return _fp.canonical_msgpack(data)
+            except TypeError:
+                pass  # non-str keys, too deep, etc. — the Python path decides
         return packb(data, sort_keys=True)
 
     def deserialize(self, data: Any) -> Any:
@@ -44,6 +53,11 @@ class OrderedJsonSerializer(Serializer):
     bit-identically on every node)."""
 
     def serialize(self, data: Any, to_bytes=True):
+        if to_bytes and _fp is not None:
+            try:
+                return _fp.canonical_json_ascii(data)
+            except TypeError:
+                pass
         out = json.dumps(data, sort_keys=True, separators=(',', ':'))
         return out.encode('utf-8') if to_bytes else out
 

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import json
 
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext
+
+_fp = try_load_host_ext("fastpath")
 
 
 def nym_to_state_key(nym: str) -> bytes:
@@ -20,6 +23,11 @@ def nym_to_state_key(nym: str) -> bytes:
 
 def encode_state_value(value: dict, seq_no, txn_time) -> bytes:
     payload = {"val": value, "lsn": seq_no, "lut": txn_time}
+    if _fp is not None:
+        try:
+            return _fp.canonical_json_ascii(payload)
+        except TypeError:
+            pass
     return json.dumps(payload, sort_keys=True, separators=(",", ":")).encode()
 
 

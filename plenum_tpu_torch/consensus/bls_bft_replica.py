@@ -28,7 +28,8 @@ class BlsStore:
 
     def __init__(self, kv=None):
         from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
-        self._kv = kv or KeyValueStorageInMemory()
+        # "is None", not "or": an empty store (len 0) is still the store
+        self._kv = kv if kv is not None else KeyValueStorageInMemory()
 
     def put(self, multi_sig: MultiSignature):
         import json

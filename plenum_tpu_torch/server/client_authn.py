@@ -171,7 +171,11 @@ class CoreAuthNr(ClientAuthNr):
             if vk is None:
                 raise CouldNotAuthenticate(
                     idr, req.reqId, "no verkey for {}".format(idr))
-            ser = serialize_msg_for_signing(req.signingPayloadState(idr))
+            if idr == req.identifier and req._signing_ser is not None:
+                # canonical bytes already built by the C intake pass
+                ser = req._signing_ser
+            else:
+                ser = serialize_msg_for_signing(req.signingPayloadState(idr))
             items.append((ser, sig_raw, vk))
             idrs.append(idr)
         return items, idrs

@@ -52,6 +52,7 @@ from plenum_tpu_torch.server.request_handlers import (
 from plenum_tpu_torch.server.write_request_manager import (
     ActionRequestManager, ReadRequestManager, WriteRequestManager)
 from plenum_tpu_torch.ops import resolve_device
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext
 from plenum_tpu_torch.state.pruning_state import PruningState
 from plenum_tpu_torch.storage.kv_memory import KeyValueStorageInMemory
 from plenum_tpu_torch.observability.tracing import (
@@ -62,6 +63,8 @@ from plenum_tpu_torch.observability.telemetry import (
 from plenum_tpu_torch.utils.metrics import MetricsName, NullMetricsCollector
 
 logger = logging.getLogger(__name__)
+
+_fp = try_load_host_ext("fastpath")
 
 
 class NodeBootstrap:
@@ -988,12 +991,25 @@ class Node:
             return pending
 
     def _dispatch_client_batch(self, msgs: List[Tuple[dict, str]]):
+        from plenum_tpu_torch.common.constants import CURRENT_PROTOCOL_VERSION
+        intake = _fp.request_intake if _fp is not None else None
         parsed = []
         reads = []
         for msg, client_id in msgs:
             try:
-                self._validator.validate(msg)
-                request = Request.from_dict(msg)
+                # C fast path: validation + both digests + signing bytes
+                # in one crossing; None falls back to the Python chain
+                # (which also produces the exact rejection text)
+                pre = None
+                if intake is not None and type(msg) is dict:
+                    pre = intake(msg, CURRENT_PROTOCOL_VERSION)
+                if pre is None:
+                    self._validator.validate(msg)
+                    request = Request.from_dict(msg)
+                else:
+                    request = Request.from_dict(msg)
+                    request._digest, request._payload_digest, \
+                        request._signing_ser = pre
             except InvalidClientMessageException as e:
                 self._reply_to_client(client_id, RequestNack(
                     identifier=msg.get("identifier") or "unknown",

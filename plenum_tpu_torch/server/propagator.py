@@ -17,19 +17,27 @@ from plenum_tpu_torch.common.serializers import flat_wire
 from plenum_tpu_torch.common.serializers.msgpack_codec import packb
 from plenum_tpu_torch.common.serializers.serializers import MsgPackSerializer
 from plenum_tpu_torch.consensus.quorums import Quorums
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext
 from plenum_tpu_torch.observability.tracing import CAT_PROPAGATE, NullTracer
 from plenum_tpu_torch.observability.telemetry import TM, get_seam_hub
 from plenum_tpu_torch.utils.metrics import MetricsName, NullMetricsCollector
 
 _wire_serializer = MsgPackSerializer()
+_fp = try_load_host_ext("fastpath")
 
 logger = logging.getLogger(__name__)
 
 
 def _payload_size(payload: dict) -> int:
-    """Serialized size estimate for batch budgeting (the real msgpack
-    size — a flat guess would under-count multi-KB ATTRIB raws, letting
-    a batch exceed the transport frame limit and be dropped wholesale)."""
+    """Serialized size estimate for batch budgeting (exact when the C
+    canonical packer is available; real msgpack size otherwise — a flat
+    guess would under-count multi-KB ATTRIB raws, letting a batch exceed
+    the transport frame limit and be dropped wholesale)."""
+    if _fp is not None:
+        try:
+            return len(_fp.canonical_msgpack(payload)) + 16
+        except TypeError:
+            pass
     try:
         return len(packb(payload)) + 16
     except Exception:
@@ -57,7 +65,14 @@ def _strict_deep_eq_py(a, b) -> bool:
     return a == b
 
 
-_strict_deep_eq = _strict_deep_eq_py
+if _fp is not None:
+    def _strict_deep_eq(a, b, _c=_fp.deep_eq):
+        try:
+            return _c(a, b)
+        except TypeError:  # structure too deep for the C guard
+            return _strict_deep_eq_py(a, b)
+else:
+    _strict_deep_eq = _strict_deep_eq_py
 
 
 class ReqState:

@@ -29,8 +29,9 @@ def main(argv=None):
     ap.add_argument("--verbose", "-v", action="count", default=0,
                     help="-v = DEBUG, -vv = TRACE (wire-level)")
     ap.add_argument("--stats-file", default=None,
-                    help="when the node stops, write its device and kernel "
-                         "launch counts here as JSON")
+                    help="when the node stops, write its device, kernel "
+                         "launch counts and native host branches here as "
+                         "JSON")
     ap.add_argument("--log-file", default=None,
                     help="per-node rotating log file; default "
                          "<base>/<name>/logs/<name>.log, '-' disables")
@@ -74,12 +75,14 @@ def main(argv=None):
     except KeyboardInterrupt:
         pass
     if args.stats_file:
+        from plenum_tpu_torch.bootstrap import native_backends
         from plenum_tpu_torch.ops import launch_counts
         tmp = args.stats_file + ".tmp"
         with open(tmp, "w") as f:
             json.dump({"name": args.name, "device": str(device),
                        "pid": os.getpid(), "kernels": launch_counts(),
-                       "view_no": node.node.replica.view_no}, f)
+                       "view_no": node.node.replica.view_no,
+                       "native": native_backends()}, f)
         os.replace(tmp, args.stats_file)
 
 

@@ -13,6 +13,12 @@ threshold keep the host trie path. An engine failure raises — the JAX
 package's circuit breaker, which served the host trie after device
 faults, is not part of the port: on the card the kernel runs or the
 call fails.
+
+Trie backend: the C MPT (state/trie_native.py over csrc/mpt_c.c) when
+its extension builds, else the Python trie (state/trie.py); their roots,
+proofs and written nodes are byte-equal. The engine writes the nodes of
+the batches it hashes into the KV, and the C trie reads them back
+through its miss callback.
 """
 from __future__ import annotations
 
@@ -21,6 +27,11 @@ from typing import List, Optional, Sequence
 
 from plenum_tpu_torch.common.serializers.base58 import b58encode
 from plenum_tpu_torch.state.trie import BLANK_ROOT, Trie, verify_proof
+
+try:
+    from plenum_tpu_torch.state.trie_native import NativeTrie as _TrieBackend
+except ImportError:          # extension disabled or not built
+    _TrieBackend = Trie
 
 
 class State(ABC):
@@ -80,7 +91,7 @@ class PruningState(State):
             committed = bytes(kv.get(self.rootHashKey))
         except KeyError:
             committed = BLANK_ROOT
-        self._trie = Trie(kv, committed)
+        self._trie = _TrieBackend(kv, committed)
         self._committed_root = committed
         # write buffer: set/remove land here; the trie absorbs the whole
         # batch in ONE deferred-hash pass when the head root is actually
@@ -313,7 +324,7 @@ class PruningState(State):
 
     @property
     def committedHead(self):
-        return Trie(self._kv, self._committed_root)
+        return _TrieBackend(self._kv, self._committed_root)
 
     @property
     def headHash(self) -> bytes:

@@ -5,8 +5,10 @@ compatibility with Ethereum is not a goal, but RLP is compact, canonical,
 and self-delimiting, so trie hashes are well-defined. Supports bytes and
 (nested) lists of bytes — all a trie node needs.
 
-The port keeps only the pure-Python codec (the JAX package can swap in
-a native extension; the two are byte-equal).
+This file is the reference implementation; the CPython extension built
+from csrc/rlp_c.c replaces `encode`/`decode` at import when it builds
+(ops/cuda_lib.try_load_host_ext; PLENUM_TPU_NO_NATIVE keeps this codec).
+The two are byte-equal (tests/test_torch_native.py).
 """
 from typing import List, Tuple, Union
 
@@ -144,3 +146,11 @@ encode_py = _encode_py
 decode_py = decode
 encode = _encode_py
 BACKEND = "python"
+
+from plenum_tpu_torch.ops.cuda_lib import try_load_host_ext  # noqa: E402
+
+_c = try_load_host_ext("rlp_c")
+if _c is not None:
+    encode = _c.encode
+    decode = _c.decode
+    BACKEND = "native"

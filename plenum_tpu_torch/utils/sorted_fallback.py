@@ -1,7 +1,8 @@
-"""Stdlib stand-ins on `bisect` for the two `sortedcontainers` types the
+"""Stdlib stand-ins on `bisect` for the three `sortedcontainers` types the
 port uses: SortedList (runtime/stashing_router.py's SortedStash: add/pop/
-len/iter and a key function) and SortedDict (storage/kv_file.py's index:
-key-ordered items and irange). O(n) inserts are acceptable at the sizes
+len/iter and a key function), SortedDict (storage/kv_file.py's index:
+key-ordered items and irange) and SortedSet (storage/kv_native.py's key
+cache: add/discard/irange). O(n) inserts are acceptable at the sizes
 involved: stash replay queues and KV iteration indexes."""
 import bisect
 from typing import Any, Callable, Iterable, Optional
@@ -34,6 +35,39 @@ class SortedList:
 
     def __iter__(self):
         return iter(self._items)
+
+
+class SortedSet:
+    """add / discard / irange / membership over a sorted key list."""
+
+    def __init__(self, iterable: Iterable = ()):
+        self._keys = sorted(set(iterable))
+        self._set = set(self._keys)
+
+    def add(self, key: Any) -> None:
+        if key not in self._set:
+            self._set.add(key)
+            bisect.insort(self._keys, key)
+
+    def discard(self, key: Any) -> None:
+        if key in self._set:
+            self._set.remove(key)
+            del self._keys[bisect.bisect_left(self._keys, key)]
+
+    def irange(self, minimum=None, maximum=None):
+        lo = 0 if minimum is None else bisect.bisect_left(self._keys, minimum)
+        hi = len(self._keys) if maximum is None \
+            else bisect.bisect_right(self._keys, maximum)
+        return iter(self._keys[lo:hi])
+
+    def __contains__(self, key: Any) -> bool:
+        return key in self._set
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def __iter__(self):
+        return iter(self._keys)
 
 
 class SortedDict(dict):

@@ -56,8 +56,9 @@ def test_port_imports_neither_jax_nor_plenum_tpu(path):
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_loads_no_native_extension_of_the_jax_package(path):
     """The JAX package loads its optional C extensions through
-    native.try_load_ext; the port keeps only the pure-Python branches,
-    and its one loader (ops/cuda_lib.py) loads its own CUDA libraries."""
+    native.try_load_ext; the port builds its own copies of those C
+    sources (csrc/), and its one loader (ops/cuda_lib.py) loads them and
+    its CUDA libraries."""
     with open(path) as f:
         src = f.read()
     assert "try_load_ext" not in src and "build_and_load" not in src
@@ -244,6 +245,28 @@ def test_port_names_no_path_of_the_jax_packages_native_code():
             if "plenum_tpu/native" in f.read():
                 offenders.append(os.path.relpath(path, REPO))
     assert offenders == []
+
+
+def test_port_loads_its_c_builds_from_its_own_build_directory():
+    """Every host C library and extension the port loaded (the node's
+    modules load fastpath, rlp_c, mpt_c and kvlog at import or first use)
+    is a file under plenum_tpu_torch/_build/, none under the JAX
+    package's native directory."""
+    from plenum_tpu_torch import bootstrap
+    from plenum_tpu_torch.ops import cuda_lib
+    import plenum_tpu_torch.server.node  # noqa: F401
+    assert bootstrap.native_backends()["kvlog"] == "native"
+    files = {key: getattr(lib, "__file__", None) or lib._name
+             for key, lib in cuda_lib._loaded.items()
+             if key.startswith(("ext:", "host:"))}
+    assert {"ext:fastpath", "ext:rlp_c", "ext:mpt_c", "host:kvlog"} \
+        <= set(files)
+    build = os.path.join(REPO, "plenum_tpu_torch", "_build")
+    native = os.path.join(REPO, "plenum_tpu", "native")
+    for key, path in files.items():
+        assert os.path.dirname(os.path.realpath(path)) == \
+            os.path.realpath(build), key
+        assert not os.path.realpath(path).startswith(native), key
 
 
 def _run_smoke(cwd, script):
