@@ -197,6 +197,35 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    g1_aggregate_compressed on the same 256 jobs ("host_library_ms") sits
    beside aggregate_g1_jobs's wall split into pack, kernel and collect
    ("wall_ms").
+10. drives the pipelined pool (phase 10, pipeline_phase): the pool path's
+   4,000 writes and 20 tampered ones in chunks of 2,000, with its
+   settings and the flat wire, in one process, twice in turns: with
+   PIPELINE_ENABLED and SANITIZER_ENABLED (each node parses the wire and
+   pre-screens propagated signatures on its parse worker, fans host-trie
+   merges over its execution pool, and arms the ownership sanitizer),
+   then with both off; then the pipelined turn once more under
+   torch.cuda.set_sync_debug_mode("warn"). The roots must be equal
+   across the nodes and between the turns, every tampered request
+   nacked, ed25519_verify, sha256_ragged and sha3_ragged launched in the
+   pipelined turn, every kernel dispatch and every synchronizing CUDA
+   call on the thread that services the nodes, and no sanitizer
+   violation. Each turn prints its wall, ordered req/s, ORDERED_E2E_MS
+   p50/p99 and the PIPELINE_PARSE_MS, PIPELINE_PRESCREEN_MS and
+   PIPELINE_QUEUE_WAIT_MS p50/p99;
+11. drives the gateway tier open-loop (phase 11, gateway_phase, through
+   plenum_tpu_torch.testing.gateway_load) at bench.py
+   gateway_open_loop's defaults: 4 BLS nodes on the card, Poisson
+   arrivals at 600 requests per simulated second for 8 simulated seconds
+   (30% reads, 80% of them on 16 hot keys; 2% retries; 10% of writes
+   update a hot key), ticks of 0.05 s, envelopes of 64 requests from 4
+   senders, plus 20 writes with bad signatures; the gateway's pre-screen
+   hub on the card. Every node's domain and state roots must be equal,
+   and equal to a fresh pool's fed the forwarded stream; every bad
+   signature rejected and never written; bench.py gateway_gate's
+   conditions must hold; the gateway hub must have launched
+   ed25519_verify, and every verify batch of the path equal verify_plain.
+   It prints p50, p99 and p999, shed %, cache-hit %, dedup hits, admitted
+   and ordered writes, the wall and the launches.
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
@@ -210,7 +239,8 @@ Each path's kernel launch counters are zeroed just before it and read
 just after; every kernel of a path must have launched in it (a node
 process or the daemon starts at zero, and the daemon's counters are
 zeroed after its check). The kernels line gives each kernel's launches
-over all five paths; the BLS entries carry "kernel_ms", "plain_ms" on
+over all seven paths (the two of phases 10 and 11 also apart, in
+"launches_by_path"); the BLS entries carry "kernel_ms", "plain_ms" on
 the inputs they were held on, and their Montgomery multiplies.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -251,6 +281,8 @@ MP_CPU_REQS = 1000           # the "cpu" side's writes: at 4,000 a node's
                              # Python, blocked it past the peers' 10 s
                              # heartbeat
 MP_TIMEOUT_S = 600
+GATEWAY_BAD = 20             # bad-signature writes added to the gateway
+                             # path's schedule (phase 11)
 # the five-lane groups' and the warps' boundaries (six messages a warp of
 # groups, 32 a warp of threads), and a ragged tail of both
 SHA3_BATCHES = (1, 4, 5, 6, 7, 31, 32, 33, 127, 129, 2001)
@@ -890,11 +922,13 @@ def pool_turns(torch, dev, signer, native, profile):
           "branches and with the Python branches")
 
 
-def run_pool_writes(torch, dev, chunks):
-    """The pool's writes: four nodes (make_sim_pool, one hub on the card)
-    order every chunk. → (nodes, what each node sent, wall seconds)."""
+def run_pool_writes(torch, dev, chunks, extra_conf=None):
+    """The pool's writes: four nodes (make_sim_pool, one hub on the card,
+    `extra_conf` over its settings) order every chunk. → (nodes, what
+    each node sent, wall seconds)."""
     from plenum_tpu_torch.testing import pool
-    nodes, timer = pool.make_sim_pool(pool.NAMES, "torch_hub", device=dev)
+    nodes, timer = pool.make_sim_pool(pool.NAMES, "torch_hub", device=dev,
+                                      extra_conf=extra_conf)
     # No client transport is attached (as in bench.py's pool, so no node
     # builds Replies for the writes); each node's reply callback collects
     # what it sends: the nacks, then the read replies.
@@ -925,24 +959,27 @@ def run_pool_writes(torch, dev, chunks):
     return nodes, sent, time.perf_counter() - t_w
 
 
+def node_roots(node):
+    """A node's domain, audit and domain state roots."""
+    from plenum_tpu_torch.common.constants import (
+        AUDIT_LEDGER_ID, DOMAIN_LEDGER_ID)
+    db = node.db_manager
+    return {"domain": db.get_ledger(DOMAIN_LEDGER_ID).root_hash,
+            "audit": db.get_ledger(AUDIT_LEDGER_ID).root_hash,
+            "state": db.get_state(DOMAIN_LEDGER_ID).committedHeadHash.hex()}
+
+
 def pool_turn_line(nodes, writes_s):
     """One pool turn's numbers and roots: wall, ordered req/s,
     ORDERED_E2E_MS p50/p99, the native branches, and node Alpha's domain,
     audit and domain state roots (hex)."""
     from plenum_tpu_torch.bootstrap import native_backends
-    from plenum_tpu_torch.common.constants import (
-        AUDIT_LEDGER_ID, DOMAIN_LEDGER_ID)
     from plenum_tpu_torch.testing import pool
     p50, p99, _ = pool.pool_latency_summary(nodes)
-    db = nodes[0].db_manager
     return {"wall_s": writes_s, "req_s": POOL_REQS / writes_s,
             "ordered": min(n.domain_ledger.size for n in nodes),
             "ordered_e2e_ms_p50": p50, "ordered_e2e_ms_p99": p99,
-            "native": native_backends(),
-            "roots": {"domain": db.get_ledger(DOMAIN_LEDGER_ID).root_hash,
-                      "audit": db.get_ledger(AUDIT_LEDGER_ID).root_hash,
-                      "state": db.get_state(DOMAIN_LEDGER_ID)
-                      .committedHeadHash.hex()}}
+            "native": native_backends(), "roots": node_roots(nodes[0])}
 
 
 def python_pool_turn(profile):
@@ -993,6 +1030,277 @@ def pool_turn_main(torch, profile):
             else "C branches"), depth=2)
     print(json.dumps({"pool_turn": line}), flush=True)
     return 0
+
+# the text of torch's warning in set_sync_debug_mode("warn")
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def pipeline_phase(torch, dev, signer):
+    """Phase 10: the pipelined pool. The pool path's writes (POOL_REQS
+    NYM writes and POOL_BAD tampered ones in chunks of CLIENT_BATCH, the
+    pool path's settings, flat wire) in one process, twice in turns: with
+    PIPELINE_ENABLED and SANITIZER_ENABLED (wire parse and the ed25519
+    pre-screen on each node's parse worker, host-trie merges on its
+    execution pool, the ownership sanitizer armed), then with both off.
+    Then the pipelined turn once more under
+    torch.cuda.set_sync_debug_mode("warn"), every synchronizing call
+    recorded with its thread. Checks: domain, audit and state roots equal
+    across the nodes and between the turns; every tampered request nacked
+    by every node; ed25519_verify, sha256_ragged and sha3_ragged launched
+    in the pipelined turn; every kernel dispatch and every synchronizing
+    CUDA call on the thread that services the nodes, none on a worker; no
+    sanitizer violation. → {"launches": both timed turns' launches,
+    "turns": each turn's line}."""
+    import threading
+    import warnings
+    from plenum_tpu_torch.common.messages.node_messages import RequestNack
+    from plenum_tpu_torch.observability.export import pool_telemetry
+    from plenum_tpu_torch.observability.telemetry import TM, merged_snapshot
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.ops import launch_counts
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops import trie as trie_ops
+    from plenum_tpu_torch.runtime import sanitizer
+
+    t_phase = time.perf_counter()
+    chunks, _, bad_ids = pool_requests(signer)
+    main = threading.get_ident()
+    threads = []          # (dispatch point, thread) of every kernel call
+    violations = []
+    real = {"verify": ed.verify, "ragged": sha.sha256_ragged,
+            "hash_nodes": trie_ops.hash_nodes,
+            "verify_nodes": trie_ops.dispatch_node_verify_batch}
+
+    def on_thread(name, fn):
+        def wrapped(*args, **kw):
+            threads.append((name, threading.get_ident()))
+            return fn(*args, **kw)
+        return wrapped
+
+    real_violation = sanitizer.OwnershipSanitizer.violation
+
+    def counted_violation(self, *args):
+        violations.append(args)
+        return real_violation(self, *args)
+
+    def turn(pipeline, label):
+        conf = dict(PIPELINE_ENABLED=pipeline, SANITIZER_ENABLED=pipeline)
+        launch_counts(reset=True)
+        nodes, sent, writes_s = run_pool_writes(torch, dev, chunks, conf)
+        launches = launch_counts()
+        for n in nodes:
+            if n._pipeline is not None:
+                n._pipeline.stop()
+        line = pool_turn_line(nodes, writes_s)
+        hists = merged_snapshot(pool_telemetry(nodes)).get(
+            "histograms") or {}
+        for name in (TM.PIPELINE_PARSE_MS, TM.PIPELINE_PRESCREEN_MS,
+                     TM.PIPELINE_QUEUE_WAIT_MS):
+            h = hists.get(name) or {}
+            line[name] = {"p50": h.get("p50"), "p99": h.get("p99"),
+                          "count": h.get("count", 0)}
+        line.update(launches={k: v for k, v in launches.items() if v},
+                    workers=nodes[0]._pipeline.workers
+                    if nodes[0]._pipeline is not None else 0,
+                    nacked=[{m.reqId for m in out
+                             if isinstance(m, RequestNack)} for out in sent],
+                    roots_by_node=[node_roots(n) for n in nodes])
+        log("pipelined pool, {}: {} writes ordered on every node in {:.3f} "
+            "s wall, {:.1f} ordered requests/s; ORDERED_E2E_MS p50 {} p99 "
+            "{}; {} p50/p99 {}/{} ({} jobs), {} p50/p99 {}/{} ({}), {} "
+            "p50/p99 {}/{} ({}); workers {}; launches {}".format(
+                label, line["ordered"], writes_s, line["req_s"],
+                line["ordered_e2e_ms_p50"], line["ordered_e2e_ms_p99"],
+                *[v for name in (TM.PIPELINE_PARSE_MS,
+                                 TM.PIPELINE_PRESCREEN_MS,
+                                 TM.PIPELINE_QUEUE_WAIT_MS)
+                  for v in (name, line[name]["p50"], line[name]["p99"],
+                            line[name]["count"])],
+                line["workers"], line["launches"]))
+        return line
+
+    ed.verify = on_thread("ed25519", real["verify"])
+    sha.sha256_ragged = on_thread("sha256_ragged", real["ragged"])
+    trie_ops.hash_nodes = on_thread("sha3", real["hash_nodes"])
+    trie_ops.dispatch_node_verify_batch = on_thread(
+        "sha3_eq", real["verify_nodes"])
+    sanitizer.OwnershipSanitizer.violation = counted_violation
+    syncs = []
+    try:
+        on = turn(True, "pipeline and sanitizer on")
+        off = turn(False, "pipeline and sanitizer off")
+        launches = {k: on["launches"].get(k, 0) + off["launches"].get(k, 0)
+                    for k in set(on["launches"]) | set(off["launches"])}
+        t0 = time.perf_counter()
+        shown = warnings.showwarning
+
+        def record_sync(message, category, *args, **kw):
+            if SYNC_WARNING in str(message):
+                syncs.append(threading.get_ident())
+            else:
+                shown(message, category, *args, **kw)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record_sync
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                checked = turn(True, "pipeline on, sync debug mode warn")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                warnings.showwarning = shown
+        sync_s = time.perf_counter() - t0
+    finally:
+        ed.verify, sha.sha256_ragged = real["verify"], real["ragged"]
+        trie_ops.hash_nodes = real["hash_nodes"]
+        trie_ops.dispatch_node_verify_batch = real["verify_nodes"]
+        sanitizer.OwnershipSanitizer.violation = real_violation
+
+    log("pipelined pool: wall on / off {:.4f} ({:.3f} / {:.3f} s); the "
+        "sync-debug turn {:.1f} s, {} synchronizing CUDA calls, from "
+        "threads {}; kernel dispatches by point {}".format(
+            on["wall_s"] / off["wall_s"], on["wall_s"], off["wall_s"],
+            sync_s, len(syncs), sorted({t == main for t in syncs}),
+            {name: sum(1 for n, _ in threads if n == name)
+             for name in sorted({n for n, _ in threads})}))
+    for line in (on, off, checked):
+        check(line["ordered"] == POOL_REQS,
+              "the pipelined pool's turns ordered every write")
+        check(all(r == line["roots_by_node"][0]
+                  for r in line["roots_by_node"]),
+              "domain, audit and state roots equal across the nodes")
+        check(all(n == bad_ids for n in line["nacked"]),
+              "every node nacked exactly the tampered requests")
+    check(on["roots"] == off["roots"] == checked["roots"],
+          "the pool's roots are byte-equal with the pipeline and sanitizer "
+          "on and off")
+    for name in ("ed25519_verify", "sha256_ragged", "sha3_ragged"):
+        check(on["launches"].get(name, 0) > 0,
+              "{} launched in the pipelined turn".format(name))
+    check(threads and all(t == main for _, t in threads),
+          "every kernel dispatch of the three turns ran on the thread that "
+          "services the nodes")
+    check(all(t == main for t in syncs),
+          "no synchronizing CUDA call on a parse worker or the execution "
+          "pool")
+    check(on["workers"] >= 1 and not violations,
+          "no sanitizer violation")
+    log("phase 10 (pipelined pool): {:.1f} s".format(
+        time.perf_counter() - t_phase))
+    return {"launches": launches, "turns": {"on": on, "off": off}}
+
+
+def gateway_phase(torch, dev):
+    """Phase 11: the gateway tier, driven open-loop at bench.py
+    gateway_open_loop's defaults through plenum_tpu_torch.testing.
+    gateway_load: 4 BLS nodes (Max3PCBatchSize 200, wait 0.05 s, CHK_FREQ
+    10, LOG_SIZE 30), backlog marks 150 / 75 / 1,000, Poisson arrivals at
+    600 requests per simulated second for 8 simulated seconds from
+    random.Random(4242) (30% reads, 80% of them on 16 hot keys; 2%
+    retries; 10% of writes update a hot key), ticks of 0.05 s, envelopes
+    of 64 requests from 4 senders, the pool's ordered p99 fed to the
+    ladder every 20 ticks; and 20 writes with bad signatures added from
+    their own seed. The gateway's pre-screen hub and all four nodes run
+    on the card. Checks: every node's domain and state roots equal, and
+    equal to a fresh pool's fed the forwarded stream straight through
+    process_client_batch; every bad signature counted in sig_rejects
+    (unless shed) and never written; bench.py gateway_gate's conditions;
+    the gateway hub launched ed25519_verify, each of its batches held
+    against verify_plain. → {"launches": the open loop's launches,
+    "result": its summary}."""
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.ops import launch_counts
+    from plenum_tpu_torch.testing import gateway_load as gl
+
+    t_phase = time.perf_counter()
+    batches = []
+    real_verify = ed.verify
+
+    def recording_verify(*args):
+        batches.append(args)
+        return real_verify(*args)
+
+    launch_counts(reset=True)
+    ed.verify = recording_verify
+    try:
+        run = gl.run_open_loop(device=dev, n_bad=GATEWAY_BAD)
+    finally:
+        ed.verify = real_verify
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    result = gl.summary(run)
+    hub = run["gateway"].intake._verifier
+    node_hub_launches = [len(n.authnr._verifier.launches)
+                         for n in run["nodes"]]
+    log("gateway: {} arrivals ({} reads, {} writes) in {:.1f} s wall, "
+        "completed {}; p50 {} p99 {} p999 {} ms over {} samples; shed {}% "
+        "(reads {}, writes {}), cache hits {}%, dedup hits {}; admitted "
+        "writes {}, ordered {}; sig_rejects {}; levels {}; pool "
+        "ORDERED_E2E_MS p50 {} p99 {}".format(
+            result["arrivals"], result["reads_arrived"],
+            result["writes_arrived"], result["wall_s"], result["completed"],
+            result["gateway_p50_ms"], result["gateway_p99_ms"],
+            result["gateway_p999_ms"], result["e2e_samples"],
+            result["gateway_shed_pct"], result["shed_reads"],
+            result["shed_writes"], result["gateway_cache_hit_pct"],
+            result["dedup_hits"], result["admitted_writes"],
+            result["ordered_writes"], result["sig_rejects"],
+            result["shed_levels_seen"], result["ordered_p50_ms"],
+            result["ordered_p99_ms"]))
+    log("gateway: launches {}; the gateway hub's launches (unique "
+        "signatures) {}; each node's hub launches {}".format(
+            launches, [u for u, _ in hub.launches], node_hub_launches))
+
+    t0 = time.perf_counter()
+    nodes = run["nodes"]
+    check(run["completed"], "the open loop ended with every admitted write "
+                            "ordered")
+    check(len({n.domain_ledger.root_hash for n in nodes}) == 1
+          and len({bytes(n.db_manager.get_state(1).committedHeadHash)
+                   for n in nodes}) == 1,
+          "every node's domain and state roots are equal")
+    replay = gl.replay_pool(gl.forwarded_stream(run), device=dev)
+    check([n.domain_ledger.root_hash for n in replay]
+          == [n.domain_ledger.root_hash for n in nodes]
+          and [bytes(n.db_manager.get_state(1).committedHeadHash)
+               for n in replay]
+          == [bytes(n.db_manager.get_state(1).committedHeadHash)
+              for n in nodes],
+          "the roots equal a fresh pool's fed the forwarded stream")
+    written = {txn["txn"]["metadata"]["reqId"]
+               for _, txn in nodes[0].domain_ledger.getAllTxn()}
+    bad = set(range(gl.BAD_REQ_ID, gl.BAD_REQ_ID + GATEWAY_BAD))
+    check(not written & bad, "no bad-signature write reached the ledger")
+    check(result["sig_rejects"] == GATEWAY_BAD if not result["shed_writes"]
+          else result["sig_rejects"] <= GATEWAY_BAD,
+          "every bad signature screened is counted in sig_rejects")
+    failures = gl.gate(result)
+    check(not failures and result["e2e_samples"] > 0,
+          "gateway_gate's conditions hold: {}".format(failures))
+    check(hub.launches and launches.get("ed25519_verify", 0)
+          >= len(hub.launches),
+          "the gateway hub launched ed25519_verify")
+    # each node's hub verifies the batch the gateway's hub verified: each
+    # distinct batch is held against the plain version once
+    distinct = {}
+    for args in batches:
+        distinct.setdefault(b"".join(a.cpu().numpy().tobytes()
+                                     for a in args), args)
+    ed_err = 0
+    for args in distinct.values():
+        ed_err = max(ed_err, int((ed.verify_cuda(*args).int()
+                                  - ed.verify_plain(*args).int()).abs().max()
+                                 .item()))
+    check(ed_err == 0, "ed25519 kernel verdicts equal the plain version's "
+                       "on the gateway path's batches")
+    log("gateway checks: roots equal on the four nodes and to the replay "
+        "pool's, {} bad signatures rejected, gate passed, ed25519 == plain "
+        "on the {} distinct of the path's {} verify batches {} ({:.1f} s)"
+        .format(result["sig_rejects"], len(distinct), len(batches),
+                [int(a[0].shape[0]) for a in batches],
+                time.perf_counter() - t0))
+    log("phase 11 (gateway): {:.1f} s".format(time.perf_counter() - t_phase))
+    return {"launches": launches, "result": result, "ed_err": ed_err}
 
 
 def pool_path(torch, dev, signer, profile, sha3_errs):
@@ -2911,6 +3219,18 @@ def main(argv=None) -> int:
 
     bls_result = bls_phase(torch, dev, ceilings)
     kernels += bls_result["kernels"]
+
+    pipeline = pipeline_phase(torch, dev, signer)
+    gateway = gateway_phase(torch, dev)
+    for entry in kernels:
+        by_path = {"pipelined_pool": pipeline["launches"].get(
+            entry["name"], 0), "gateway": gateway["launches"].get(
+            entry["name"], 0)}
+        entry["launches"] += sum(by_path.values())
+        entry.setdefault("launches_by_path", {}).update(by_path)
+        if entry["name"] == "ed25519_verify":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       gateway["ed_err"])
 
     t0 = time.perf_counter()
     deploy = deployment_phase(torch, dev, profile)

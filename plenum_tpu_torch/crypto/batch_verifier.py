@@ -19,6 +19,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from plenum_tpu_torch.common.config import Config
+from plenum_tpu_torch.observability import telemetry as _telemetry
+from plenum_tpu_torch.observability.tracing import CAT_DEVICE, NullTracer
 from plenum_tpu_torch.ops import resolve_device
 
 VerifyItem = Tuple[bytes, bytes, bytes]  # (message, signature64, verkey32)
@@ -110,8 +112,13 @@ class _HubPending:
         return bool(pending.ready())
 
     def collect(self) -> List[bool]:
-        self._hub._flush(self._gen)
-        return self._gen.results()[self._lo:self._hi]
+        hub = self._hub
+        # the harvest: when results are not yet materialized this span
+        # IS the host-visible device round trip for this slice
+        with hub.tracer.span("hub_collect", CAT_DEVICE,
+                             n=self._hi - self._lo):
+            hub._flush(self._gen)
+            return self._gen.results()[self._lo:self._hi]
 
 
 def dedup_items(items: Sequence[VerifyItem]
@@ -138,6 +145,8 @@ class _HubGeneration:
         self.pending = None
         self._results = None
         self._index = None  # per-item slot in the deduped launch
+        self._tm_device = False     # launched on the device path
+        self._tm_hub = None         # telemetry hub stamped at flush
 
     def dedup(self) -> List[VerifyItem]:
         order, self._index = dedup_items(self.items)
@@ -145,7 +154,16 @@ class _HubGeneration:
 
     def results(self) -> List[bool]:
         if self._results is None:
-            res = self.pending.collect()
+            if self._tm_device:
+                # the materialization below IS this generation's
+                # dispatch→collect round trip as the host sees it
+                hub = self._tm_hub
+                t0 = hub.clock()
+                res = self.pending.collect()
+                hub.record_roundtrip(_telemetry.SEAM_HUB,
+                                     (hub.clock() - t0) * 1e3)
+            else:
+                res = self.pending.collect()
             idx = self._index
             self._results = res if idx is None else [res[i] for i in idx]
         return self._results
@@ -161,22 +179,44 @@ class CoalescingVerifierHub:
     `launches` records (unique items, launch lanes) for every device
     launch; the kernel takes exactly the unique items, so the two are
     equal.
+
+    Standalone construction (the gateway tier, tests, tools): every
+    collaborator is an explicit argument — ``tracer`` (flight recorder,
+    NullTracer by default: the ``hub_flush`` and ``hub_collect`` spans
+    and the ``hub_queue_depth`` counter), ``telemetry`` (the hub that
+    receives the SEAM_HUB launch and round-trip accounting; by default
+    the lazy process-wide seam hub) and ``threshold``.
     """
 
     name = "torch_hub"
 
-    def __init__(self, batch=None, scalar=None, threshold: int = None):
+    def __init__(self, batch=None, scalar=None, threshold: int = None,
+                 tracer=None, telemetry=None):
         self._batch = batch if batch is not None else TorchBatchVerifier()
         self._scalar = scalar if scalar is not None else ScalarVerifier()
         self.threshold = Config.VERIFIER_BATCH_THRESHOLD \
             if threshold is None else threshold
         self._gen = _HubGeneration()
         self.launches: List[Tuple[int, int]] = []
+        # a node may still attach a recorder after construction (a plain
+        # attribute); explicit injection is the standalone path
+        self.tracer = tracer if tracer is not None else NullTracer()
+        self._telemetry = telemetry  # None = lazy process seam hub
+
+    @property
+    def telemetry(self):
+        """The telemetry hub this hub's SEAM_HUB accounting lands in:
+        the injected one, or (default) the process-wide seam hub."""
+        return self._telemetry if self._telemetry is not None \
+            else _telemetry.get_seam_hub()
 
     def dispatch(self, items: Sequence[VerifyItem]) -> _HubPending:
         gen = self._gen
         lo = len(gen.items)
         gen.items.extend(items)
+        # queue-depth counter: how deep the open generation is when each
+        # co-resident consumer lands — the coalescing evidence
+        self.tracer.counter("hub_queue_depth", len(gen.items))
         return _HubPending(self, gen, lo, len(gen.items))
 
     def flush(self) -> None:
@@ -191,16 +231,27 @@ class CoalescingVerifierHub:
         # generation, not wedge every future dispatch
         if gen is self._gen:
             self._gen = _HubGeneration()
-        launch_items = gen.dedup()
-        if not launch_items:
-            gen.pending = _Ready([])
-        elif len(launch_items) < self.threshold:
-            # quiet pool: a lone small generation takes the CPU floor
-            # rather than paying a full device launch
-            gen.pending = self._scalar.dispatch(launch_items)
-        else:
-            self.launches.append((len(launch_items), len(launch_items)))
-            gen.pending = self._batch.dispatch(launch_items)
+        with self.tracer.span("hub_flush", CAT_DEVICE,
+                              items=len(gen.items)) as _sp:
+            launch_items = gen.dedup()
+            _sp.add(unique=len(launch_items))
+            if not launch_items:
+                gen.pending = _Ready([])
+            elif len(launch_items) < self.threshold:
+                # quiet pool: a lone small generation takes the CPU floor
+                # rather than paying a full device launch
+                gen.pending = self._scalar.dispatch(launch_items)
+            else:
+                # hub-seam lane accounting: the kernel launches exactly
+                # the unique items (no bucket padding, nothing compiled
+                # per shape)
+                lanes = len(launch_items)
+                self.launches.append((lanes, lanes))
+                gen._tm_device = True
+                gen._tm_hub = self.telemetry
+                gen._tm_hub.record_launch(_telemetry.SEAM_HUB,
+                                          len(launch_items), lanes)
+                gen.pending = self._batch.dispatch(launch_items)
 
     def verify_batch(self, items: Sequence[VerifyItem]) -> List[bool]:
         return self.dispatch(items).collect()
@@ -214,8 +265,10 @@ def _make_remote(**kwargs):
 _PROVIDERS = {
     "cpu": ScalarVerifier,
     "torch_batch": TorchBatchVerifier,
-    "torch_hub": lambda device=None, threshold=None: CoalescingVerifierHub(
-        batch=TorchBatchVerifier(device), threshold=threshold),
+    "torch_hub": lambda device=None, threshold=None, tracer=None,
+    telemetry=None: CoalescingVerifierHub(
+        batch=TorchBatchVerifier(device), threshold=threshold,
+        tracer=tracer, telemetry=telemetry),
     "remote": _make_remote,
 }
 
@@ -224,7 +277,8 @@ def create_verifier(name: str = "torch_hub", **kwargs):
     """A verification provider by name: "cpu" (the scalar RFC 8032
     check), "torch_batch" (one launch per dispatch on `device`),
     "torch_hub" (a CoalescingVerifierHub over it; `threshold` defaults
-    to Config.VERIFIER_BATCH_THRESHOLD) or "remote" (the verify daemon
+    to Config.VERIFIER_BATCH_THRESHOLD, `tracer` and `telemetry` go to
+    the hub) or "remote" (the verify daemon
     at `addr`, crypto/remote_verifier.py). `device=None` means CUDA."""
     try:
         cls = _PROVIDERS[name]

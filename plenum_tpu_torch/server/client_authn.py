@@ -36,10 +36,12 @@ class ClientAuthNr(ABC):
 
 
 class CoreAuthNr(ClientAuthNr):
-    def __init__(self, verkey_provider=None, verifier=None):
+    def __init__(self, verkey_provider=None, verifier=None,
+                 prescreen=None):
         """verkey_provider(identifier) → verkey str or None (state-backed
         in the node; local dict fallback for tests). verifier defaults to
-        a CoalescingVerifierHub over the CUDA batch verifier."""
+        a CoalescingVerifierHub over the CUDA batch verifier. prescreen:
+        an advisory verdict cache (see set_prescreen)."""
         self._verkey_provider = verkey_provider
         self._local: Dict[str, str] = {}
         self._verifier = verifier if verifier is not None \
@@ -47,6 +49,18 @@ class CoreAuthNr(ClientAuthNr):
         # (identifier, verkey_str) → raw 32/64 bytes; keyed on BOTH so a
         # rotated verkey can never serve a stale raw key
         self._raw_cache: Dict[tuple, bytes] = {}
+        self._prescreen = prescreen
+
+    def set_prescreen(self, cache) -> None:
+        """Install an advisory verdict cache (the pipeline's
+        PrescreenCache): ``cache.check((ser, sig64, vk32))`` is True
+        ONLY for a signature already verified somewhere — a hit skips
+        the verify for that item; a miss — or no pre-screen — takes the
+        full verifier path, so outcomes are byte-identical either way
+        (positive-only filter, never an authority). The authenticator
+        also WARMS the cache on every successful verify, so the relayed
+        propagate copies of a request cost one verification, not n."""
+        self._prescreen = cache
 
     # ------------------------------------------------------------- keys
 
@@ -75,7 +89,27 @@ class CoreAuthNr(ClientAuthNr):
 
     def authenticate(self, req: Request) -> List[str]:
         items, idrs = self._verify_items(req)
-        return self._conclude(req, idrs, self._verifier.verify_batch(items))
+        results = self._verify_batch_prescreened(items)
+        return self._conclude(req, idrs, results)
+
+    def _verify_batch_prescreened(self, items) -> List[bool]:
+        """verify_batch with cached-positive short-circuit: items the
+        pre-screen already verified (exact (ser, sig, vk) triple) skip
+        the verify; everything else verifies normally."""
+        pre = self._prescreen
+        if pre is None:
+            return self._verifier.verify_batch(items)
+        misses = [i for i, it in enumerate(items) if not pre.check(it)]
+        if not misses:
+            return [True] * len(items)
+        verified = self._verifier.verify_batch(
+            [items[i] for i in misses])
+        results = [True] * len(items)
+        for i, ok in zip(misses, verified):
+            results[i] = bool(ok)
+            if ok:
+                pre.add(*items[i])
+        return results
 
     # ------------------------------------------------------------ batch
 
@@ -103,7 +137,8 @@ class CoreAuthNr(ClientAuthNr):
             idrs_per_req.append(idrs)
             all_items.extend(items)
         pending = self._verifier.dispatch(all_items) if all_items else None
-        return list(reqs), spans, idrs_per_req, prep_errors, pending
+        return (list(reqs), spans, idrs_per_req, prep_errors, pending,
+                all_items)
 
     def flush(self) -> None:
         """Start any coalesced device launch now (CoalescingVerifierHub);
@@ -127,8 +162,14 @@ class CoreAuthNr(ClientAuthNr):
 
     def conclude_batch(self, handle) -> List[Optional[List[str]]]:
         """Phase 2 (blocking): harvest the device results."""
-        reqs, spans, idrs_per_req, prep_errors, pending = handle
+        reqs, spans, idrs_per_req, prep_errors, pending, all_items = handle
         results = pending.collect() if pending is not None else []
+        if self._prescreen is not None:
+            # warm the verdict cache from the intake verifies: the
+            # propagate copies of these requests then pre-screen clean
+            for item, ok in zip(all_items, results):
+                if ok:
+                    self._prescreen.add(*item)
         out: List[Optional[List[str]]] = []
         for req, (start, count), idrs, err in zip(reqs, spans, idrs_per_req,
                                                   prep_errors):

@@ -159,3 +159,19 @@ def plan_lanes(touches: Sequence[Optional[TouchedKeys]]) -> LanePlan:
         write_keys_by_ledger={lid: list(keys)
                               for lid, keys in write_keys.items()},
         lane_sizes=lane_sizes)
+
+
+def exec_fanout(n_states: int, workers: Optional[int] = None) -> int:
+    """Fan-out width for a merged multi-state flush: how many
+    independent per-state structural merges are worth running
+    concurrently. Pure — a function of the state count and the
+    (resolved) worker budget only, so the executor's scheduling
+    decision is reproducible and testable without threads. Width 1
+    means "stay serial": one state has nothing to overlap, and more
+    lanes than workers just queue."""
+    if n_states <= 1:
+        return 1
+    if workers is None:
+        from plenum_tpu_torch.runtime.pipeline import resolve_workers
+        workers = resolve_workers()
+    return max(1, min(int(n_states), int(workers)))

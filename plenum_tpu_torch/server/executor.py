@@ -43,7 +43,7 @@ from plenum_tpu_torch.consensus.ordering_service import BatchExecutor
 from plenum_tpu_torch.observability.tracing import (
     CAT_DEVICE, CAT_EXECUTE, NullTracer)
 from plenum_tpu_torch.observability.telemetry import TM, NullTelemetryHub
-from plenum_tpu_torch.server.execution_lanes import plan_lanes
+from plenum_tpu_torch.server.execution_lanes import exec_fanout, plan_lanes
 from plenum_tpu_torch.server.three_pc_batch import ThreePcBatch
 from plenum_tpu_torch.server.write_request_manager import WriteRequestManager
 from plenum_tpu_torch.state.pruning_state import flush_states_merged
@@ -103,10 +103,13 @@ class NodeBatchExecutor(BatchExecutor):
         self._lane_min = getattr(Config, "EXEC_LANE_MIN", 8) \
             if lane_min is None else lane_min
         self._merged_device_hash = merged_device_hash
+        # pipeline execution fan-out (set_exec_map); None = serial
+        self._exec_map = None
         # staged batches by apply order (mirrors write manager staging)
         self._staged: List[ThreePcBatch] = []
         # runtime ownership sanitizer (node-injected): lane planning
-        # and batch commit are prod-thread seams
+        # and batch commit are prod-thread seams — exec_map fans ITEMS
+        # to pool threads, but the plan/commit decisions stay owned
         self._sanitizer = None
 
     def set_sanitizer(self, sanitizer) -> None:
@@ -288,14 +291,24 @@ class NodeBatchExecutor(BatchExecutor):
             state_root = self._resolve_states(staged, state, ledger)
         return state_root
 
+    def set_exec_map(self, fn) -> None:
+        """Install the pipeline's execution fan-out: an order-preserving
+        parallel map the merged state flush uses to run independent
+        per-state structural merges concurrently (runtime/pipeline.py
+        exec_map). None/unset = serial."""
+        self._exec_map = fn
+
     def _resolve_states(self, staged: Dict[int, List[dict]], state,
                         ledger) -> str:
         """Merge every written state's hash resolution (lanes and
         ledgers share the level-wise dispatches); the batch ledger's
         head read afterwards is a no-op flush."""
         if self._lanes and staged:
-            flush_states_merged([self.db.get_state(lid) for lid in staged],
-                                use_device=self._merged_device_hash)
+            lanes_fan = exec_fanout(len(staged))
+            flush_states_merged(
+                [self.db.get_state(lid) for lid in staged],
+                use_device=self._merged_device_hash,
+                exec_map=self._exec_map if lanes_fan > 1 else None)
         return ledger.hashToStr(state.headHash) if state else ""
 
     # ------------------------------------------------------------- revert

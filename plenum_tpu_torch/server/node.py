@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from plenum_tpu_torch.common.config import Config
@@ -181,10 +182,6 @@ class Node:
         self.device = resolve_device(device)
         self.name = name
         self.config = config or Config()
-        if getattr(self.config, "PIPELINE_ENABLED", False):
-            raise NotImplementedError(
-                "PIPELINE_ENABLED: the pipeline runtime is not ported yet "
-                "(ROADMAP A7)")
         self.metrics = metrics or NullMetricsCollector()
         # flight recorder (observability/): one ring-buffer tracer per
         # node, injected into every instrumented stage below so a 3PC
@@ -677,6 +674,69 @@ class Node:
                 replica.ordering.attach_sanitizer(self.sanitizer)
             self.executor.set_sanitizer(self.sanitizer)
 
+        # ---- pipeline runtime (runtime/pipeline.py): wire parse +
+        # ed25519 pre-screen move to a worker thread feeding the prod
+        # thread through a bounded queue; execution fan-out shares the
+        # same pool. The serial path above stays the validated
+        # fallback; the prod thread keeps sole ownership of all
+        # consensus state (bind_owner_thread makes that a hard
+        # contract at the 3PC intake seams).
+        self._pipeline = None
+        self._prescreen_cache = None
+        self._drain_scheduled = False
+        self._serial_incoming = filtering_incoming
+        if getattr(self.config, "PIPELINE_ENABLED", False):
+            import threading
+            from plenum_tpu_torch.runtime.pipeline import (
+                NodePipeline, PrescreenCache)
+            from plenum_tpu_torch.crypto.batch_verifier import create_verifier
+            self._prescreen_cache = PrescreenCache()
+            # advisory host work on the parse worker: the scalar RFC 8032
+            # check, never a kernel (every launch stays on the prod thread)
+            self._prescreen_verifier = create_verifier("cpu")
+            # ONE verdict cache across both authenticators: client
+            # intake warms it (warm-on-verify), the worker pre-screen
+            # and the propagate gate skip triples it has seen — the
+            # ~n relayed copies of a request cost one verification
+            propagate_authnr.set_prescreen(self._prescreen_cache)
+            self.authnr.set_prescreen(self._prescreen_cache)
+            self._pipeline = NodePipeline(
+                self._pipeline_deliver, config=self.config,
+                telemetry=self.telemetry, tracer=self.tracer,
+                name=name, sanitizer=self.sanitizer)
+            self.executor.set_exec_map(self._pipeline.exec_map)
+            prod_ident = threading.get_ident()
+            for replica in self.replicas:
+                replica.ordering.bind_owner_thread(prod_ident)
+            # per-stage drain on view change: no parse job may
+            # straddle a protocol epoch (catchup drains in
+            # start_catchup the same way)
+            self.replica.internal_bus.subscribe(
+                ViewChangeStarted, lambda msg: self._drain_pipeline())
+
+            def pipelined_incoming(msg, frm):
+                # connection events keep their inline path (monitors
+                # track peers whether queued work exists or not)
+                if isinstance(msg, (network.Connected,
+                                    network.Disconnected)):
+                    return filtering_incoming(msg, frm)
+                if isinstance(msg, FlatBatch):
+                    payload = msg.payload
+                    self._pipeline.submit(
+                        lambda: self._pipeline_parse(payload, frm),
+                        msg, frm)
+                else:
+                    self._pipeline.submit(None, msg, frm)
+                # zero-delay drain: fires at THIS simulated instant,
+                # after the delivery callback returns, so pipelined
+                # processing happens at the same sim time — and in
+                # the same order — the serial path would have
+                # processed it (determinism by construction; the
+                # wall-clock win is the worker parsing concurrently)
+                if not self._drain_scheduled:
+                    self._drain_scheduled = True
+                    self.timer.schedule(0, self._drain_pipeline)
+            network.process_incoming = pipelined_incoming
         self.mode_participating = True
 
         # ---- restart recovery from persisted stores
@@ -1526,6 +1586,133 @@ class Node:
 
     # ================================================= pipeline runtime
 
+    def _drain_pipeline(self):
+        """Deliver every queued pipeline job on the prod thread.
+        Timer-armed at submission with ZERO delay, so the drain fires
+        at the same simulated instant the serial path would have
+        processed the delivery — byte-equal roots by construction —
+        while the parse worker runs ahead of the prod thread inside
+        each same-instant burst (all peers' envelopes from one flush
+        sweep land together; parse of job i+1 overlaps dispatch of
+        job i). Also called from service(), start_catchup and
+        ViewChangeStarted so no job straddles a protocol epoch."""
+        self._drain_scheduled = False
+        if self._pipeline is not None:
+            self._pipeline.drain()
+
+    def _pipeline_parse(self, payload, frm: str):
+        """WORKER-THREAD stage: payload bytes → ParsedEnvelope
+        (immutable numpy views over the immutable buffer), the
+        receive-instant journey anchor, and the advisory ed25519
+        pre-screen. Touches NO consensus state. A FlatWireError
+        propagates to the drain as the job's error — the suspicion is
+        raised on the prod thread, in arrival order."""
+        with self.tracer.span(
+                "wire_parse", CAT_3PC,
+                n=len(payload) if isinstance(
+                    payload, (bytes, bytearray)) else 0):
+            env = flat_wire.parse_envelope(payload)
+        self._note_flat_stamp(env, frm)
+        self._prescreen_propagates(env)
+        return env
+
+    def _prescreen_propagates(self, env) -> None:
+        """WORKER-THREAD stage: verify every screenable PROPAGATE
+        signature against its identifier-DERIVED (cryptonym) verkey
+        and warm the positive-verdict cache, so the prod thread's
+        authenticate_propagated skips the scalar verify on the hit
+        path. Domain state is consensus state the worker must not
+        read, so a request whose verkey lives only in domain state
+        simply misses the cache and verifies on the prod thread
+        exactly as before — filter, not authority, the gateway's
+        argument. The port's scalar verify hashes and decodes in
+        Python (only the point check is in C, csrc/ed25519_host.c), so
+        it holds the GIL for most of its time: the overlap with the
+        prod thread is what the GIL leaves of it."""
+        cache = self._prescreen_cache
+        if cache is None:
+            return
+        items = []
+        for sec in env.sections:
+            if sec.kind != flat_wire.KIND_PROPAGATE:
+                continue
+            for i in range(sec.n):
+                try:
+                    req = sec.request(i)
+                except Exception:
+                    continue   # a bad entry costs only itself
+                item = self._prescreen_item(req)
+                # the pool relays every request ~n times (one PROPAGATE
+                # per peer) and client intake verified it once already:
+                # triples the cache has seen — from the authenticator's
+                # warm-on-verify or an earlier copy — cost a dict probe
+                # here, not a verify
+                if item is not None and not cache.check(item):
+                    items.append(item)
+        if not items:
+            return
+        t0 = time.perf_counter()
+        try:
+            results = self._prescreen_verifier.verify_batch(items)
+        except (ValueError, TypeError, RuntimeError) as e:
+            # advisory: a broken screen = all-miss, never an outcome
+            logger.debug("%s: pre-screen verify failed: %s",
+                         self.name, e)
+            return
+        for item, ok in zip(items, results):
+            if ok:
+                cache.add(*item)
+        self.telemetry.observe(
+            TM.PIPELINE_PRESCREEN_MS,
+            (time.perf_counter() - t0) * 1e3)
+
+    @staticmethod
+    def _prescreen_item(msg) -> Optional[tuple]:
+        """(signing bytes, sig64, vk32) for a single-signature request
+        dict using only sender-supplied material (the gateway's
+        _verify_item shape), or None when unscreenable."""
+        if not isinstance(msg, dict):
+            return None
+        sig = msg.get("signature")
+        idr = msg.get("identifier")
+        if not isinstance(sig, str) or not isinstance(idr, str) \
+                or msg.get("signatures"):
+            return None
+        from plenum_tpu_torch.common.serializers.base58 import b58decode
+        from plenum_tpu_torch.common.serializers.serialization import (
+            serialize_msg_for_signing)
+        from plenum_tpu_torch.crypto.signer import verkey_from_identifier
+        try:
+            sig_raw = b58decode(sig)
+            vk = verkey_from_identifier(idr, None)
+            payload = {k: v for k, v in msg.items()
+                       if k not in ("signature", "signatures")}
+            ser = serialize_msg_for_signing(payload)
+        except (ValueError, TypeError, KeyError):
+            return None         # unscreenable shape: full verify later
+        if len(sig_raw) != 64 or len(vk) != 32:
+            return None
+        return (ser, sig_raw, vk)
+
+    def _pipeline_deliver(self, job) -> None:
+        """PROD-THREAD delivery of one pipeline job, in arrival
+        order. Blacklist verdicts, suspicions and every consensus
+        side effect happen here — the worker only turned bytes into
+        views. Non-FlatBatch jobs ride the serial path whole."""
+        msg, frm = job.msg, job.frm
+        if not isinstance(msg, FlatBatch):
+            self._serial_incoming(msg, frm)
+            return
+        if self.blacklister.is_blacklisted(frm):
+            return
+        if job.error is not None:
+            if isinstance(job.error, flat_wire.FlatWireError):
+                self._flat_wire_suspicion(frm, job.error)
+                return
+            raise job.error
+        self._dispatch_parsed_flat(job.result, frm)
+        self._arm_outbox_flush()
+
     def _get_finalised_request(self, digest: str) -> Optional[Request]:
         state = self.propagator.requests.get(digest)
         return state.request if state else None
@@ -1681,6 +1868,10 @@ class Node:
         (reference node.py:2610 start_catchup + §3.4)."""
         if self.leecher.in_progress:
             return
+        # per-stage drain: no parsed-but-undelivered envelope may
+        # straddle the catchup epoch (it would land on post-catchup
+        # consensus state); re-entrant drains no-op
+        self._drain_pipeline()
         logger.info("%s starting catchup", self.name)
         self.tracer.instant("catchup_start", CAT_RECOVERY)
         # pool-health bridge from the recovery lane
@@ -1811,7 +2002,15 @@ class Node:
         if not tm.enabled:
             return
         reqs = getattr(self.propagator, "requests", None)
-        tm.gauge(TM.BACKLOG_DEPTH, len(reqs) if reqs is not None else 0)
+        # pipeline jobs awaiting prod delivery are backlog the
+        # admission ladder must see — backpressure propagates to the
+        # gateway front door instead of pooling in the queue
+        pipe_depth = self._pipeline.depth \
+            if self._pipeline is not None else 0
+        tm.gauge(TM.BACKLOG_DEPTH,
+                 (len(reqs) if reqs is not None else 0) + pipe_depth)
+        if self._pipeline is not None:
+            tm.gauge(TM.PIPELINE_QUEUE_DEPTH, pipe_depth)
         ordering = getattr(self.replica, "ordering", None)
         if ordering is not None:
             tm.gauge(TM.REQUEST_QUEUE_DEPTH,
@@ -1833,6 +2032,10 @@ class Node:
     def service(self):
         """One prod tick: all protocol instances (master + backups)."""
         with self.metrics.measure_time(MetricsName.NODE_PROD_TIME):
+            # any parse jobs still queued (timer starved between
+            # deliveries and this tick) deliver before consensus work
+            if self._pipeline is not None:
+                self._pipeline.drain()
             # propagates queued this tick (intake + batch echoes) leave
             # as ONE PROPAGATE_BATCH before consensus work runs
             self.propagator.flush()

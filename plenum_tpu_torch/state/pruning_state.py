@@ -413,7 +413,7 @@ class PruningState(State):
         self._kv.close()
 
 
-def flush_states_merged(states, use_device=None) -> None:
+def flush_states_merged(states, use_device=None, exec_map=None) -> None:
     """Flush MANY states' pending buffers through ONE merged hash
     resolution (conflict-lane executor, server/executor.py): each
     state's structural update runs with hashing deferred
@@ -422,9 +422,33 @@ def flush_states_merged(states, use_device=None) -> None:
     (state/device_state.resolve_applies). States the engine does not
     serve (no engine, sub-threshold buffers) flush through their host
     path inside ``begin_flush_deferred``; roots are byte-equal on every
-    path."""
-    handles = [h for h in (st.begin_flush_deferred() for st in states
-                           if st is not None) if h is not None]
+    path.
+
+    ``exec_map``: optional order-preserving parallel map (the node
+    pipeline's execution pool). Host-path states fan across it — each
+    owns its trie, pending buffer and kv store, so their structural
+    merges are independent — while engine-routed states stay on the
+    calling thread, so every SHA3 launch stays on the prod thread. Roots
+    are a pure function of each state's write set, so fan-out cannot
+    change them."""
+    states = [st for st in states if st is not None]
+    fanned = []
+    if exec_map is not None and len(states) > 1:
+        # the same routing predicate begin_flush_deferred applies: only
+        # states it serves on the host path cross to the pool
+        host = [st for st in states
+                if st._pending and (
+                    st._engine is None
+                    or len(st._pending) < st._engine_batch_min)]
+        if len(host) > 1:
+            host_ids = set(map(id, host))
+            states = [st for st in states if id(st) not in host_ids]
+            fanned = [h for h in exec_map(
+                lambda st: st.begin_flush_deferred(), host)
+                if h is not None]
+    handles = fanned + [
+        h for h in (st.begin_flush_deferred() for st in states)
+        if h is not None]
     if not handles:
         return
     from plenum_tpu_torch.state.device_state import resolve_applies

@@ -1,10 +1,10 @@
 """Guards of the PyTorch/CUDA port: plenum_tpu_torch and chip_smoke.py
 import neither jax nor plenum_tpu and load no native extension of the JAX
 package, every entry point that touches the device raises when CUDA is
-absent and the caller did not ask for the CPU, the Node raises
-NotImplementedError on the branch that is not ported (the pipeline
-runtime) and routes BLS pairing batches to its device, no port source
-names the JAX package's native directory, and
+absent and the caller did not ask for the CPU, the Node builds the
+branch that was not ported before (the pipeline runtime) and routes BLS
+pairing batches to its device, no port source names the JAX package's
+native directory, and
 chip_smoke.py refuses to report without a card or without the package
 beside it."""
 import ast
@@ -100,6 +100,7 @@ def _entry_points():
     from plenum_tpu_torch import bootstrap, start_node
     from plenum_tpu_torch.server.verify_daemon import VerifyDaemon
     from plenum_tpu_torch.testing import mp_pool, pool
+    from plenum_tpu_torch.gateway import Gateway, GatewayIntake
     empty = np.zeros((0, 32), dtype=np.uint8)
     return {
         "build_networked_node": lambda: bootstrap.build_networked_node(
@@ -120,6 +121,8 @@ def _entry_points():
         "state_from_nodes": lambda: carry.state_from_nodes([], bytes(32)),
         "create_verifier": lambda: create_verifier("torch_hub"),
         "Node": lambda: _node(),
+        "GatewayIntake": lambda: GatewayIntake(),
+        "Gateway": lambda: Gateway(forward_writes=lambda env: None),
         "make_sim_pool": lambda: pool.make_sim_pool(pool.NAMES, "cpu"),
         "resolve_device": lambda: resolve_device(),
         "sha256_many": lambda: sha256.sha256_many([b"abc"]),
@@ -184,9 +187,13 @@ def test_sha3_cuda_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("branch", ["PIPELINE_ENABLED"])
 def test_node_raises_on_branches_not_ported(branch):
+    """The pipeline runtime (ROADMAP A7) is ported: a Node with it on
+    builds its pipeline, raises nothing, and stops cleanly. No Node
+    branch is left unported."""
     from plenum_tpu_torch.common.config import Config
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        _node(device="cpu", config=Config(**{branch: True}))
+    node = _node(device="cpu", config=Config(**{branch: True}))
+    assert node._pipeline is not None and node._prescreen_cache is not None
+    node._pipeline.stop()
 
 
 def test_node_routes_bls_device_pairing_to_its_device(monkeypatch):
