@@ -122,6 +122,15 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    daemon's launches and their sizes and each node process's device and
    launches; under --profile, node Alpha of the first remote and cpu
    runs runs under cProfile and its host time is printed by module.
+   Then one more remote run: the port's NetworkedPoolClient sends 500
+   writes (signed by the trustee's wallet) to the four node processes
+   and confirms each on f + 1 matching replies; it prints the run's
+   wall, req/s and redials (its 3PC batches stay below
+   SHA256_BATCH_THRESHOLD, so its kernel is the daemon's ed25519). The
+   nodes dump their validator info every second in every run, and each
+   node's last dump (after the audit ledgers settle) must give the
+   domain size and the replay's domain and state roots, and the
+   genesis' pool counts.
    Process logs go to chiprun_out/mp_logs/.
 8. drives catchup seeding from the card: the ledger path's 2^20 NYM txns
    recovered into a new domain ledger, its device Merkle tree attached
@@ -226,6 +235,29 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    ed25519_verify, and every verify batch of the path equal verify_plain.
    It prints p50, p99 and p999, shed %, cache-hit %, dedup hits, admitted
    and ordered writes, the wall and the launches.
+12. drives Byzantine pools on the card (phase 12, adversary_phase, through
+   plenum_tpu_torch.testing.byzantine and the adversary harness): 12a,
+   bench.py bench_recovery at its sizes (25 nodes, network seed 77,
+   adversary seed 7, its Config and SLOs; the port's default verifier
+   where bench.py names "cpu"): failover under a silent primary, the
+   ex-primary's catchup, a laggard's catchup under a garbling and a
+   stalling seeder while a third peer churns; no liveness or invariant
+   violation, the liar among the bad peers, the laggard's domain ledger
+   equal to the target's, the honest roots equal; it prints the sim-second
+   latencies beside the SLOs (a miss is printed as a finding), the trace
+   events, ordered p50/p99, the wall and the launches (none: six writes
+   stay below the hub's threshold). 12b, 25 BLS validators (Max3PCBatchSize
+   50) under PoisonedBlsShare and TamperedPropagate order 200 writes sent
+   to every node in chunks of 50 (cut from 400, ATTACK_WRITES): every
+   write ordered on every honest node with equal domain and state roots,
+   no tampered request written,
+   every ordered batch multi-signed with nothing left to backfill, the
+   strict window engaged, bls_pairing launched from the nodes' share
+   unrolls, the first device-sized unroll's verdicts equal to the host
+   library's per-share verify_sig and its pairing launch to the plain
+   version, every distinct ed25519 batch equal to verify_plain; it
+   prints the launches, the verify batches' sizes, the unrolls' shares,
+   the pairing's jobs per launch and the wall.
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
@@ -238,10 +270,11 @@ kernel_ms times it).
 Each path's kernel launch counters are zeroed just before it and read
 just after; every kernel of a path must have launched in it (a node
 process or the daemon starts at zero, and the daemon's counters are
-zeroed after its check). The kernels line gives each kernel's launches
-over all seven paths (the two of phases 10 and 11 also apart, in
-"launches_by_path"); the BLS entries carry "kernel_ms", "plain_ms" on
-the inputs they were held on, and their Montgomery multiplies.
+zeroed after its check; phase 12a, a host path, claims none). The
+kernels line gives each kernel's launches over all nine paths (those of
+phases 10, 11, 12a and 12b also apart, in "launches_by_path"); the BLS
+entries carry "kernel_ms", "plain_ms" on the inputs they were held on,
+and their Montgomery multiplies.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory that holds this
@@ -281,6 +314,17 @@ MP_CPU_REQS = 1000           # the "cpu" side's writes: at 4,000 a node's
                              # Python, blocked it past the peers' 10 s
                              # heartbeat
 MP_TIMEOUT_S = 600
+ATTACK_NODES = 25            # BASELINE.json configs 3 and 5: 25 validators
+ATTACK_WRITES = 200          # phase 12b's writes (cut from 400: from the
+                             # third chunk the poisoner's strict-mode
+                             # suspicions drive view changes, as in the JAX
+                             # package on the same pool, that double each
+                             # chunk's wall; 400 took over 20 min on an
+                             # H100's host), in chunks of
+ATTACK_CHUNK = 50            # 50 (>= the hub's threshold of 32; the
+                             # pool's Max3PCBatchSize, byzantine.ATTACK_CONF)
+NETWORKED_WRITES = 500       # phase 7's NetworkedPoolClient run
+INFO_DUMP_S = 1.0            # the deployment nodes' validator-info interval
 GATEWAY_BAD = 20             # bad-signature writes added to the gateway
                              # path's schedule (phase 11)
 # the five-lane groups' and the warps' boundaries (six messages a warp of
@@ -1303,6 +1347,191 @@ def gateway_phase(torch, dev):
     return {"launches": launches, "result": result, "ed_err": ed_err}
 
 
+def adversary_phase(torch, dev):
+    """Phase 12: Byzantine pools on the card, through the adversary
+    harness (plenum_tpu_torch.testing.adversary, driven by
+    plenum_tpu_torch.testing.byzantine).
+
+    12a, recovery: bench.py bench_recovery at its own sizes, seeds, Config
+    and SLOs (25 nodes; failover under a silent primary, the ex-primary's
+    catchup, then a laggard's catchup under a garbling and a stalling
+    seeder while a third peer leaves at 0.2 s and rejoins at 3.0 s), the
+    nodes on the card with the port's default verifier (torch_hub) where
+    bench.py names "cpu". Checks: no liveness or invariant violation, the
+    garbling liar among the laggard's bad peers, the laggard's domain
+    ledger equal to the target's, every honest node's domain and state
+    roots equal. An SLO miss is printed, not checked.
+
+    12b, a BLS pool of ATTACK_NODES validators under PoisonedBlsShare (one
+    non-primary) and TamperedPropagate (another): ATTACK_WRITES signed NYM
+    writes sent to every node in chunks of ATTACK_CHUNK, Max3PCBatchSize
+    ATTACK_CHUNK. Checks: every write ordered on every honest node with
+    equal roots, no tampered request written, every ordered batch
+    multi-signed and nothing left to backfill, the strict window engaged
+    on an honest node, bls_pairing launched from the nodes' share
+    unrolls, the first device-sized unroll's verdicts equal the host
+    library's per-share verify_sig, its pairing launch equal to the plain
+    version, and each distinct ed25519 batch equal to verify_plain.
+    → {"launches": {"recovery": ..., "bls_attack": ...}, "ed_err",
+    "pairing_err"}."""
+    from collections import Counter
+
+    from plenum_tpu_torch.common.config import Config
+    from plenum_tpu_torch.crypto.bls import BlsCryptoVerifierPlenum
+    from plenum_tpu_torch.ops import bls381_pairing as bp
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.ops import launch_counts
+    from plenum_tpu_torch.testing import byzantine
+
+    t_phase = time.perf_counter()
+    # ------------------------------------------------------- 12a recovery
+    log("recovery: bench.py bench_recovery's pool of {} nodes (network seed "
+        "{}, adversary seed {}, {}); one difference: VERIFIER_PROVIDER is "
+        "the port's default {!r} on the card, where bench.py names "
+        "\"cpu\"".format(byzantine.RECOVERY_NODES, byzantine.RECOVERY_NET_SEED,
+                         byzantine.RECOVERY_ADV_SEED, byzantine.RECOVERY_CONF,
+                         Config.VERIFIER_PROVIDER))
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    report, nodes = byzantine.run_recovery(byzantine.RECOVERY_NODES,
+                                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec_launches = {k: v for k, v in launch_counts().items() if v}
+    violations = report.get("violations", [])
+    log("recovery: failover {} s (SLO {} s), catchup {} s (SLO {} s) in sim "
+        "seconds; catchup_bad_peers {}; roles {}; trace_events {}; ordered "
+        "p50 {} ms p99 {} ms over {} samples; wall {:.1f} s; launches {} "
+        "(the pool's six writes stay below the hub's threshold of {}: a "
+        "host path, no launch claimed)".format(
+            report["failover_s"], report["failover_slo_s"],
+            report["catchup_s"], report["catchup_slo_s"],
+            report["catchup_bad_peers"], report["roles"],
+            report["trace_events"], report["ordered_p50_ms"],
+            report["ordered_p99_ms"], report["e2e_samples"], wall,
+            rec_launches, Config.VERIFIER_BATCH_THRESHOLD))
+    slo_misses = [v for v in violations if v.startswith("recovery SLO")]
+    if slo_misses:
+        log("recovery: FINDING, SLO missed: {}".format(slo_misses))
+    check(not [v for v in violations if v not in slo_misses],
+          "recovery: no liveness violation ({})".format(violations))
+    check(report["roles"]["liar"] in report["catchup_bad_peers"],
+          "recovery: the garbling seeder is among the laggard's bad peers")
+    by_name = {n.name: n for n in nodes}
+    laggard = by_name[report["roles"]["laggard"]]
+    honest = [by_name[n] for n in report["honest"]]
+    check(laggard.domain_ledger.size == honest[0].domain_ledger.size
+          and laggard.domain_ledger.root_hash
+          == honest[0].domain_ledger.root_hash,
+          "recovery: the laggard's domain ledger size and root equal the "
+          "target's")
+    check(len({(n.domain_ledger.root_hash,
+                bytes(n.db_manager.get_state(1).committedHeadHash))
+               for n in honest}) == 1,
+          "recovery: every honest node's domain and state roots are equal")
+    log("recovery checks passed: no liveness or invariant violation, liar "
+        "{} convicted, laggard {} at size {}".format(
+            report["roles"]["liar"], laggard.name,
+            laggard.domain_ledger.size))
+
+    # ---------------------------------------------- 12b BLS pool attacked
+    ed_batches, pairing_batches = [], []
+    real_verify, real_pairing_jobs = ed.verify, bp.pairing_jobs
+
+    def recording_verify(*args):
+        ed_batches.append(args)
+        return real_verify(*args)
+
+    def recording_pairing_jobs(jobs, device=None):
+        out = real_pairing_jobs(jobs, device)
+        pairing_batches.append((list(jobs), out[0].tolist()))
+        return out
+
+    launch_counts(reset=True)
+    ed.verify, bp.pairing_jobs = recording_verify, recording_pairing_jobs
+    t0 = time.perf_counter()
+    try:
+        run = byzantine.run_bls_attack(ATTACK_NODES, ATTACK_WRITES,
+                                       ATTACK_CHUNK, device=dev)
+    finally:
+        ed.verify, bp.pairing_jobs = real_verify, real_pairing_jobs
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    atk_launches = {k: v for k, v in launch_counts().items() if v}
+    honest = run["honest"]
+    unrolls = run["unrolls"]
+    device_min = Config.BLS_PAIRING_DEVICE_MIN
+    sized = [u for u in unrolls if len(u[1]) >= device_min]
+    log("bls attack: {} validators, poisoner {}, tamperer {}, primary {}; "
+        "{} writes in chunks of {} ordered on {} honest nodes at sizes {} in "
+        "{:.2f} sim s, {:.1f} s wall; launches {}; ed25519_verify batch "
+        "sizes {}; share unrolls {} (shares each {}), {} with at least {} "
+        "shares; bls_pairing jobs per launch {}; invariant checks {}".format(
+            ATTACK_NODES, run["adversaries"]["poison"],
+            run["adversaries"]["tamper"], run["adversaries"]["primary"],
+            ATTACK_WRITES, ATTACK_CHUNK, len(honest),
+            sorted({n.domain_ledger.size for n in honest}), run["sim_s"],
+            wall, atk_launches,
+            sorted(Counter(int(a[0].shape[0]) for a in ed_batches)
+                   .items()),
+            len(unrolls), sorted(Counter(len(u[1]) for u in unrolls)
+                                 .items()), len(sized), device_min,
+            sorted(Counter(len(j) for j, _ in pairing_batches).items()),
+            run["scenario"].checker.checks))
+    check(all(n.domain_ledger.size == ATTACK_WRITES for n in honest),
+          "bls attack: all {} writes ordered on every honest node".format(
+              ATTACK_WRITES))
+    check(len({(n.domain_ledger.root_hash,
+                bytes(n.db_manager.get_state(1).committedHeadHash))
+               for n in honest}) == 1,
+          "bls attack: domain and state roots equal on every honest node")
+    check(not any("Tampered" in str(txn)
+                  for n in honest for _, txn in n.domain_ledger.getAllTxn()),
+          "bls attack: no tampered request was written")
+    check(all(not byzantine.proofless_batches(n)
+              and not n.bls_bft_replica._pending_backfill for n in honest),
+          "bls attack: every ordered batch on every honest node has a "
+          "stored multi-signature and nothing is left to backfill")
+    check(any(n.bls_bft_replica._strict_until_seq > 0 for n in honest),
+          "bls attack: an honest node engaged the strict window")
+    check(sized and atk_launches.get("bls_pairing", 0) >= 1
+          and pairing_batches,
+          "bls attack: bls_pairing launched from a node's share unroll")
+    _, checks, verdicts = sized[0]
+    host = BlsCryptoVerifierPlenum()
+    check(verdicts == [host.verify_sig(s, m, pk) for s, m, pk in checks]
+          and not all(verdicts),
+          "bls attack: the first unroll's verdicts ({} shares, {} False) "
+          "equal the host library's per-share verify_sig".format(
+              len(checks), verdicts.count(False)))
+    jobs, card_verdicts = pairing_batches[0]
+    plain = real_pairing_jobs(jobs, torch.device("cpu"))[0].tolist()
+    pairing_err = int(sum(a != b for a, b in zip(card_verdicts, plain)))
+    check(pairing_err == 0, "bls attack: the first unroll's pairing launch "
+                            "({} jobs) equals the plain version".format(
+                                len(jobs)))
+    distinct = {}
+    for args in ed_batches:
+        distinct.setdefault(b"".join(a.cpu().numpy().tobytes()
+                                     for a in args), args)
+    ed_err = 0
+    for args in distinct.values():
+        ed_err = max(ed_err, int((ed.verify_cuda(*args).int()
+                                  - ed.verify_plain(*args).int()).abs().max()
+                                 .item()))
+    check(ed_err == 0 and atk_launches.get("ed25519_verify", 0) > 0,
+          "bls attack: ed25519_verify launched and equals verify_plain on "
+          "the {} distinct of the path's {} verify batches".format(
+              len(distinct), len(ed_batches)))
+    log("bls attack checks passed ({:.1f} s)".format(
+        time.perf_counter() - t0 - wall))
+    log("phase 12 (adversary): {:.1f} s".format(
+        time.perf_counter() - t_phase))
+    return {"launches": {"recovery": rec_launches,
+                         "bls_attack": atk_launches},
+            "ed_err": ed_err, "pairing_err": pairing_err}
+
+
 def pool_path(torch, dev, signer, profile, sha3_errs):
     """Phases 5 and 6: the pool path, and every kernel it ran held against
     its plain version on the pool's own inputs. → {"launches": per
@@ -1642,22 +1871,32 @@ def deployment_phase(torch, dev, profile):
                 [u for u, _ in stats["hub_launches"]]))
 
     launches, runs = {}, []
-    plan = [("remote", MP_REQS, "by_node"),
-            ("cpu", MP_CPU_REQS, "by_node")] * 2 + [
-        ("remote", MP_REQS, "broadcast"), ("cpu", MP_CPU_REQS, "broadcast")]
-    for i, (provider, n, order) in enumerate(plan):
+    plan = [("remote", MP_REQS, "by_node", "mp"),
+            ("cpu", MP_CPU_REQS, "by_node", "mp")] * 2 + [
+        ("remote", MP_REQS, "broadcast", "mp"),
+        ("cpu", MP_CPU_REQS, "broadcast", "mp"),
+        ("remote", NETWORKED_WRITES, "broadcast", "networked")]
+    for i, (provider, n, order, client) in enumerate(plan):
         t_run = time.perf_counter()
         res = mp_pool.run_multiprocess_pool(
             reqs[:n + 1], provider, device="cuda",
             log_dir=os.path.join(REPO, "chiprun_out", "mp_logs", str(i)),
             profile_node="Alpha" if profile and i < 2 else None,
             before_pool=daemon_check if i == 0 else None,
-            timeout=MP_TIMEOUT_S, order=order)
+            timeout=MP_TIMEOUT_S, order=order, info_dump_s=INFO_DUMP_S,
+            client=client)
         nodes = res["nodes"]
-        provider = "{} ({})".format(provider, order)
-        check(res["ordered"] == res["required"] == n,
-              "{}: every node replied to all {} writes ({} on the slowest)"
-              .format(provider, n, res["ordered"]))
+        provider = "{} ({})".format(provider, order if client == "mp"
+                                    else "NetworkedPoolClient")
+        if client == "networked":
+            check(res["ordered"] == res["required"] == n,
+                  "{}: the client holds all {} writes confirmed on f + 1 "
+                  "matching replies ({} confirmed)".format(
+                      provider, n, res["ordered"]))
+        else:
+            check(res["ordered"] == res["required"] == n,
+                  "{}: every node replied to all {} writes ({} on the "
+                  "slowest)".format(provider, n, res["ordered"]))
         for key in ("domain_root", "audit_root", "state_root"):
             check(len({v[key] for v in nodes.values()}) == 1,
                   "{}: {}s equal on the four nodes".format(provider, key))
@@ -1670,6 +1909,32 @@ def deployment_phase(torch, dev, profile):
               "replay of the committed txns (hashlib leaves, host trie)"
               .format(provider))
         replay_s = time.perf_counter() - t
+        n_txns = len(nodes["Alpha"]["domain_txns"])
+        infos = [v["validator_info"]["Node_info"] for v in nodes.values()]
+        pools = [v["validator_info"]["Pool_info"] for v in nodes.values()]
+        check(all(vi["Ledger_sizes"]["domain"] == n_txns
+                  and vi["Committed_ledger_root_hashes"]["domain"]
+                  == replay["domain_root"]
+                  and vi["Committed_state_root_hashes"]["domain"]
+                  == replay["state_root"] for vi in infos),
+              "{}: every node's validator-info dump gives the domain size "
+              "{} and the replay's domain and state roots".format(
+                  provider, n_txns))
+        check(all(p["Total_nodes_count"] == len(mp_pool.NAMES)
+                  and p["f_value"] == (len(mp_pool.NAMES) - 1) // 3
+                  and sorted(p["Validators"]) == sorted(mp_pool.NAMES)
+                  and vi["Ledger_sizes"]["pool"] == len(mp_pool.NAMES)
+                  for p, vi in zip(pools, infos)),
+              "{}: every node's validator-info pool counts match the "
+              "genesis".format(provider))
+        if client == "networked":
+            check(len(res["client"]["seq_nos"]) == n,
+                  "{}: the client confirmed {} writes at distinct seqNos on "
+                  "f + 1 matching replies".format(provider, n))
+            log("deployment {} {}: {} writes confirmed in {:.3f} s wall, "
+                "{:.1f} req/s, {} redials".format(
+                    i, provider, n, res["elapsed"], res["rate"],
+                    res["client"]["redials"]))
         check(all(v["multi_sig_ok"] for v in nodes.values()),
               "{}: each node's latest state root carries a BLS multi-sig "
               "that verifies under the pool's keys".format(provider))
@@ -1686,11 +1951,14 @@ def deployment_phase(torch, dev, profile):
             log("deployment: the node processes' host branches {}".format(
                 nodes["Alpha"]["native"]))
         if provider.startswith("remote"):
-            check(all(v["kernels"]["sha256_ragged"] > 0
-                      and v["kernels"]["sha3_ragged"] > 0
-                      for v in nodes.values()),
-                  "remote: every node process launched sha256_ragged and "
-                  "sha3_ragged")
+            # the client run's 500 writes make 3PC batches below
+            # SHA256_BATCH_THRESHOLD: its path is the daemon's ed25519
+            if client == "mp":
+                check(all(v["kernels"]["sha256_ragged"] > 0
+                          and v["kernels"]["sha3_ragged"] > 0
+                          for v in nodes.values()),
+                      "remote: every node process launched sha256_ragged "
+                      "and sha3_ragged")
             daemon = res["daemon"]
             check(daemon["kernels"]["ed25519_verify"] > 0,
                   "remote: the daemon launched ed25519_verify")
@@ -1720,7 +1988,7 @@ def deployment_phase(torch, dev, profile):
                     {name: (nodes[name]["device"], per_node[name])
                      for name in nodes}))
         runs.append({"provider": res["provider"], "order": order,
-                     "writes": n,
+                     "client": client, "writes": n,
                      "wall_s": res["elapsed"], "req_s": res["rate"],
                      "view_no": max(v["view_no"] for v in nodes.values()),
                      "client_cpu_s": res["client"]["client_cpu_s"]})
@@ -3222,15 +3490,24 @@ def main(argv=None) -> int:
 
     pipeline = pipeline_phase(torch, dev, signer)
     gateway = gateway_phase(torch, dev)
+    adversary = adversary_phase(torch, dev)
     for entry in kernels:
-        by_path = {"pipelined_pool": pipeline["launches"].get(
-            entry["name"], 0), "gateway": gateway["launches"].get(
-            entry["name"], 0)}
+        name = entry["name"]
+        by_path = {"pipelined_pool": pipeline["launches"].get(name, 0),
+                   "gateway": gateway["launches"].get(name, 0),
+                   "recovery": adversary["launches"]["recovery"].get(
+                       name, 0),
+                   "bls_attack": adversary["launches"]["bls_attack"].get(
+                       name, 0)}
         entry["launches"] += sum(by_path.values())
         entry.setdefault("launches_by_path", {}).update(by_path)
-        if entry["name"] == "ed25519_verify":
+        if name == "ed25519_verify":
             entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       gateway["ed_err"])
+                                       gateway["ed_err"],
+                                       adversary["ed_err"])
+        if name == "bls_pairing":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       adversary["pairing_err"])
 
     t0 = time.perf_counter()
     deploy = deployment_phase(torch, dev, profile)

@@ -237,8 +237,9 @@ def build_networked_node(name: str, base_dir: str, config=None,
     unless one is passed explicitly. `device` serves the node's kernels:
     None means CUDA and raises without a card; "cpu" runs their plain
     versions. The stores are `node_store_class()`'s (the native kvlog
-    engine when csrc/kvlog.c builds, else KeyValueStorageFile), and no
-    validator-info dump is written (ROADMAP A9)."""
+    engine when csrc/kvlog.c builds, else KeyValueStorageFile), and the
+    node dumps its validator info into <base>/<name>/ every
+    VALIDATOR_INFO_DUMP_INTERVAL seconds."""
     from plenum_tpu_torch.ops import resolve_device
     device = resolve_device(device)
     if config is None:
@@ -270,7 +271,7 @@ def build_networked_node(name: str, base_dir: str, config=None,
         storage_factory=storage_factory,
         genesis_txns=pool_txns + domain_txns,
         metrics=KvStoreMetricsCollector(storage_factory("metrics")),
-        device=device)
+        info_dir=os.path.join(base_dir, name), device=device)
 
 
 async def run_node(node, stop_event=None) -> None:

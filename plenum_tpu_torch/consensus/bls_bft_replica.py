@@ -270,7 +270,7 @@ class BlsBftReplica:
                     self.bls_store.put(multi)
                     self._pending_backfill.pop(key, None)
                 else:
-                    self._pending_backfill[key] = True
+                    self._await_backfill(key, commits)
                 self._gc(key[1])
                 return
             # the unroll is the batch seam: every deferred share gets
@@ -307,10 +307,10 @@ class BlsBftReplica:
                     key, self._strict_until_seq)
         if quorums is not None \
                 and not quorums.bls_signatures.is_reached(len(sigs)):
-            self._pending_backfill[key] = True
+            self._await_backfill(key, commits)
             return
         if not sigs:
-            self._pending_backfill[key] = True
+            self._await_backfill(key, commits)
             return
         multi = MultiSignature(
             signature=self._verifier.create_multi_sig(sigs),
@@ -321,6 +321,22 @@ class BlsBftReplica:
         self._gc(key[1])
 
     # ----------------------------------------------------------- backfill
+
+    def _await_backfill(self, key, commits: Dict[str, "Commit"]) -> None:
+        """Register `key` proof-less, its shares so far the first
+        candidates: a stable checkpoint or a view change may clear the
+        ordering service's commit store before a late share lands, and
+        the late shares alone may never reach the quorum."""
+        self._pending_backfill[key] = True
+        pool = self._backfill_commits.setdefault(key, {})
+        for sender, commit in commits.items():
+            if getattr(commit, "blsSig", None) is not None:
+                pool.setdefault(sender, commit)
+
+    def awaits_backfill(self, key) -> bool:
+        """True while the batch `key` was ordered without a stored
+        multi-sig and late shares may still complete it."""
+        return key in self._pending_backfill
 
     def retry_backfill(self, key, commits: Dict[str, "Commit"], pp,
                        quorums=None) -> bool:

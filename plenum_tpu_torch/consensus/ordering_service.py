@@ -757,7 +757,7 @@ class OrderingService:
             self._try_prepared(pp)
 
     def _columnar_precheck(self, msgs: list, frm: str,
-                           on_old_view=None) -> list:
+                           on_late=None) -> list:
         """The _validate_3pc verdicts for a whole single-sender batch:
         sender/instance/participation checked ONCE, the view/watermark
         integer compares inlined per item. Items that must stash are
@@ -785,8 +785,8 @@ class OrderingService:
                 continue                    # DISCARD: wrong instance
             v = m.viewNo
             if v < view_no:
-                if on_old_view is not None:
-                    on_old_view(m, frm)
+                if on_late is not None:
+                    on_late(m, frm)
                 continue                    # DISCARD: old view
             if v > view_no:
                 stash(STASH_VIEW_3PC, m, frm)
@@ -796,6 +796,8 @@ class OrderingService:
                 continue
             s = m.ppSeqNo
             if s <= low:
+                if on_late is not None:
+                    on_late(m, frm)
                 continue                    # DISCARD: below low watermark
             if s > high:
                 stash(STASH_WATERMARKS, m, frm)
@@ -875,7 +877,7 @@ class OrderingService:
 
     def _process_commit_columns(self, cols, frm: str):
         idxs = self._precheck_columns(
-            cols, frm, on_old_view=self._late_commit_backfill)
+            cols, frm, on_late=self._late_commit_backfill)
         if not idxs:
             return
         commits_store = self.commits
@@ -908,7 +910,7 @@ class OrderingService:
                                    self._data.quorums)
 
     def _precheck_columns(self, cols, frm: str,
-                          on_old_view=None) -> List[int]:
+                          on_late=None) -> List[int]:
         """``_columnar_precheck`` evaluated over parsed flat columns:
         the sender/participation gates run once, then ONE pass of
         C-level int compares over the column values (``tolist`` of the
@@ -952,10 +954,10 @@ class OrderingService:
                 continue                    # DISCARD: wrong instance
             v = view[i]
             if v < view_no:
-                if on_old_view is not None:
+                if on_late is not None:
                     m = cols.materialize(i)
                     if m is not None:
-                        on_old_view(m, frm)
+                        on_late(m, frm)
                 continue                    # DISCARD: old view
             if v > view_no or waiting_nv:
                 m = cols.materialize(i)
@@ -964,6 +966,10 @@ class OrderingService:
                 continue
             s = seq[i]
             if s <= low:
+                if on_late is not None:
+                    m = cols.materialize(i)
+                    if m is not None:
+                        on_late(m, frm)
                 continue                    # DISCARD: below low watermark
             if s > high:
                 m = cols.materialize(i)
@@ -1033,11 +1039,13 @@ class OrderingService:
             return self._process_commit(commit, frm)
 
     def _process_commit(self, commit: Commit, frm: str):
-        if commit.viewNo < self.view_no:
-            # superseded view: _validate_3pc discards it below, but a
-            # late share for a batch we DID order can still complete a
-            # missing BLS multi-sig (proof liveness must survive a view
-            # change racing the last honest COMMIT)
+        if commit.viewNo < self.view_no \
+                or commit.ppSeqNo <= self._data.low_watermark:
+            # superseded view or below the stable checkpoint:
+            # _validate_3pc discards it below, but a late share for a
+            # batch we DID order can still complete a missing BLS
+            # multi-sig (proof liveness must survive a view change or a
+            # checkpoint racing the last honest COMMIT)
             self._late_commit_backfill(commit, frm)
         verdict = self._validate_3pc(commit, frm)
         if verdict is not None:
@@ -1068,16 +1076,20 @@ class OrderingService:
         return None
 
     def _late_commit_backfill(self, commit: Commit, frm: str) -> bool:
-        """COMMIT from a superseded view for a batch this node already
-        ordered: it cannot affect consensus, but its BLS share may
-        complete a multi-sig the batch missed at ordering time (a
-        poisoned deferred share ate a quorum slot and the view changed
+        """COMMIT from a superseded view, or below the stable
+        checkpoint, for a batch this node already ordered: it cannot
+        affect consensus, but its BLS share may complete a multi-sig the
+        batch missed at ordering time (a poisoned deferred share ate a
+        quorum slot and the view changed, or the checkpoint stabilized,
         before enough honest shares landed). Cheap no-op unless the
-        batch is registered proof-less."""
+        batch is registered proof-less. The BLS layer's own record
+        decides, not `ordered`: a stable checkpoint drops the batch
+        from `ordered` while its multi-sig may still be missing, and a
+        gate on `ordered` would leave that proof missing for good."""
         if self._bls is None:
             return False
         key = (commit.viewNo, commit.ppSeqNo)
-        if key not in self.ordered:
+        if not self._bls.awaits_backfill(key):
             return False
         # the view change may have cleared the PrePrepare stores — the
         # BLS layer is key-driven, pp is informational only
@@ -1100,7 +1112,7 @@ class OrderingService:
 
     def _process_commit_batch(self, commits: List[Commit], frm: str):
         survivors = self._columnar_precheck(
-            commits, frm, on_old_view=self._late_commit_backfill)
+            commits, frm, on_late=self._late_commit_backfill)
         if not survivors:
             return
         commits_store = self.commits

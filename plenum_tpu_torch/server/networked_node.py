@@ -40,10 +40,6 @@ class NetworkedNode(Prodable):
         """`device` serves every kernel of the node (None means CUDA and
         raises without a card; "cpu" runs their plain versions)."""
         import time
-        if info_dir is not None:
-            raise NotImplementedError(
-                "info_dir: the validator-info dump is not ported yet "
-                "(ROADMAP A9)")
         self._name = name
         self.config = config or Config()
         # wall-clock timer: ppTime/TimestampField expect epoch seconds
@@ -75,7 +71,8 @@ class NetworkedNode(Prodable):
                          bls_signer=bls_signer,
                          metrics=metrics, device=device)
 
-        # periodic metrics flush (reference node.py: flush on prod)
+        # periodic metrics flush + validator-info dump (reference
+        # node.py: dump_additional_info / flush on prod)
         from plenum_tpu_torch.runtime.timer import RepeatingTimer
 
         def _guarded(label, fn):
@@ -93,6 +90,16 @@ class NetworkedNode(Prodable):
             RepeatingTimer(self.timer, self.config.METRICS_FLUSH_INTERVAL,
                            _guarded("metrics flush",
                                     metrics.flush_accumulated))
+        self.info_tool = None
+        if info_dir is not None:
+            from plenum_tpu_torch.server.validator_info import (
+                ValidatorNodeInfoTool)
+            self.info_tool = ValidatorNodeInfoTool(self.node,
+                                                   metrics=metrics)
+            RepeatingTimer(
+                self.timer, self.config.VALIDATOR_INFO_DUMP_INTERVAL,
+                _guarded("validator-info dump",
+                         lambda: self.info_tool.dump_json_file(info_dir)))
 
     # --------------------------------------------------------- tx glue
 

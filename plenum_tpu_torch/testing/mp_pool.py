@@ -20,7 +20,11 @@ process's log goes to a file; each node process writes its device and
 kernel launch counts to a file when it stops; the daemon's counters come
 over its stats frame. After the run the harness reads every node's
 domain, audit and state roots and the BLS multi-signature of its latest
-state root back from the node's data directory.
+state root back from the node's data directory, and, when asked, the
+validator-info JSON each node dumps into <base>/<name>/. client=
+"networked" drives the pool with the port's NetworkedPoolClient (one
+wallet, each write confirmed on f + 1 matching replies) instead of
+bench.py's raw client.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ CLIENT_BATCH = 2000          # bench.py CLIENT_BATCH: Max3PCBatchSize
 MP_TRUSTEE_SEED = b"\x42" * 32
 DAEMON_PORT_OFFSET = 9       # bench.py: the daemon at base_port + 9
 ORDERS = ("by_node", "broadcast")    # the client's send orders, bench.py's
+CLIENTS = ("mp", "networked")        # bench.py's raw client, the port's own
 STATS_FILE = "stats.json"
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -219,6 +224,36 @@ def read_node_state(base_dir: str, name: str) -> dict:
             kv.close()
 
 
+def info_path(base_dir: str, name: str) -> str:
+    """Where a node of the pool dumps its validator info
+    (server/validator_info.py dump_json_file, info_dir <base>/<name>)."""
+    return os.path.join(base_dir, name, "%s_info.json" % name.lower())
+
+
+def wait_validator_info(base_dir: str, since: float,
+                        timeout: float) -> Dict[str, dict]:
+    """Every node's validator-info dump, once each file was written after
+    `since` (the nodes dump on their timer, so a dump taken after the audit
+    ledgers settled holds the final state). Raises if a node wrote none
+    in `timeout` seconds."""
+    end = time.monotonic() + timeout
+    while True:
+        stale = [n for n in NAMES
+                 if not os.path.exists(info_path(base_dir, n))
+                 or os.path.getmtime(info_path(base_dir, n)) <= since]
+        if not stale:
+            break
+        if time.monotonic() > end:
+            raise RuntimeError("no validator-info dump newer than the "
+                               "settle from {}".format(stale))
+        time.sleep(0.1)
+    out = {}
+    for name in NAMES:
+        with open(info_path(base_dir, name)) as f:
+            out[name] = json.load(f)
+    return out
+
+
 def replay_roots(txns: List[dict]) -> dict:
     """The domain root and domain-state root (b58) that `txns`, a node's
     committed domain txns in order, give when replayed on the host: the
@@ -253,7 +288,9 @@ def run_multiprocess_pool(reqs: List[dict], provider: str,
                           batch: int = CLIENT_BATCH,
                           timeout: float = 600.0,
                           generate_pool: Optional[Callable] = None,
-                          order: str = "by_node") -> dict:
+                          order: str = "by_node",
+                          info_dump_s: Optional[float] = None,
+                          client: str = "mp") -> dict:
     """Order `reqs` on four node processes over TCP (bench.py
     run_multiprocess_pool). provider "remote" starts the verify daemon on
     `device` first; `before_pool(daemon_addr)` then runs before the node
@@ -265,9 +302,16 @@ def run_multiprocess_pool(reqs: List[dict], provider: str,
     the pool directory: bootstrap.generate_pool unless given (the tests
     pass the JAX package's, whose directories the port boots as they
     are). `order` is the client's send order (ORDERS; drive_mp_client).
+    `client` "networked" sends the writes of reqs[1:] (their operations,
+    signed anew by the trustee's wallet) through drive_networked_client
+    instead; `order` does not apply there. `info_dump_s` sets the nodes'
+    VALIDATOR_INFO_DUMP_INTERVAL and, once the audit ledgers settle,
+    waits for a dump newer than the settle from every node and returns
+    it under "validator_info".
 
-    → {"provider", "order", "elapsed", "ordered", "required", "rate",
-    "client": drive_mp_client's timing, "nodes": {name: {"device",
+    → {"provider", "order", "driver" (`client`), "elapsed", "ordered",
+    "required", "rate", "client": the client's timing, "nodes": {name:
+    {"device",
     "kernels", "pid", "view_no" (the node's view at stop), and
     read_node_state's keys}},
     "daemon": its counters over the run or None, "profile": path or
@@ -278,6 +322,11 @@ def run_multiprocess_pool(reqs: List[dict], provider: str,
     resolve_device(device)
     if order not in ORDERS:
         raise ValueError("order must be one of {}".format(ORDERS))
+    if client not in CLIENTS:
+        raise ValueError("client must be one of {}".format(CLIENTS))
+    if info_dump_s is not None:
+        extra_conf = dict(extra_conf or {},
+                          VALIDATOR_INFO_DUMP_INTERVAL=info_dump_s)
     if generate_pool is None:
         from plenum_tpu_torch.bootstrap import generate_pool
     base_dir = tempfile.mkdtemp(prefix="plenum_tpu_torch_mp_")
@@ -317,10 +366,19 @@ def run_multiprocess_pool(reqs: List[dict], provider: str,
                     cmd, cwd=_REPO, env=env, stdout=out,
                     stderr=subprocess.STDOUT))
         timing = {}
-        ordered, required, elapsed = drive_mp_client(
-            base_dir, reqs, procs, timeout, timing, order)
+        if client == "networked":
+            ordered, required, elapsed = drive_networked_client(
+                base_dir, [r["operation"] for r in reqs], procs, timeout,
+                timing)
+        else:
+            ordered, required, elapsed = drive_mp_client(
+                base_dir, reqs, procs, timeout, timing, order)
         daemon = rv.daemon_stats() if rv is not None else None
         settle_audit(base_dir)
+        infos = None
+        if info_dump_s is not None:
+            infos = wait_validator_info(base_dir, time.time(),
+                                        4 * info_dump_s + 10)
         _stop(procs)
         nodes = {}
         for name, p in zip(NAMES, procs):
@@ -332,7 +390,10 @@ def run_multiprocess_pool(reqs: List[dict], provider: str,
             with open(path) as f:
                 nodes[name] = json.load(f)
             nodes[name].update(read_node_state(base_dir, name))
-        return {"provider": provider, "order": order, "elapsed": elapsed,
+            if infos is not None:
+                nodes[name]["validator_info"] = infos[name]
+        return {"provider": provider, "order": order, "driver": client,
+                "elapsed": elapsed,
                 "ordered": ordered, "required": required,
                 "rate": ordered / elapsed if elapsed else 0.0,
                 "client": timing, "nodes": nodes, "daemon": daemon,
@@ -443,5 +504,84 @@ def drive_mp_client(base_dir: str, reqs: List[dict], procs,
         finally:
             for conn in conns.values():
                 conn.close()
+
+    return asyncio.run(drive())
+
+
+def drive_networked_client(base_dir: str, ops: List[dict], procs,
+                           timeout: float = 600.0,
+                           timing: Optional[dict] = None):
+    """The pool driven by the port's NetworkedPoolClient
+    (client/network_client.py): the trustee's wallet signs every
+    operation, the client sends each request to every node over its
+    encrypted links and confirms it on f + 1 matching replies
+    (PoolClient). ops[0] is the probe, confirmed first so that a primary
+    is in place before the clock starts; then the other writes are
+    signed, sent, and each confirmed in turn with run_until_confirmed.
+    → (writes the pool client holds confirmed at the end, writes sent,
+    elapsed seconds). `timing` receives
+    "send_s" (the seconds to queue every request), "client_cpu_s",
+    "redials" (links that came back after their first dial) and
+    "seq_nos" (the confirmed results' distinct seqNos). Raises if a node
+    process exits or a write is not confirmed in `timeout`."""
+    timing = {} if timing is None else timing
+    from plenum_tpu_torch.bootstrap import (client_ha_from_pool_genesis,
+                                            registry_from_pool_genesis)
+    from plenum_tpu_torch.client import NetworkedPoolClient, Wallet
+    from plenum_tpu_torch.crypto.signer import DidSigner
+    registry = registry_from_pool_genesis(base_dir)
+    wallet = Wallet("mp-trustee")
+    wallet.add_identifier(signer=DidSigner(seed=MP_TRUSTEE_SEED))
+    addrs = {name: (client_ha_from_pool_genesis(base_dir, name),
+                    registry[name].verkey) for name in NAMES}
+
+    def check_alive():
+        dead = [p.args for p in procs if p.poll() is not None]
+        if dead:
+            raise RuntimeError("node process exited: {}".format(dead))
+
+    async def drive():
+        client = NetworkedPoolClient(wallet, addrs)
+        client.RECONNECT_BACKOFF = 0.2
+        links = {}
+        dial = client._dial
+
+        async def counting_dial(name):
+            await dial(name)
+            if name in client._conns:
+                links[name] = links.get(name, 0) + 1
+
+        client._dial = counting_dial
+        await client.start()
+        try:
+            deadline = time.perf_counter() + 120
+            probe = client.submit(ops[0])
+            while not client.pool.is_confirmed(probe):
+                check_alive()
+                if time.perf_counter() > deadline:
+                    raise RuntimeError("pool never confirmed the probe "
+                                       "request")
+                await client.pump()
+                await asyncio.sleep(0.05)
+            reqs = [wallet.sign_op(op) for op in ops[1:]]
+            t0 = time.perf_counter()
+            cpu0 = time.process_time()
+            for req in reqs:
+                client.pool.submit_request(req)
+            timing["send_s"] = time.perf_counter() - t0
+            seq_nos = set()
+            for req in reqs:
+                check_alive()
+                result = await client.run_until_confirmed(
+                    req, timeout=max(1.0, t0 + timeout - time.perf_counter()))
+                seq_nos.add(result["txnMetadata"]["seqNo"])
+            elapsed = time.perf_counter() - t0
+            timing["client_cpu_s"] = time.process_time() - cpu0
+            timing["redials"] = sum(links.values()) - len(links)
+            timing["seq_nos"] = sorted(seq_nos)
+            confirmed = sum(1 for req in reqs if client.pool.is_confirmed(req))
+            return confirmed, len(reqs), elapsed
+        finally:
+            await client.stop()
 
     return asyncio.run(drive())

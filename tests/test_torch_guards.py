@@ -223,16 +223,6 @@ def test_node_routes_bls_device_pairing_to_its_device(monkeypatch):
         on_card.verify_sigs_batch(checks)
 
 
-def test_networked_node_raises_on_the_info_dump():
-    from plenum_tpu_torch.network.keys import NodeKeys
-    from plenum_tpu_torch.network.stack import HA
-    from plenum_tpu_torch.server.networked_node import NetworkedNode
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        NetworkedNode("Alpha", {}, NodeKeys(b"\x01" * 32),
-                      HA("127.0.0.1", 0), HA("127.0.0.1", 0),
-                      info_dir="info", device="cpu")
-
-
 def _port_files():
     out = []
     for root, _, files in os.walk(os.path.join(REPO, "plenum_tpu_torch")):

@@ -96,6 +96,37 @@ def test_latest_state_root_carries_a_verifying_multi_signature(run):
             info["state_root"]
 
 
+def test_networked_client_confirms_and_every_node_dumps_its_info():
+    """client="networked": the port's NetworkedPoolClient confirms every
+    write on f + 1 matching replies, and each node's validator-info dump,
+    written on a one-second interval, gives the replay's domain size and
+    roots and the genesis's pool counts (chip_smoke.py phase 7's checks
+    of its client run)."""
+    reqs = mp_pool.make_mp_requests(N_WRITES + 1)
+    run = mp_pool.run_multiprocess_pool(
+        reqs, "remote", device="cpu", timeout=60,
+        extra_conf={"VERIFY_DAEMON_CPU_FLOOR": 512},
+        generate_pool=jax_generate_pool, client="networked",
+        info_dump_s=1.0)
+    assert run["driver"] == "networked"
+    assert run["ordered"] == run["required"] == N_WRITES
+    assert len(run["client"]["seq_nos"]) == N_WRITES
+    nodes = run["nodes"]
+    txns = nodes["Alpha"]["domain_txns"]
+    replay = mp_pool.replay_roots(txns)
+    for info in nodes.values():
+        node_info = info["validator_info"]["Node_info"]
+        pool_info = info["validator_info"]["Pool_info"]
+        assert node_info["Ledger_sizes"]["domain"] == len(txns)
+        assert node_info["Committed_ledger_root_hashes"]["domain"] == \
+            replay["domain_root"]
+        assert node_info["Committed_state_root_hashes"]["domain"] == \
+            replay["state_root"]
+        assert node_info["Ledger_sizes"]["pool"] == len(mp_pool.NAMES)
+        assert pool_info["Total_nodes_count"] == len(mp_pool.NAMES)
+        assert sorted(pool_info["Validators"]) == sorted(mp_pool.NAMES)
+
+
 def _seeded_urandom(monkeypatch, seed):
     rng = random.Random(seed)
     monkeypatch.setattr(os, "urandom", lambda n: rng.randbytes(n))
