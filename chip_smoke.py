@@ -258,6 +258,33 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    version, every distinct ed25519 batch equal to verify_plain; it
    prints the launches, the verify batches' sizes, the unrolls' shares,
    the pairing's jobs per launch and the wall.
+13. drives the device-mesh dispatcher (phase 13, mesh_phase, through
+   plenum_tpu_torch/ops/mesh.py), after the deployment. 13a: the card's
+   own mesh (its devices and platform, the card count, and the process
+   mesh's stats after every earlier path: on one card every dispatch
+   passed through) and bench.py micro_mesh's overhead gate: verify_batch
+   on 8,192 signatures (seed 11, 256 keys) with the mesh consulted and
+   passing through against the mesh disabled, interleaved best of 3,
+   printed beside the 5% gate as one {"mesh_overhead": ...} line and
+   not failed on. 13b: the card repeated 2 and 4 times as the mesh's
+   device list (shard_min 1, min_per_device 1), each entry on a stream
+   of its own: ed25519 on phase 2's 16,384-signature adversarial set and
+   at 8,192, the verify daemon's bucketed verify, the G1 aggregate on
+   config 3's 256 x 100 jobs, the pairing on config 3's jobs, the Merkle
+   build of the 2^20 ledger from raw leaves and from digests then an
+   append of 1,706 leaves, a 2,048-proof gather, and the trie's hash and
+   verify levels at the pool's 1,706 and 3,177 rows. Each seam's output
+   must equal, byte for byte, its unsharded launch (the mesh disabled)
+   and its host oracle (RFC 8032, the host BLS library and
+   pairing_job_host, hashlib, MerkleVerifier), each kernel's launches
+   (zeroed before the sharded run, read after it) equal the shards (the
+   level kernel's: the shards' launches plus the top levels'), and the
+   mesh count one sharded dispatch of the padded size's share a device;
+   each seam's wall sharded and unsharded is printed. 13c: on a machine
+   with two or more cards the same over the real cards and micro_mesh's
+   weak-scaling sweep ({"mesh_weak_scaling": ...}); with one card, one
+   line that says the multi-card run was not made and why. The process
+   mesh is restored after the phase.
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
@@ -271,8 +298,8 @@ Each path's kernel launch counters are zeroed just before it and read
 just after; every kernel of a path must have launched in it (a node
 process or the daemon starts at zero, and the daemon's counters are
 zeroed after its check; phase 12a, a host path, claims none). The
-kernels line gives each kernel's launches over all nine paths (those of
-phases 10, 11, 12a and 12b also apart, in "launches_by_path"); the BLS
+kernels line gives each kernel's launches over all the paths (those of
+phases 10, 11, 12a, 12b and 13 also apart, in "launches_by_path"); the BLS
 entries carry "kernel_ms", "plain_ms" on the inputs they were held on,
 and their Montgomery multiplies.
 
@@ -3056,7 +3083,358 @@ def bls_phase(torch, dev, ceilings):
                                           "read": read_launches[name]},
                      "library_ms": None},
                     **card_rows[name]) for name in replaces]
-    return {"launches": launches, "kernels": kernels}
+    return {"launches": launches, "kernels": kernels, "mesh_inputs": {
+        "agg_jobs": agg_jobs,
+        "agg_want": [want_agg[j % BLS_AGG_MESSAGES]
+                     for j in range(BLS_AGG_JOBS)],
+        "pair_jobs": jobs, "honest": BLS_COMMITS}}
+
+
+MESH_SHARDS = (2, 4)         # phase 13b: the card repeated 2 and 4 times
+MESH_VERIFY = 8192           # bench.py micro_mesh's batch (seed 11, 256 keys)
+MESH_PROOFS = 2048           # a catchup seeder's proof group
+MESH_TRIE_ROWS = (1706, 3177)   # the pool's largest hashed / verified levels
+MESH_PAIR_SAMPLE = 8         # honest pairing jobs held against the host
+MESH_OVERHEAD_GATE_PCT = 5.0    # bench.py micro_mesh's gate
+
+
+def mesh_phase(torch, dev, ed_set, blobs, leaf_digests, root, bls_in):
+    """Phase 13: the device-mesh dispatcher (ops/mesh.py). 13a: the card's
+    real mesh (its devices, the earlier paths' dispatch counts, bench.py
+    micro_mesh's single-device overhead gate: verify_batch at 8,192
+    signatures with the mesh consulted and passing through against the
+    mesh disabled, interleaved best of 3, printed and not failed on).
+    13b: a virtual mesh of the card repeated MESH_SHARDS times (shard_min
+    1, min_per_device 1): every sharded seam at its path's size held
+    byte-equal to its unsharded launch and its host oracle, each kernel's
+    launches equal to the shards (counts zeroed before each sharded run,
+    read after it), the mesh's counters as expected, each seam's wall
+    sharded and unsharded printed. 13c: the same over the real cards, and
+    micro_mesh's weak-scaling sweep, on a machine with two or more;
+    otherwise one line that says why it was not made. The process mesh is
+    restored afterwards. → {"launches": the sharded runs' launches}."""
+    import random
+
+    import numpy as np
+    from plenum_tpu_torch.common.config import Config
+    from plenum_tpu_torch.crypto import bls_ops, ed25519 as scalar
+    from plenum_tpu_torch.crypto.fixtures import make_signed_batch
+    from plenum_tpu_torch.ledger.merkle_verifier import MerkleVerifier
+    from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
+    from plenum_tpu_torch.ops import (
+        bls381, bls381_pairing as bp, cuda_lib, ed25519 as ed,
+        launch_counts, mesh, trie)
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops.merkle import DeviceMerkleTree
+    from plenum_tpu_torch.server.verify_daemon import VerifyDaemon
+
+    t_phase = time.perf_counter()
+    m = mesh.get_mesh()
+    cards = torch.cuda.device_count()
+    hasher = TreeHasher()
+
+    def same(a, b):
+        """Equal outputs: arrays element for element, tuples by part."""
+        if isinstance(a, np.ndarray):
+            return isinstance(b, np.ndarray) and a.dtype == b.dtype \
+                and np.array_equal(a, b)
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(map(same, a, b))
+        return a == b
+
+    def sync_wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    # ---------------------------------------------- 13a: the real mesh
+    before = mesh.mesh_stats()
+    log("mesh 13a: n_devices {}, platform {}, cards {}; the process mesh "
+        "after the earlier paths: {}".format(
+            m.n_devices, mesh.probe_platform(), cards, json.dumps(before)))
+    if m.n_devices == 1:
+        check(before["sharded_dispatches"] == 0
+              and before["passthrough_dispatches"] > 0,
+              "on one card every dispatch of the earlier paths passed "
+              "through the mesh")
+    msgs, sigs, vks = make_signed_batch(MESH_VERIFY, seed=11, unique=256,
+                                        msg_prefix=b"mesh")
+    prior = (m.enabled, m.shard_min, m.max_devices, m.cpu_shard,
+             m.min_per_device, m._given)
+    launches = {}
+    try:
+        mesh.configure(enabled=True, shard_min=MESH_VERIFY + 1)
+        ed.verify_batch(msgs, sigs, vks, dev)          # warm
+        on_s, off_s = [], []
+        for _ in range(3):
+            mesh.configure(enabled=True)
+            on_s.append(sync_wall(lambda: ed.verify_batch(
+                msgs, sigs, vks, dev))[0])
+            mesh.configure(enabled=False)
+            off_s.append(sync_wall(lambda: ed.verify_batch(
+                msgs, sigs, vks, dev))[0])
+        overhead = 100.0 * (min(on_s) / min(off_s) - 1.0)
+        log(json.dumps({"mesh_overhead": {
+            "batch": MESH_VERIFY, "passthrough_s": on_s,
+            "disabled_s": off_s, "single_device_overhead_pct": overhead,
+            "overhead_gate_pct": MESH_OVERHEAD_GATE_PCT,
+            "within_gate": overhead < MESH_OVERHEAD_GATE_PCT}}))
+
+        # ------------ each seam unsharded (the mesh off), and its oracle
+        a_msgs, a_sigs, a_vks, a_verdicts = ed_set
+        a_want = [scalar.verify(*x) for x in
+                  zip(a_msgs[:SCALAR_SUBSET], a_sigs[:SCALAR_SUBSET],
+                      a_vks[:SCALAR_SUBSET])]
+        items = list(zip(msgs, sigs, vks))
+        unique = len(set(items))
+        agg_jobs, agg_want = bls_in["agg_jobs"], bls_in["agg_want"]
+        pair_jobs, honest = bls_in["pair_jobs"], bls_in["honest"]
+        pair_sample = sorted(random.Random(SEED).sample(
+            range(honest), MESH_PAIR_SAMPLE)) \
+            + list(range(honest, len(pair_jobs)))
+        pair_host = [bls_ops.pairing_job_host(pair_jobs[i])
+                     for i in pair_sample]
+        extra_raw = [b"mesh-append-%d" % i for i in range(COMMIT_BATCH)]
+        extra = [hasher.hash_leaf(x) for x in extra_raw]
+        size = LEDGER_TXNS + COMMIT_BATCH
+        root2 = hasher.hash_children(root, hasher.hash_full_tree(extra_raw))
+        proof_idx = sorted(random.Random(SEED).sample(range(size),
+                                                      MESH_PROOFS))
+        t_blobs = blobs[:MESH_TRIE_ROWS[0]]
+        v_blobs = blobs[:MESH_TRIE_ROWS[1]]
+        v_refs = [hashlib.sha3_256(b).digest() for b in v_blobs]
+        v_refs[7] = bytes(32)
+        daemon_conf = {"MESH_ENABLED": True, "MESH_SHARD_MIN": 1,
+                       "MESH_MAX_DEVICES": 0}
+
+        def built(digests=False):
+            tree = DeviceMerkleTree(device=dev)
+            if digests:
+                tree.build_from_leaf_hashes(leaf_digests)
+            else:
+                tree.build(blobs)
+            return tree
+
+        def daemon_verify(enabled):
+            daemon = VerifyDaemon(backend="torch_hub", device=dev,
+                                  config=Config(**dict(
+                                      daemon_conf, MESH_ENABLED=enabled)))
+            try:
+                return daemon._verify_bucketed(items), \
+                    daemon._verifier.launches
+            finally:
+                daemon._pool.shutdown(wait=False)
+
+        seams = {
+            "ed25519_adversarial": lambda: ed.verify_batch(
+                a_msgs, a_sigs, a_vks, dev),
+            "ed25519_8192": lambda: ed.verify_batch(msgs, sigs, vks, dev),
+            "g1_aggregate": lambda: bls381.aggregate_g1_jobs(agg_jobs, dev),
+            "pairing": lambda: bp.pairing_jobs(pair_jobs, dev),
+            "merkle_build": built,
+            "merkle_build_digests": lambda: built(digests=True),
+            "trie_hash": lambda: trie.collect_node_hash_batch(
+                trie.dispatch_node_hash_batch(t_blobs, dev)),
+            "trie_verify": lambda: trie.collect_node_verify_batch(
+                trie.dispatch_node_verify_batch(v_blobs, v_refs, dev)),
+        }
+        mesh.configure(enabled=False)
+        walls, ref = {}, {}
+        for name, fn in seams.items():
+            walls[name], ref[name] = sync_wall(fn)
+        walls["daemon_bucketed"], (ref["daemon_bucketed"], _) = sync_wall(
+            lambda: daemon_verify(False))
+        t_ref = ref.pop("merkle_build")
+        ref_levels = t_ref._buf.clone()
+        launch_counts(reset=True)
+        walls["merkle_append"], _ = sync_wall(
+            lambda: t_ref.append_leaf_hashes(extra))
+        append_launches = launch_counts(reset=True)
+        walls["merkle_gather"], ref["merkle_gather"] = sync_wall(
+            lambda: t_ref.inclusion_proofs(proof_idx))
+        verifier = MerkleVerifier(hasher)
+        check(ref["ed25519_adversarial"].tolist() == a_verdicts.tolist()
+              and ref["ed25519_adversarial"][:SCALAR_SUBSET].tolist()
+              == a_want, "the unsharded adversarial verdicts equal phase "
+                         "2's and RFC 8032's")
+        check(ref["ed25519_8192"].all()
+              and ref["daemon_bucketed"] == [True] * MESH_VERIFY
+              and all(scalar.verify(*x) for x in items[:256]),
+              "the 8,192 signatures verify: unsharded, through the daemon, "
+              "and by RFC 8032")
+        check(ref["g1_aggregate"][0] == agg_want,
+              "the unsharded G1 aggregate equals the host library's")
+        check(ref["pairing"][0][:honest].all()
+              and [bool(ref["pairing"][0][i]) for i in pair_sample]
+              == pair_host, "the unsharded pairing: the honest jobs True, "
+                            "the sample and the adversarial jobs as "
+                            "pairing_job_host")
+        check(torch.equal(ref.pop("merkle_build_digests")._buf, ref_levels)
+              and t_ref.root_hash == root2,
+              "the unsharded builds are equal, their root and the "
+              "append's hashlib's")
+        leaf_of = lambda i: blobs[i] if i < LEDGER_TXNS \
+            else extra_raw[i - LEDGER_TXNS]              # noqa: E731
+        check(all(verifier.verify_leaf_inclusion(leaf_of(i), i, p, size,
+                                                 root2)
+                  for i, p in zip(proof_idx, ref["merkle_gather"])),
+              "the unsharded tree's {} proofs verify against hashlib's "
+              "root".format(MESH_PROOFS))
+        check(ref["trie_hash"].tobytes()
+              == b"".join(hashlib.sha3_256(b).digest() for b in t_blobs)
+              and ref["trie_verify"].tolist()
+              == [i != 7 for i in range(len(v_blobs))],
+              "the unsharded trie levels equal hashlib")
+        wave = sha._node_wave(cuda_lib.load("sha256"), dev)
+
+        def sharded(devices):
+            """Every sharded seam over `devices` (none: the host's cards),
+            each checked → {kernel: launches}."""
+            mesh.configure(enabled=True, shard_min=1, min_per_device=1,
+                           max_devices=0, devices=devices)
+            d = m.n_devices
+            got, s_walls = {}, {}
+
+            def run(name, fn, rows, want):
+                launch_counts(reset=True)
+                n0 = m.sharded_dispatches
+                s_walls[name], out = sync_wall(fn)
+                counts = {k: v for k, v in launch_counts(reset=True).items()
+                          if v}
+                check(counts == want, "{} over {} shards launched {}, not "
+                      "{}".format(name, d, counts, want))
+                per = m.padded_size(rows) // d
+                check(m.sharded_dispatches == n0 + 1
+                      and m.last_per_device == per,
+                      "{}: one sharded dispatch of {} rows a device".format(
+                          name, per))
+                for k, v in counts.items():
+                    got[k] = got.get(k, 0) + v
+                return out
+
+            per = LEDGER_TXNS // d
+            levels = d * len(sha.node_level_split(
+                per, per.bit_length() - 1, wave)) \
+                + len(sha.node_level_split(d, d.bit_length() - 1, wave))
+            want = {"ed25519_adversarial": {"ed25519_verify": d},
+                    "ed25519_8192": {"ed25519_verify": d},
+                    "g1_aggregate": {"bls_g1_aggregate": d},
+                    "pairing": {"bls_pairing": d},
+                    "merkle_build": {"sha256_ragged": d,
+                                     "sha256_node_levels": levels},
+                    "merkle_build_digests": {"sha256_node_levels": levels},
+                    "trie_hash": {"sha3_ragged": d},
+                    "trie_verify": {"sha3_ragged_eq": d}}
+            rows = {"ed25519_adversarial": len(a_msgs),
+                    "ed25519_8192": MESH_VERIFY,
+                    "g1_aggregate": len(agg_jobs),
+                    "pairing": len(pair_jobs), "merkle_build": LEDGER_TXNS,
+                    "merkle_build_digests": LEDGER_TXNS,
+                    "trie_hash": len(t_blobs), "trie_verify": len(v_blobs)}
+            out = {name: run(name, fn, rows[name], want[name])
+                   for name, fn in seams.items()}
+            # the daemon's hub launches the batch's distinct signatures
+            out["daemon_bucketed"], hub_launches = run(
+                "daemon_bucketed", lambda: daemon_verify(True), unique,
+                {"ed25519_verify": d})
+            tree = out.pop("merkle_build")
+            check(torch.equal(tree._buf, ref_levels)
+                  and torch.equal(out.pop("merkle_build_digests")._buf,
+                                  ref_levels)
+                  and tree.root_hash == root,
+                  "the sharded builds from leaves and from digests are "
+                  "byte-equal to the unsharded build, their root hashlib's")
+            launch_counts(reset=True)
+            tree.append_leaf_hashes(extra)
+            check(launch_counts(reset=True) == append_launches
+                  and torch.equal(tree._buf, t_ref._buf)
+                  and tree.root_hash == root2,
+                  "the append onto the sharded build equals the unsharded "
+                  "tree's, byte for byte, and its root hashlib's")
+            out["merkle_gather"] = run(
+                "merkle_gather", lambda: tree.inclusion_proofs(proof_idx),
+                MESH_PROOFS, {})
+            for name, got_out in out.items():
+                check(same(got_out, ref[name]), "the sharded {} equals the "
+                      "unsharded launch".format(name))
+            check(hub_launches == [(unique, m.padded_size(unique))],
+                  "the daemon's bucket of {} x {} devices made one launch "
+                  "of its {} distinct signatures at the mesh's padded "
+                  "size".format(Config.VERIFY_DAEMON_BUCKET, d, unique))
+            log("mesh over {} shards ({}): every seam equal to its "
+                "unsharded launch and its host oracle; wall sharded / "
+                "unsharded (s): {}".format(
+                    d, "{} x {}".format(len(devices), devices[0])
+                    if devices else "the cards",
+                    json.dumps({k: [v, walls[k]]
+                                for k, v in s_walls.items()})))
+            return got
+
+        for k in MESH_SHARDS:
+            for name, n in sharded([dev] * k).items():
+                launches[name] = launches.get(name, 0) + n
+
+        # ------------------------------------------ 13c: the real cards
+        if cards >= 2:
+            for name, n in sharded([]).items():
+                launches[name] = launches.get(name, 0) + n
+            log(json.dumps({"mesh_weak_scaling": _weak_scaling(
+                torch, mesh, ed, make_signed_batch, dev)}))
+        else:
+            log("mesh 13c: the multi-card run was not made: this machine "
+                "has {} card, so the sharded seams are checked on the "
+                "virtual mesh only".format(cards))
+    finally:
+        mesh.configure(enabled=prior[0], shard_min=prior[1],
+                       max_devices=prior[2], cpu_shard=prior[3],
+                       min_per_device=prior[4], devices=prior[5] or [])
+    log("phase 13 (mesh): launches of the sharded runs {} ({:.1f} s)".format(
+        launches, time.perf_counter() - t_phase))
+    return {"launches": launches}
+
+
+def _weak_scaling(torch, mesh, ed, make_signed_batch, dev):
+    """bench.py micro_mesh's weak-scaling sweep over the host's cards: a
+    constant batch a card (max(512, 8,192 / cards)), d = 1, 2, 4 ...
+    cards, four pipelined verify_batch_async calls two deep, best of 3;
+    efficiency(d) = rate(d) / (d x rate(1))."""
+    m = mesh.get_mesh()
+    mesh.configure(devices=[], max_devices=0)
+    n_all = m.n_devices
+    per_dev = max(512, MESH_VERIFY // n_all)
+    wm, ws, wv = make_signed_batch(per_dev * n_all, seed=11, unique=256,
+                                   msg_prefix=b"mesh")
+    sweep, d = {}, 1
+    while d <= n_all:
+        mesh.configure(enabled=True, max_devices=d, shard_min=1)
+        n = per_dev * d
+        sm, ss, sv = wm[:n], ws[:n], wv[:n]
+        ed.verify_batch(sm, ss, sv, dev)                # warm
+
+        def run():
+            pend = []
+            for _ in range(4):
+                pend.append(ed.verify_batch_async(sm, ss, sv, dev))
+                if len(pend) > 2:
+                    pend.pop(0)[0].cpu()
+            for h in pend:
+                h[0].cpu()
+
+        best = None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            t = time.perf_counter() - t
+            best = t if best is None else min(best, t)
+        sweep[str(d)] = {"batch": n, "verify_per_s": 4 * n / best}
+        d *= 2
+    for entry in sweep.values():
+        entry["scaling_efficiency_vs_1"] = entry["verify_per_s"] / (
+            int(entry["batch"] // per_dev) * sweep["1"]["verify_per_s"])
+    return sweep
 
 
 def main(argv=None) -> int:
@@ -3160,6 +3538,7 @@ def main(argv=None) -> int:
     log("ed25519: kernel == plain on {} signatures and on their first {}, == "
         "RFC 8032 on {}; accepted/rejected by kind {}".format(
             MICRO_BATCH, ED25519_TAILS, SCALAR_SUBSET, by_kind))
+    ed_set = (msgs, sigs, vks, verdicts)         # phase 13's adversarial set
 
     rng = np.random.RandomState(SEED)
     sha_err = rag_err = 0
@@ -3515,6 +3894,12 @@ def main(argv=None) -> int:
         entry["launches"] += deploy["launches"].get(entry["name"], 0)
     log("deployment launches (node processes and daemon): {} ({:.1f} s)"
         .format(deploy["launches"], time.perf_counter() - t0))
+    meshed = mesh_phase(torch, dev, ed_set, blobs, leaf_digests,
+                        recovered_root, bls_result["mesh_inputs"])
+    for entry in kernels:
+        n = meshed["launches"].get(entry["name"], 0)
+        entry["launches"] += n
+        entry["launches_by_path"]["mesh"] = n
     log("total: {:.1f} s".format(time.perf_counter() - t_all))
     log(json.dumps({"kernels": kernels}))
     log(card)

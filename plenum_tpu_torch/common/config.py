@@ -5,8 +5,8 @@ simple attribute namespace; override via Config(**overrides) or attribute
 assignment (tests use the `tconf` fixture pattern); layered file/env
 loading via Config.load (reference plenum/common/config_util.py).
 
-A copy of the JAX package's Config. Left out until the port has their
-code: the device mesh's MESH_* keys (A5), the XLA-only SHA256_CPU_TILE and
+A copy of the JAX package's Config, the device mesh's MESH_* keys
+included (ops/mesh.py). Left out: the XLA-only SHA256_CPU_TILE and
 SHA256_PALLAS_MIN_BATCH, and the device circuit breaker's
 BREAKER_COOLDOWN_S (the port has no step-down from a kernel to the
 host), and the SHA256_BACKEND and STATE_DEVICE_ENGINE switches: a node's
@@ -345,6 +345,19 @@ class Config:
     # the scalar CPU floor for a device launch (single-sourced here,
     # like the MERKLE_DEVICE_* knobs)
     VERIFIER_BATCH_THRESHOLD = 32
+
+    # ---- device-mesh dispatch (ops/mesh.py): shard verify / BLS /
+    # Merkle / trie batches over every device on the batch axis (the
+    # seams are row-wise pure). One device and batches below
+    # MESH_SHARD_MIN take the passthrough path.
+    MESH_ENABLED = True
+    MESH_MAX_DEVICES = 0         # 0 = all devices (rounded down to 2^k)
+    MESH_SHARD_MIN = 2048        # below this one device wins on latency
+    # shard over CPU devices too: CPU entries of a device list share the
+    # same cores, so production keeps this off; tests force it (env
+    # PLENUM_TPU_MESH_CPU_SHARD=1 or configure(cpu_shard=True)) to reach
+    # the sharded paths without a card
+    MESH_CPU_SHARD = False
 
     # ---- recovery SLOs (sim-time seconds; bench.py `recovery` config
     # and the soak scenarios gate on these): primary crash → ordering

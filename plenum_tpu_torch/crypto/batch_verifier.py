@@ -177,8 +177,8 @@ class CoalescingVerifierHub:
     `threshold` unique items takes the scalar floor instead.
 
     `launches` records (unique items, launch lanes) for every device
-    launch; the kernel takes exactly the unique items, so the two are
-    equal.
+    launch; the two are equal unless the batch shards over the device
+    mesh, whose padded size the lanes then are.
 
     Standalone construction (the gateway tier, tests, tools): every
     collaborator is an explicit argument — ``tracer`` (flight recorder,
@@ -242,11 +242,14 @@ class CoalescingVerifierHub:
                 # rather than paying a full device launch
                 gen.pending = self._scalar.dispatch(launch_items)
             else:
-                # hub-seam lane accounting: the kernel launches exactly
-                # the unique items (no bucket padding, nothing compiled
-                # per shape)
-                lanes = len(launch_items)
-                self.launches.append((lanes, lanes))
+                # hub-seam lane accounting: unique items against the
+                # lanes the launch pays for (the mesh's padded size when
+                # the batch shards, else exactly the unique items;
+                # single-sourced in ed25519.launch_lanes)
+                from plenum_tpu_torch.ops.ed25519 import launch_lanes
+                lanes = launch_lanes(len(launch_items),
+                                     getattr(self._batch, "device", None))
+                self.launches.append((len(launch_items), lanes))
                 gen._tm_device = True
                 gen._tm_hub = self.telemetry
                 gen._tm_hub.record_launch(_telemetry.SEAM_HUB,

@@ -20,7 +20,9 @@ each job's points among them (`pack_g1_jobs`). The plain version
 (crypto/bls_ops: g1_decompress, g1_add); the wrapper `g1_aggregate` takes
 it for CPU tensors only and launches the kernels (`g1_aggregate_cuda`) for
 CUDA tensors. The JAX package pads the job axis to a power of two so that
-jit reuses a compiled shape; the port launches the exact B.
+jit reuses a compiled shape; the port launches the exact B, or splits a
+batch that clears the mesh gate over the devices (`aggregate_dispatch`,
+ops/mesh.py).
 """
 from __future__ import annotations
 
@@ -552,16 +554,20 @@ def g1_aggregate(x, sign_big, is_inf, valid, index):
                   is_inf, valid, index)
 
 
-def pack_g1_jobs(jobs: Sequence[Sequence[bytes]], n: int):
-    """B jobs of at most n compressed shares → the kernel's five numpy
-    arrays: the D distinct encodings' limbs [D, 32] and flags [D] (sign,
-    infinity, valid), and the [B, n] index of each job's shares among
-    them; short jobs padded with the infinity encoding (the identity under
-    addition), which is one row too."""
-    B = len(jobs)
-    distinct, index = distinct_rows(raw_points(jobs, n, G1_BYTES).reshape(
-        B * n, G1_BYTES))
+def pack_g1_raw(raw: np.ndarray):
+    """[B, n, 48] compressed shares → the kernel's five numpy arrays: the D
+    distinct encodings' limbs [D, 32] and flags [D] (sign, infinity,
+    valid), and the [B, n] index of each job's shares among them."""
+    B, n = raw.shape[:2]
+    distinct, index = distinct_rows(raw.reshape(B * n, G1_BYTES))
     return tuple(pack_compressed(distinct)) + (index.reshape(B, n),)
+
+
+def pack_g1_jobs(jobs: Sequence[Sequence[bytes]], n: int):
+    """B jobs of at most n compressed shares → pack_g1_raw's five arrays;
+    short jobs padded with the infinity encoding (the identity under
+    addition), which is one row too."""
+    return pack_g1_raw(raw_points(jobs, n, G1_BYTES))
 
 
 def g1_aggregate_cost(x, sign_big, is_inf, valid, index, ok, Z):
@@ -584,11 +590,30 @@ def aggregate_dispatch(jobs: Sequence[Sequence[bytes]], n: int, device=None):
     """Enqueue the aggregation of B share-sets (each at most n compressed
     G1 signatures) on `device` (None means CUDA): one upload and one call
     of exactly B jobs, nothing read back. → the handles for
-    aggregate_collect."""
+    aggregate_collect.
+
+    A job batch that clears the mesh gate (ops/mesh.py) is padded to the
+    mesh's padded size with all-infinity jobs (each aggregates to the
+    identity) and split over the mesh's devices; each shard packs its own
+    distinct shares and index, and its results are gathered onto `device`
+    and cut to B."""
     dev = resolve_device(device)
     B = len(jobs)
+    from plenum_tpu_torch.ops import mesh as mesh_mod
+    m = mesh_mod.get_mesh()
+    sharded = m.should_shard(B, dev)
+    Bp = m.padded_size(B, min_per_device=1) if sharded else B
+    # job-axis lane accounting: real shares against the Bp x n grid
     _tmy.get_seam_hub().record_launch(
-        _tmy.SEAM_BLS, sum(len(j) for j in jobs), B * n, shape=(B, n))
+        _tmy.SEAM_BLS, sum(len(j) for j in jobs), Bp * n, shape=(Bp, n))
+    if sharded:
+        raw = raw_points(list(jobs) + [[]] * (Bp - B), n, G1_BYTES)
+        outs = m.dispatch(g1_aggregate, [raw], n=B,
+                          label="aggregate_dispatch",
+                          place=lambda shard, d: upload(pack_g1_raw(shard[0]),
+                                                        d))
+        return tuple(t[:B] for t in m.gather(outs, dev))
+    m.note_passthrough(B)
     return g1_aggregate(*upload(pack_g1_jobs(jobs, n), dev))
 
 

@@ -4,11 +4,13 @@ and G2 aggregation on the device.
 Port of plenum_tpu/ops/bls381_pairing.py (`_pairing_kernel`, `_msm_kernel`
 and `_g2_aggregate_kernel`, XLA device programs, and their dispatch and
 collect); the kernels are csrc/bls381.cu (the pairing), bls381_msm.cu
-and bls381_agg.cu. The mesh branches of the JAX package stay out
-(ROADMAP A5), and so does its padding of the job and pair
-axes to powers of two, which only let jit reuse a compiled shape: a launch
-takes exactly B jobs of P pairs (the most pairs of any job; shorter jobs
-are padded with infinity pairs, which are neutral).
+and bls381_agg.cu. The JAX package's padding of the job and pair axes to
+powers of two, which only let jit reuse a compiled shape, stays out: a
+launch takes exactly B jobs of P pairs (the most pairs of any job; shorter
+jobs are padded with infinity pairs, which are neutral). Its mesh branches
+are here (ops/mesh.py): a pairing batch that clears the gate splits its
+jobs over the devices; the MSM and the G2 aggregate never shard and count
+a passthrough.
 
 - `pairing_*`: B jobs of (compressed G1 48 B, compressed G2 96 B) pairs →
   verdict[B] (the product of the pairings is 1 and every pair decoded),
@@ -53,19 +55,30 @@ MSM_DIGITS = 64
 # ---------------------------------------------------------------- packing
 
 
-def _pack_pair_arrays(jobs, B: int, P: int):
-    """B jobs of at most P (G1, G2) byte pairs → the pairing kernel's ten
-    numpy arrays: G1 limbs [B, P, 32] and flags [B, P] (sign, infinity,
-    valid), the index [B, P] int32 of each pair's G2 key, then the K
-    distinct keys' c1 and c0 limbs [K, 32] and flags [K]; short jobs
-    padded with infinity pairs."""
-    g1raw = raw_points([[p[0] for p in j] for j in jobs], P, G1_BYTES)
-    g2raw = raw_points([[p[1] for p in j] for j in jobs], P, G2_BYTES)
+def _pair_raw(jobs, B: int, P: int):
+    """B jobs of at most P (G1, G2) byte pairs → ([B, P, 48], [B, P, 96])
+    uint8 encodings, short jobs padded with infinity pairs."""
+    return (raw_points([[p[0] for p in j] for j in jobs], P, G1_BYTES),
+            raw_points([[p[1] for p in j] for j in jobs], P, G2_BYTES))
+
+
+def _pack_pair_raw(g1raw: np.ndarray, g2raw: np.ndarray):
+    """[B, P, 48] and [B, P, 96] encodings → the pairing kernel's ten numpy
+    arrays: G1 limbs [B, P, 32] and flags [B, P] (sign, infinity, valid),
+    the index [B, P] int32 of each pair's G2 key, then the K distinct keys'
+    c1 and c0 limbs [K, 32] and flags [K]."""
+    B, P = g1raw.shape[:2]
     l1, s1, i1, v1 = pack_compressed(g1raw.reshape(B * P, G1_BYTES))
     keys, kidx = distinct_rows(g2raw.reshape(B * P, G2_BYTES))
     return (l1.reshape(B, P, NLIMB), s1.reshape(B, P), i1.reshape(B, P),
             v1.reshape(B, P), kidx.reshape(B, P)) \
         + tuple(pack_g2_compressed(keys))
+
+
+def _pack_pair_arrays(jobs, B: int, P: int):
+    """B jobs of at most P (G1, G2) byte pairs → _pack_pair_raw's ten
+    arrays."""
+    return _pack_pair_raw(*_pair_raw(jobs, B, P))
 
 
 def expand_keys(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v):
@@ -218,12 +231,29 @@ def pairing_dispatch(jobs: Sequence[Sequence[Tuple[bytes, bytes]]],
     """Enqueue one batched pairing-product check of B jobs, each a list of
     (compressed G1, compressed G2) pairs, on `device` (None means CUDA):
     one upload, one launch, nothing read back. → handles for
-    pairing_collect."""
+    pairing_collect.
+
+    A job batch that clears the mesh gate (ops/mesh.py) is padded to the
+    mesh's padded size with all-infinity jobs (neutral) and split over the
+    mesh's devices; each shard packs its own distinct keys, so its lines
+    launch computes the lines of its own keys, and the verdicts are
+    gathered onto `device` and cut to B."""
     dev = resolve_device(device)
     B = len(jobs)
     P = max(1, max((len(j) for j in jobs), default=1))
+    from plenum_tpu_torch.ops import mesh as mesh_mod
+    m = mesh_mod.get_mesh()
+    sharded = m.should_shard(B, dev)
+    Bp = m.padded_size(B, min_per_device=1) if sharded else B
     _tmy.get_seam_hub().record_launch(
-        _tmy.SEAM_BLS_PAIR, sum(len(j) for j in jobs), B * P, shape=(B, P))
+        _tmy.SEAM_BLS_PAIR, sum(len(j) for j in jobs), Bp * P, shape=(Bp, P))
+    if sharded:
+        raw = _pair_raw(list(jobs) + [[]] * (Bp - B), Bp, P)
+        outs = m.dispatch(
+            pairing, raw, n=B, label="pairing_dispatch",
+            place=lambda shard, d: upload(_pack_pair_raw(*shard), d))
+        return tuple(t[:B] for t in m.gather(outs, dev))
+    m.note_passthrough(B)
     return pairing(*upload(_pack_pair_arrays(jobs, B, P), dev))
 
 
@@ -419,6 +449,9 @@ def msm_dispatch(points: Sequence[bytes], scalars: Sequence[int],
     dev = resolve_device(device)
     N = len(points)
     _tmy.get_seam_hub().record_launch(_tmy.SEAM_BLS_MSM, N, N, shape=(N,))
+    # the sum crosses the point axis: this seam never shards
+    from plenum_tpu_torch.ops import mesh as mesh_mod
+    mesh_mod.get_mesh().note_passthrough(N)
     return msm(*upload(pack_msm(points, scalars), dev))
 
 
@@ -555,6 +588,9 @@ def g2_aggregate_dispatch(jobs: Sequence[Sequence[bytes]], n: int,
     B = len(jobs)
     _tmy.get_seam_hub().record_launch(
         _tmy.SEAM_BLS, sum(len(j) for j in jobs), B * n, shape=(B, n))
+    # never sharded, as in the JAX package: counted as a passthrough
+    from plenum_tpu_torch.ops import mesh as mesh_mod
+    mesh_mod.get_mesh().note_passthrough(B)
     return g2_aggregate(*upload(pack_g2_jobs(jobs, n), dev))
 
 

@@ -3,7 +3,8 @@
 Port of the host half of plenum_tpu/ops/ed25519_jax.py (`host_pack`, the
 limb and canonicality helpers, `verify_batch_async`) and of the Pallas
 kernel plenum_tpu/ops/ed25519_pallas.py (now csrc/ed25519_verify.cu, four
-CUDA lanes per signature).
+CUDA lanes per signature), with the JAX package's mesh split of a batch
+(`launch_lanes`, ops/mesh.py).
 
 The host does the cheap data-dependent work: canonicality checks (y < p,
 s < L), k = SHA-512(R||A||M) mod L, and packing into 20 radix-2^13 limbs
@@ -531,18 +532,41 @@ def host_pack(msgs: Sequence[bytes], sigs: Sequence[bytes],
     return arrays, valid
 
 
+def launch_lanes(n: int, device=None) -> int:
+    """The batch lanes a verify_batch_async(n) launch on `device` occupies:
+    the mesh's padded size when the batch shards (ops/mesh.py), exactly n
+    otherwise (the JAX package's power-of-two bucket served XLA's compile
+    cache, which a CUDA kernel does not have). Single-sourced so that the
+    coalescing hub accounts the lanes the launch pays for."""
+    if n <= 0:
+        return 0
+    from plenum_tpu_torch.ops import mesh as mesh_mod
+    m = mesh_mod.get_mesh()
+    return m.padded_size(n) if m.should_shard(n, device) else n
+
+
 def verify_batch_async(msgs: Sequence[bytes], sigs: Sequence[bytes],
                        verkeys: Sequence[bytes], device=None):
     """Non-blocking batched verify: packs on the host, launches on the
     device and returns (ok_device_tensor, valid_host_bools, n) at once; the
-    caller materializes later (ok.cpu() & valid). The launch covers exactly
-    the n signatures: the JAX package's power-of-two lane bucket served
-    XLA's compile cache, which a CUDA kernel does not have."""
+    caller materializes later (ok.cpu() & valid).
+
+    A batch that clears the mesh gate (ops/mesh.py) is padded by
+    repeating row 0 to the mesh's padded size and split over the mesh's
+    devices, one launch each, its verdicts gathered onto `device` and cut
+    to n; otherwise one launch covers exactly the n signatures."""
     dev = resolve_device(device)
     n = len(msgs)
     if n == 0:
         return None, np.zeros(0, dtype=bool), 0
     arrays, valid = host_pack(msgs, sigs, verkeys)
+    from plenum_tpu_torch.ops import mesh as mesh_mod
+    m = mesh_mod.get_mesh()
+    if m.should_shard(n, dev):
+        arrays = mesh_mod.pad_rows(arrays, m.padded_size(n))
+        ok = m.gather(m.dispatch(verify, arrays, n=n), dev)[:n]
+        return ok, valid, n
+    m.note_passthrough(n)
     ok = verify(*[to_tensor(a, dev) for a in arrays])
     return ok, valid, n
 

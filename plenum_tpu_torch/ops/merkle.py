@@ -28,10 +28,21 @@ indices into one tensor.
   gathered rows. `ProofPipeline` keeps `depth` gathers in flight, so the
   next gather overlaps the current collect.
 
+The JAX package's mesh branches are here (ops/mesh.py). A build whose
+capacity clears the mesh gate and divides over the devices splits its
+leaves into one contiguous subtree a device: each shard hashes its leaves
+and builds its subtree's levels, the levels land in the tree's buffer on
+its device, and the top log2(devices) levels are built there; the buffer
+is byte-equal to an unsharded build's. A proof gather that clears the
+gate splits its indices over the devices, each gathering from a copy of
+the bottom levels on its device (the tree's own buffer on the tree's
+device; copies memoized as snapshots, counted in
+dispatch_stats["replica_broadcasts"]).
+
 A CUDA tensor goes through the kernels, a CPU tensor (device="cpu")
 through their plain versions; a failing launch raises, there is no step
-down to the host. The JAX package's mesh branches (sharded builds and
-gathers) and its Pallas step-down chain have no counterpart here.
+down to the host. The JAX package's Pallas step-down chain has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -44,12 +55,9 @@ import torch
 
 from plenum_tpu_torch.common.config import Config
 from plenum_tpu_torch.observability.tracing import CAT_DEVICE, NullTracer
-from plenum_tpu_torch.ops import resolve_device
+from plenum_tpu_torch.ops import mesh as mesh_mod
+from plenum_tpu_torch.ops import resolve_device, to_tensor
 from plenum_tpu_torch.ops import sha256 as sha
-
-
-def _pow2_at_least(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
 
 
 def append_groups(n0: int, n1: int, k: int
@@ -104,6 +112,9 @@ class DeviceMerkleTree:
         self._mirror = {}          # height -> host uint8 [cap >> h, 32]
         self._mirror_count = {}    # height -> mirrored complete prefix
         self._froot_cache = {}     # proof size n -> frontier root bytes
+        # the bottom levels' copies on other devices for sharded gathers:
+        # (buffer, levels, complete leaves at the copy, {device: rows})
+        self._replicas = None
         self._staging = sha.PinnedStaging() \
             if self.device.type == "cuda" else None
         self.tracer = NullTracer()
@@ -116,6 +127,7 @@ class DeviceMerkleTree:
             "mirror_level_downloads": 0,  # full-level host downloads
             "mirror_rows_downloaded": 0,
             "row_reads": 0,               # single-row device reads
+            "replica_broadcasts": 0,      # mesh copies of a low level
         }
 
     def attach_tracer(self, tracer) -> None:
@@ -133,6 +145,7 @@ class DeviceMerkleTree:
     def reset(self):
         self._buf, self._size, self._cap = None, 0, 0
         self._mirror, self._mirror_count, self._froot_cache = {}, {}, {}
+        self._replicas = None
 
     def _depth(self) -> int:
         return self._cap.bit_length() - 1 if self._cap else 0
@@ -185,7 +198,67 @@ class DeviceMerkleTree:
         """Make `buf` (levels 0..log2(cap) above n leaves) the tree's."""
         self._buf, self._size, self._cap = buf, n, cap
         self._mirror, self._mirror_count, self._froot_cache = {}, {}, {}
+        self._replicas = None
         self.dispatch_stats["build_dispatches"] += 1
+
+    def _shard_build(self, cap: int, n: int) -> bool:
+        """Whether a build of capacity `cap` shards over the mesh: the
+        gate passes and the capacity divides over the devices (a tree
+        smaller than the device count stays on one device); a build that
+        does not is counted as a passthrough."""
+        m = mesh_mod.get_mesh()
+        if m.should_shard(cap, self.device) and cap % m.n_devices == 0:
+            return True
+        m.note_passthrough(cap)
+        return False
+
+    def _build_sharded(self, cap: int, n: int, leaves=None,
+                       digests=None) -> torch.Tensor:
+        """The levels of a size-n tree of capacity `cap`, one contiguous
+        subtree of cap / d leaves per mesh device: each shard hashes its
+        leaves (`leaves`, raw) or takes their digests (`digests`, uint8
+        [n, 32]) and builds its subtree's levels on its device; the levels
+        are copied into a new buffer on the tree's device, where the top
+        log2(d) levels are built. Leaf rows past n stay zero, as in an
+        unsharded build, so the buffer is byte-equal to one."""
+        m = mesh_mod.get_mesh()
+        d = m.n_devices
+        per = cap // d
+        sub = per.bit_length() - 1          # levels inside a shard
+
+        def shard_levels(dev, lo):
+            real = max(0, min(n, lo + per) - lo)
+            sbuf = torch.zeros((2 * per - 1, 32), dtype=torch.uint8,
+                               device=dev)
+            launch = None
+            if real and leaves is not None:
+                data, offsets = sha.upload_ragged(leaves[lo:lo + real], dev)
+                launch = sha.sha256_ragged(data, offsets, 0x00,
+                                           out=sbuf[:real])
+            elif real:
+                sbuf[:real].copy_(to_tensor(digests[lo:lo + real], dev))
+            if sub:
+                sha.sha256_node_levels(sbuf[:per], sub, out=sbuf[per:])
+            return sbuf, launch
+
+        shards = m.dispatch(
+            shard_levels, [np.arange(cap, dtype=np.int64)], n=cap,
+            label="merkle_build",
+            place=lambda shard, dev: (dev, int(shard[0][0])))
+        buf = self._new_buffer(cap)
+        for i, (sbuf, launch) in enumerate(shards):
+            if isinstance(launch, sha.Sha256Launch):
+                launch.host()       # raises if the kernel flagged offsets
+            for h in range(sub + 1):
+                rows = per >> h
+                src = 2 * per - 2 * rows
+                dst = self._offset(h, cap) + i * rows
+                buf[dst:dst + rows].copy_(sbuf[src:src + rows])
+        if d > 1:
+            top = self._offset(sub, cap)
+            sha.sha256_node_levels(buf[top:top + d], d.bit_length() - 1,
+                                   out=buf[top + d:])
+        return buf
 
     def build(self, leaves: Sequence[bytes]) -> bytes:
         """Hash `leaves` and every level above them on the device; → root.
@@ -195,8 +268,14 @@ class DeviceMerkleTree:
         if n == 0:
             self.reset()
             return self.hasher.hash_empty()
-        cap = _pow2_at_least(n)
+        cap = mesh_mod.pow2_at_least(n)
         depth = cap.bit_length() - 1
+        if self._shard_build(cap, n):
+            with self.tracer.span("merkle_build_dispatch", CAT_DEVICE,
+                                  n=cap):
+                buf = self._build_sharded(cap, n, leaves=leaves)
+            self._adopt(buf, n, cap)
+            return self.root_hash
         with self.tracer.span("merkle_build_dispatch", CAT_DEVICE, n=cap):
             buf = self._new_buffer(cap)
             data, offsets = sha.upload_ragged(leaves, self.device,
@@ -218,13 +297,16 @@ class DeviceMerkleTree:
         if n == 0:
             self.reset()
             return self.hasher.hash_empty()
-        cap = _pow2_at_least(n)
+        cap = mesh_mod.pow2_at_least(n)
         depth = cap.bit_length() - 1
         with self.tracer.span("merkle_build_dispatch", CAT_DEVICE, n=cap):
-            buf = self._new_buffer(cap)
-            buf[:n].copy_(self._upload(arr))
-            if depth:
-                sha.sha256_node_levels(buf[:cap], depth, out=buf[cap:])
+            if self._shard_build(cap, n):
+                buf = self._build_sharded(cap, n, digests=arr)
+            else:
+                buf = self._new_buffer(cap)
+                buf[:n].copy_(self._upload(arr))
+                if depth:
+                    sha.sha256_node_levels(buf[:cap], depth, out=buf[cap:])
         self._adopt(buf, n, cap)
         return self.root_hash
 
@@ -257,7 +339,7 @@ class DeviceMerkleTree:
 
     def _ensure_capacity(self, n: int):
         if self._buf is None:
-            self._cap = _pow2_at_least(max(n, 1))
+            self._cap = mesh_mod.pow2_at_least(max(n, 1))
             self._buf = self._new_buffer(self._cap)
             self._mirror, self._mirror_count = {}, {}
             return
@@ -426,13 +508,55 @@ class DeviceMerkleTree:
                              dtype=np.int64)
         return (((idx_np[:, None] >> heights) ^ 1) + offsets).reshape(-1)
 
-    def _gather_low(self, idx_np: np.ndarray, g: int) -> sha.Download:
-        """The siblings of the bottom g levels for one proof batch,
-        gathered by one index_select into [k, g * 32] bytes (big-endian as
-        stored) and copied to the host without blocking."""
+    def _low_replicas(self, m, g: int, n: int) -> dict:
+        """{device: the buffer's first offset(g) rows (levels 0..g - 1)}
+        for every device of the mesh: the tree's own buffer on its device,
+        a copy elsewhere. The copies are a snapshot: complete nodes are
+        immutable, so a copy made when the tree held `snap` leaves serves
+        every gather of a size-n prefix with n <= snap; a larger n, more
+        levels or a new buffer (growth, a build) copies again. Each copy
+        of the levels counts g replica_broadcasts, one a level, as the
+        JAX package counts its per-level broadcasts."""
+        cached = self._replicas
+        if cached is not None and cached[0] is self._buf \
+                and cached[1] >= g and cached[2] >= n:
+            return cached[3]
+        rows = self._offset(g)
+        copies = {dev: self._buf
+                  if mesh_mod.same_device(dev, self._buf.device)
+                  else self._buf[:rows].to(dev)
+                  for dev in set(m.devices)}
+        self.dispatch_stats["replica_broadcasts"] += g
+        self._replicas = (self._buf, g, self._size, copies)
+        return copies
+
+    def _gather_low(self, idx_np: np.ndarray, g: int,
+                    n: Optional[int] = None) -> sha.Download:
+        """The siblings of the bottom g levels for one proof batch against
+        the size-n prefix, gathered by one index_select into [k, g * 32]
+        bytes (big-endian as stored) and copied to the host without
+        blocking. A batch that clears the mesh gate is padded (row 0
+        repeated) and split over the mesh's devices, each gathering from
+        its copy of the levels; the rows are gathered onto the tree's
+        device and cut to k."""
         k = int(idx_np.shape[0])
+        n = self._size if n is None else n
         self.dispatch_stats["gather_dispatches"] += 1
+        m = mesh_mod.get_mesh()
         with self.tracer.span("merkle_gather_dispatch", CAT_DEVICE, n=k):
+            if m.should_shard(k, self.device):
+                levels = self._low_replicas(m, g, n)
+                kp = m.padded_size(k, min_per_device=1)
+                idx_p = mesh_mod.pad_rows([idx_np], kp)[0]
+                outs = m.dispatch(
+                    lambda src, rows: src.index_select(0, rows).view(
+                        -1, g * 32),
+                    [idx_p], n=k, label="merkle_gather",
+                    place=lambda shard, dev: (
+                        levels[dev],
+                        to_tensor(self.sibling_rows(shard[0], g), dev)))
+                return sha.Download(m.gather(outs, self.device)[:k])
+            m.note_passthrough(k)
             packed = self._buf.index_select(
                 0, self._upload(self.sibling_rows(idx_np, g))).view(
                     k, g * 32)
@@ -463,7 +587,7 @@ class DeviceMerkleTree:
         g = min(self._n_low(), h0)
         low = None
         if g and idx_np.size:
-            low = self._gather_low(idx_np, g)
+            low = self._gather_low(idx_np, g, n)
         return (idx_np, low, n, g, fr, roots)
 
     def collect_proof_batch(self, handle) -> List[List[bytes]]:

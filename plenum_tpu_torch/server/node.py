@@ -266,6 +266,11 @@ class Node:
                 kwargs["threshold"] = getattr(
                     self.config, "VERIFIER_BATCH_THRESHOLD", None)
             verifier = create_verifier(provider, **kwargs)
+        # apply this node's MESH_* keys to the process-wide device-mesh
+        # dispatcher (ops/mesh.py) that the verify, BLS, Merkle and trie
+        # seams consult; this probes no device
+        from plenum_tpu_torch.ops import mesh as _mesh_mod
+        _mesh_mod.configure_from(self.config)
         self.authnr = CoreAuthNr(
             verkey_provider=self._verkey_from_domain_state,
             verifier=verifier)
@@ -508,6 +513,11 @@ class Node:
             # tracer was attached last — one buffer still sees every
             # fused launch)
             verifier.tracer = self.tracer
+        if getattr(self.tracer, "enabled", False):
+            # mesh_dispatch spans + per-device counters land in the same
+            # buffer (process-wide mesh: last tracer attached wins, like
+            # the shared hub above)
+            _mesh_mod.get_mesh().tracer = self.tracer
         # state_get / state_apply / state_proof spans from the device
         # MPT engines land in this node's buffer too
         for _lid in (POOL_LEDGER_ID, DOMAIN_LEDGER_ID, CONFIG_LEDGER_ID):

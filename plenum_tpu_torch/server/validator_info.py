@@ -180,10 +180,15 @@ class ValidatorNodeInfoTool:
         return out
 
     def _device_mesh_info(self) -> dict:
-        """Device-mesh dispatcher stats. The port has no multi-device
-        dispatcher yet (ROADMAP A5), so the key holds what the reference
-        gives when its mesh_stats fails: an empty dict."""
-        return {}
+        """Device-mesh dispatcher stats (ops/mesh.py): enabled and gate
+        keys, sharded and passthrough dispatch counts, last per-device
+        batch. mesh_stats probes no device and creates no CUDA context, so
+        this dump stays safe inside an ordering tick."""
+        try:
+            from plenum_tpu_torch.ops.mesh import mesh_stats
+            return mesh_stats()
+        except Exception:
+            return {}
 
     def _hardware_info(self) -> dict:
         out = {}

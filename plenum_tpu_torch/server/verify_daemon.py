@@ -29,9 +29,15 @@ Backends: "torch_hub" (a CoalescingVerifierHub on `device`, the JAX
 package's "adaptive") and "cpu" (the scalar RFC 8032 check, the JAX
 package's OpenSSL "cpu"). Fused batches below `cpu_floor` items take the
 scalar check (the hub's threshold); larger ones are chunked to at most
-`bucket` items, one launch each. The JAX package's mesh split, its XLA
-compile cache and its padding of the tail chunk (one compiled shape for
-XLA) have no counterpart here.
+`bucket` items, one launch each, or bucket × the mesh's devices when such
+a chunk clears the mesh gate (ops/mesh.py: the chunk then splits over the
+devices, one launch each). The JAX package's XLA compile cache and its
+padding of the tail chunk (one compiled shape for XLA) have no
+counterpart here.
+
+The daemon applies its config's MESH_* keys to the process's mesh
+(configure_from), as a node does; the JAX package's daemon never does,
+so its mesh keeps the Config class defaults (ROADMAP C).
 
 Reference equivalence: the reference verifies inline through libsodium
 (plenum/server/client_authn.py:84); this daemon is the device-native
@@ -98,6 +104,8 @@ class VerifyDaemon:
             self.device = resolve_device(device)
             kwargs = {"device": self.device, "threshold": self._cpu_floor}
         self._verifier = create_verifier(backend, **kwargs)
+        from plenum_tpu_torch.ops import mesh as mesh_mod
+        mesh_mod.configure_from(config)
         self._queue: asyncio.Queue = asyncio.Queue()
         # the FALLBACK is 1, not the node pipeline's cores−1 auto: device
         # launches serialize anyway, and a busy worker is exactly what
@@ -192,6 +200,13 @@ class VerifyDaemon:
                 or len(items) < self._cpu_floor:
             return self._verifier.verify_batch(items)
         b = self._bucket
+        from plenum_tpu_torch.ops.mesh import get_mesh
+        mesh = get_mesh()
+        if mesh.should_shard(b * mesh.n_devices, self.device):
+            # one fused launch spans every device, but only where the
+            # scaled launch clears the gate: otherwise it would take the
+            # passthrough path at a larger size for no mesh benefit
+            b *= mesh.n_devices
         chunks = [items[i:i + b] for i in range(0, len(items), b)]
         # daemon-seam lane accounting + round trip: this method runs on
         # the worker thread start-to-finish, so the wall time here IS the

@@ -1,12 +1,12 @@
 """Guards of the PyTorch/CUDA port: plenum_tpu_torch and chip_smoke.py
 import neither jax nor plenum_tpu and load no native extension of the JAX
 package, every entry point that touches the device raises when CUDA is
-absent and the caller did not ask for the CPU, the Node builds the
-branch that was not ported before (the pipeline runtime) and routes BLS
-pairing batches to its device, no port source names the JAX package's
-native directory, and
-chip_smoke.py refuses to report without a card or without the package
-beside it."""
+absent and the caller did not ask for the CPU, the device mesh reads its
+stats without CUDA and never shards a CPU node's launches onto a card,
+the Node builds the branch that was not ported before (the pipeline
+runtime) and routes BLS pairing batches to its device, no port source
+names the JAX package's native directory, and chip_smoke.py refuses to
+report without a card or without the package beside it."""
 import ast
 import os
 import shutil
@@ -221,6 +221,78 @@ def test_node_routes_bls_device_pairing_to_its_device(monkeypatch):
                                           pairing_device_min=n)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         on_card.verify_sigs_batch(checks)
+
+
+def test_mesh_module_imports_neither_jax_nor_plenum_tpu():
+    """ops/mesh.py (the device-mesh dispatcher) is among the scanned
+    sources and clean, and importing it and reading its stats loads
+    neither package in a fresh interpreter."""
+    path = os.path.join(REPO, "plenum_tpu_torch", "ops", "mesh.py")
+    assert path in _port_sources()
+    assert not _imported_top_names(path) & FORBIDDEN
+    code = ("import sys\n"
+            "from plenum_tpu_torch.ops import mesh\n"
+            "mesh.get_mesh().stats(); mesh.mesh_stats()\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules}"
+            " & {'jax', 'plenum_tpu'}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_mesh_stats_without_cuda_raise_nothing_and_shard_nothing(
+        monkeypatch):
+    """Without CUDA the mesh's stats and mesh_stats() probe nothing and
+    raise nothing (a validator-info dump must not wake a card), and the
+    host's mesh is one CPU, so no batch shards."""
+    from plenum_tpu_torch.ops import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mesh, "_PROBE", {"platform": None,
+                                         "device_count": None})
+    fresh = mesh.DeviceMesh(shard_min=1, cpu_shard=True)
+    st = fresh.stats()
+    assert "n_devices" not in st and "platform" not in st
+    assert "enabled" in mesh.mesh_stats()
+    assert not fresh.should_shard(10 ** 6)
+    assert fresh.stats()["n_devices"] == 1
+    assert fresh.stats()["sharded_dispatches"] == 0
+    assert not torch.cuda.is_initialized()
+
+
+def test_cpu_node_never_shards_onto_a_card_mesh(monkeypatch):
+    """A Node built with device="cpu" whose config turns the mesh on at
+    the lowest gate, with the process's mesh set to a card twice: its
+    verifier, ledger tree and state engine launches all pass through on
+    the CPU, none shards, and no CUDA context is made."""
+    import hashlib
+    from plenum_tpu_torch.common.config import Config
+    from plenum_tpu_torch.crypto.fixtures import make_signed_batch
+    from plenum_tpu_torch.ops import mesh, trie
+    from plenum_tpu_torch.ops.merkle import DeviceMerkleTree
+    m = mesh.get_mesh()
+    prior = (m.enabled, m.max_devices, m.shard_min, m.cpu_shard, m._given)
+    try:
+        node = _node(device="cpu", config=Config(
+            MESH_SHARD_MIN=1, MESH_CPU_SHARD=True,
+            VERIFIER_BATCH_THRESHOLD=1))
+        mesh.configure(devices=[torch.device("cuda", 0)] * 2)
+        assert m.enabled and m.shard_min == 1 and m.n_devices == 2
+        before = (m.sharded_dispatches, m.passthrough_dispatches)
+        items = list(zip(*make_signed_batch(4, seed=5)))
+        assert node.authnr._verifier.verify_batch(items) == [True] * 4
+        tree = DeviceMerkleTree(device="cpu")
+        tree.build([b"x%d" % i for i in range(16)])
+        assert tree._buf.device.type == "cpu"
+        assert trie.hash_nodes([b"abc"] * 4, device="cpu") == \
+            [hashlib.sha3_256(b"abc").digest()] * 4
+        assert m.sharded_dispatches == before[0]
+        assert m.passthrough_dispatches == before[1] + 3
+        assert not torch.cuda.is_initialized()
+    finally:
+        mesh.configure(enabled=prior[0], max_devices=prior[1],
+                       shard_min=prior[2], cpu_shard=prior[3],
+                       devices=prior[4] or [])
 
 
 def _port_files():

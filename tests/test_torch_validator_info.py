@@ -18,8 +18,9 @@ from tests.torch_two_packages import (
     BASE_CONF, JAX, NAMES, PORT, Pool, jax_warm_off, pkg)
 
 # sections whose values vary by host or time, or name the package's own
-# stack (Software: its version and framework; Device_mesh: the JAX
-# package's mesh dispatcher, not ported, ROADMAP A5)
+# stack (Software: its version and framework; Device_mesh: each
+# package's mesh dispatcher, whose device counts name its own devices;
+# its keys are held equal below)
 VARYING = ("timestamp", "uptime_s", "Hardware_info", "Memory_info",
            "Latencies", "Software", "Device_mesh", "Extractions",
            "Telemetry", "Freshness_status", "Metrics")
@@ -56,15 +57,24 @@ def _keys(d, depth=2):
 
 
 def test_info_has_the_jax_packages_sections_and_keys(infos):
+    import importlib
+    # both meshes enumerated and probed, so each dump carries every key
+    # its package's mesh_stats() can give
+    for name in (PORT, JAX):
+        mesh = importlib.import_module(name + ".ops.mesh")
+        mesh.probe_platform()
+        assert mesh.get_mesh().n_devices >= 1
     port = [t.info for t in infos[PORT][1]]
     ref = [t.info for t in infos[JAX][1]]
+    from plenum_tpu_torch.ops.mesh import mesh_stats
     for p_info, r_info in zip(port, ref):
         assert set(p_info) == set(r_info)
         for key in set(p_info) - set(VARYING):
             assert _keys(p_info[key]) == _keys(r_info[key]), key
         assert set(p_info["Software"]) == {"plenum_tpu_torch", "python",
                                            "torch"}
-        assert p_info["Device_mesh"] == {}
+        assert set(p_info["Device_mesh"]) == set(r_info["Device_mesh"])
+        assert p_info["Device_mesh"] == mesh_stats()
 
 
 def test_info_values_equal_the_jax_packages(infos):
