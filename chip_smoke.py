@@ -285,6 +285,21 @@ plenum_tpu_torch/csrc/ into plenum_tpu_torch/_build/ and then
    weak-scaling sweep ({"mesh_weak_scaling": ...}); with one card, one
    line that says the multi-card run was not made and why. The process
    mesh is restored after the phase.
+14. runs the port's lint (lint_phase, right after phase 9): the analyzer
+   (python -m plenum_tpu_torch.analysis, every rule over the whole
+   package against plenum_tpu_torch/lint_baseline.json) runs in a child
+   process started after the build, and its result is printed as one
+   {"lint": {"files", "new", "baselined", "s", "cpu_s"}} line (the
+   analyzer's own seconds); any finding outside the baseline fails the run. Then PT002's
+   check on the card: a copy from pageable memory must raise
+   under torch.cuda.set_sync_debug_mode("error"); the analyzer's list of
+   ops/ dispatch halves must equal LINT_HALVES (twelve); each half runs
+   once on the card in that mode (phase 9's four BLS halves there, on
+   its config's inputs; the other eight here, on 64 rows, the Merkle
+   halves on a 4,096-leaf tree after its one mirror download), is
+   collected by its own collect half and must equal the same call on the
+   CPU (the plain versions). Its launches are comparisons and count on
+   no path.
 
 Then it prints {"kernels": [...]}, the card line and, last, {"ok": true,
 "device": {...}}. Every entry's "ms" is cuda_ms, one definition for all
@@ -308,6 +323,7 @@ result; so does a machine without CUDA, or a directory that holds this
 script and nothing else of the repository. The tolerance is none
 everywhere: verdicts, digests and roots must be equal.
 """
+import atexit
 import hashlib
 import json
 import os
@@ -403,6 +419,39 @@ ED25519_BYTES_PER_SIG = 2 * 20 * 4 + 2 * 4 + 2 * 8 * 4 + 4
 # shifts each = 48), chi (one LOP3 a half = 50) and iota (2); then the
 # absorb xors 17 lanes (34).
 KECCAK_OPS_PER_BLOCK = 24 * (20 + 20 + 50 + 48 + 50 + 2) + 17 * 2
+LINT_TIMEOUT_S = 300         # the analyzer's child process (lint_phase)
+LINT_ROWS = 64               # each dispatch half's batch in lint_phase
+LINT_TREE = 1 << 12          # leaves of lint_phase's Merkle trees
+# the dispatch halves lint_phase holds to no host sync on the card: the
+# port's analyzer (PT002) must name exactly these, so a new half fails
+# the run until the phase checks it
+LINT_HALVES = (
+    "ops/bls381.py:aggregate_dispatch",
+    "ops/bls381_pairing.py:pairing_dispatch",
+    "ops/bls381_pairing.py:msm_dispatch",
+    "ops/bls381_pairing.py:g2_aggregate_dispatch",
+    "ops/ed25519.py:verify_batch_async",
+    "ops/merkle.py:DeviceMerkleTree.dispatch_proof_batch",
+    "ops/merkle.py:DeviceMerkleTree.dispatch_path_batch",
+    "ops/mesh.py:DeviceMesh.dispatch",
+    "ops/sha256.py:sha256_many_dispatch",
+    "ops/sha256.py:TorchSha256Backend.leaf_hashes_dispatch",
+    "ops/trie.py:dispatch_node_hash_batch",
+    "ops/trie.py:dispatch_node_verify_batch",
+)
+# the analyzer's child: its JSON report, its exit code and its own
+# seconds (wall and CPU) as one JSON line
+LINT_CHILD = """\
+import contextlib, io, json, sys, time
+t0, c0 = time.perf_counter(), time.process_time()
+from plenum_tpu_torch.analysis import cli
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = cli.main(["--json", sys.argv[1]])
+print(json.dumps({"rc": rc, "report": json.loads(out.getvalue()),
+                  "s": time.perf_counter() - t0,
+                  "cpu_s": time.process_time() - c0}))
+"""
 
 
 def log(*args):
@@ -2041,6 +2090,7 @@ def level_build_phase(torch, dev, leaf_digests, hash_store):
     wrapper (cuda_ms), and the two level builds in turns (old, new, new,
     old; host wall) and once each under torch.profiler. → the numbers of
     the kernels line's entry."""
+    import numpy as np
     from plenum_tpu_torch import carry
     from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
     from plenum_tpu_torch.ops import cuda_lib, to_tensor
@@ -2055,7 +2105,8 @@ def level_build_phase(torch, dev, leaf_digests, hash_store):
         (hashlib below its threshold of 256 pairs), as the tree did."""
 
         def node_hashes_array(self, pairs):
-            words = sha._node_words_from_digest_pairs(to_tensor(pairs, dev))
+            words = sha._node_words_from_digest_pairs(torch.from_numpy(
+                np.ascontiguousarray(pairs)).to(dev))
             nvalid = torch.full((pairs.shape[0],), 2, dtype=torch.int32,
                                 device=dev)
             return sha.digests_to_array(sha.to_host(
@@ -3048,25 +3099,23 @@ def bls_phase(torch, dev, ceilings):
                 row["bound_ms"], row["bound_by"], row["fp_mul_sqr"],
                 row["bound_ms"] / row["kernel_ms"], row["plain_ms"]))
 
-    # ---- no dispatch synchronises
+    # ---- no dispatch synchronises (lint_phase collects these launches
+    # and holds them against the plain versions)
     with_sync_check = [
-        ("pairing_dispatch", lambda: bp.pairing_dispatch(adv_jobs, dev)),
-        ("aggregate_dispatch", lambda: bls381.aggregate_dispatch(
-            agg_jobs[:4], len(signers), dev)),
-        ("msm_dispatch", lambda: bp.msm_dispatch(msm_out[8][0],
-                                                 msm_out[8][1], dev)),
-        ("g2_aggregate_dispatch", lambda: bp.g2_aggregate_dispatch(
-            g2_jobs, max(BLS_VALIDATORS), dev))]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for _, fn in with_sync_check:
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+        ("ops/bls381_pairing.py:pairing_dispatch", lambda d: (
+            lambda: bp.pairing_dispatch(adv_jobs, d), bp.pairing_collect)),
+        ("ops/bls381.py:aggregate_dispatch", lambda d: (
+            lambda: bls381.aggregate_dispatch(agg_jobs[:4], len(signers), d),
+            bls381.aggregate_collect)),
+        ("ops/bls381_pairing.py:msm_dispatch", lambda d: (
+            lambda: bp.msm_dispatch(msm_out[8][0], msm_out[8][1], d),
+            bp.msm_collect)),
+        ("ops/bls381_pairing.py:g2_aggregate_dispatch", lambda d: (
+            lambda: bp.g2_aggregate_dispatch(g2_jobs, max(BLS_VALIDATORS), d),
+            bp.g2_aggregate_collect))]
+    synced = sync_checked(torch, dev, with_sync_check)
     log("bls: {} launched under set_sync_debug_mode(\"error\")".format(
-        [n for n, _ in with_sync_check]))
+        [n.rsplit(":", 1)[1] for n, _ in with_sync_check]))
     log("phase 9 (bls): {:.1f} s".format(time.perf_counter() - t_phase))
     replaces = {"bls_pairing": "plenum_tpu/ops/bls381_pairing.py:241",
                 "bls_g1_aggregate": "plenum_tpu/ops/bls381_jax.py:363",
@@ -3083,11 +3132,12 @@ def bls_phase(torch, dev, ceilings):
                                           "read": read_launches[name]},
                      "library_ms": None},
                     **card_rows[name]) for name in replaces]
-    return {"launches": launches, "kernels": kernels, "mesh_inputs": {
-        "agg_jobs": agg_jobs,
-        "agg_want": [want_agg[j % BLS_AGG_MESSAGES]
-                     for j in range(BLS_AGG_JOBS)],
-        "pair_jobs": jobs, "honest": BLS_COMMITS}}
+    return {"launches": launches, "kernels": kernels, "synced": synced,
+            "mesh_inputs": {
+                "agg_jobs": agg_jobs,
+                "agg_want": [want_agg[j % BLS_AGG_MESSAGES]
+                             for j in range(BLS_AGG_JOBS)],
+                "pair_jobs": jobs, "honest": BLS_COMMITS}}
 
 
 MESH_SHARDS = (2, 4)         # phase 13b: the card repeated 2 and 4 times
@@ -3132,15 +3182,6 @@ def mesh_phase(torch, dev, ed_set, blobs, leaf_digests, root, bls_in):
     m = mesh.get_mesh()
     cards = torch.cuda.device_count()
     hasher = TreeHasher()
-
-    def same(a, b):
-        """Equal outputs: arrays element for element, tuples by part."""
-        if isinstance(a, np.ndarray):
-            return isinstance(b, np.ndarray) and a.dtype == b.dtype \
-                and np.array_equal(a, b)
-        if isinstance(a, tuple):
-            return len(a) == len(b) and all(map(same, a, b))
-        return a == b
 
     def sync_wall(fn):
         torch.cuda.synchronize()
@@ -3357,8 +3398,9 @@ def mesh_phase(torch, dev, ed_set, blobs, leaf_digests, root, bls_in):
                 "merkle_gather", lambda: tree.inclusion_proofs(proof_idx),
                 MESH_PROOFS, {})
             for name, got_out in out.items():
-                check(same(got_out, ref[name]), "the sharded {} equals the "
-                      "unsharded launch".format(name))
+                check(same_output(got_out, ref[name]),
+                      "the sharded {} equals the unsharded launch".format(
+                          name))
             check(hub_launches == [(unique, m.padded_size(unique))],
                   "the daemon's bucket of {} x {} devices made one launch "
                   "of its {} distinct signatures at the mesh's padded "
@@ -3437,6 +3479,212 @@ def _weak_scaling(torch, mesh, ed, make_signed_batch, dev):
     return sweep
 
 
+def start_lint():
+    """The port's analyzer (plenum_tpu_torch.analysis, the whole package
+    against plenum_tpu_torch/lint_baseline.json) in a child process
+    started after the build, so that its CPU seconds overlap the card's
+    phases; lint_phase reads its line. The child is killed at exit if it
+    still runs."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", LINT_CHILD,
+         os.path.join(REPO, "plenum_tpu_torch")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def sync_checked(torch, dev, calls):
+    """Launch each dispatch half of `calls` — (name, prepare), where
+    prepare(device) → (dispatch, collect) does the set-up a half needs
+    and returns it ready to call — on `dev` under
+    torch.cuda.set_sync_debug_mode("error"), so that a half that waits
+    for the card raises. → {name: (prepare, handle, collect)}: the
+    handles are collected later, by lint_phase."""
+    ready = [(name, prepare) + tuple(prepare(dev)) for name, prepare in calls]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [(name, prepare, dispatch(), collect)
+                   for name, prepare, dispatch, collect in ready]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return {name: (prepare, handle, collect)
+            for name, prepare, handle, collect in handles}
+
+
+def same_output(a, b):
+    """Equal collected results: arrays element for element (and of one
+    dtype and shape), sequences part by part, anything else by ==."""
+    import numpy as np
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return isinstance(a, np.ndarray) and isinstance(b, np.ndarray) \
+            and a.dtype == b.dtype and a.shape == b.shape \
+            and np.array_equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) \
+            and all(map(same_output, a, b))
+    return a == b
+
+
+def lint_phase(torch, dev, lint, synced):
+    """The port's lint on the card's run. Reads the analyzer's child
+    (start_lint): exit code 0 and no finding outside the baseline, printed
+    as one {"lint": ...} line. Then PT002's check on the card: the
+    analyzer's list of ops/ dispatch halves must be LINT_HALVES; every
+    half runs once on LINT_ROWS-row inputs under
+    set_sync_debug_mode("error") (sync_checked; `synced` holds the halves
+    an earlier phase already ran so: phase 9's four BLS halves, launched
+    there on its config's inputs), each result is collected by its own
+    collect half and must equal the same dispatch and collect on the CPU,
+    the plain versions. A Merkle tree's first proof batch after a build
+    downloads its host mirrors, by design: each tree serves one batch
+    before its checked one. → {"lint": the line's fields, "halves": the
+    halves checked, "s": the phase's seconds}."""
+    import numpy as np
+    from plenum_tpu_torch import testing
+    from plenum_tpu_torch.analysis.rules.pt002_host_sync import (
+        list_dispatch_halves)
+    from plenum_tpu_torch.ops import ed25519 as ed
+    from plenum_tpu_torch.ops import mesh, trie
+    from plenum_tpu_torch.ops import sha256 as sha
+    from plenum_tpu_torch.ops.merkle import DeviceMerkleTree
+
+    t_phase = time.perf_counter()
+    try:
+        out, err = lint.communicate(timeout=LINT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        lint.kill()
+        lint.communicate()
+        raise RuntimeError("check failed: the analyzer ended within {} s"
+                           .format(LINT_TIMEOUT_S))
+    check(lint.returncode == 0 and out.strip(),
+          "the analyzer's child ran: {}".format(err.strip()[-2000:]))
+    result = json.loads(out.strip().splitlines()[-1])
+    summary = result["report"]["summary"]
+    line = {"files": summary["files"], "new": summary["new"],
+            "baselined": summary["baselined"], "s": result["s"],
+            "cpu_s": result["cpu_s"]}
+    log(json.dumps({"lint": line}))
+    for f in result["report"]["findings"]:
+        if not f["baselined"]:
+            log("  {}:{}:{}: {} {}".format(f["path"], f["line"], f["col"],
+                                          f["rule"], f["message"]))
+    check(result["rc"] == 0 and summary["new"] == 0,
+          "the port's tree has no lint finding outside its baseline")
+
+    # the check has teeth: a copy from pageable memory waits for the card
+    # and must raise (why ops.to_tensor stages in pinned memory)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.from_numpy(np.zeros(8, dtype=np.int32)).to(dev)
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(refused, "set_sync_debug_mode(\"error\") refuses a copy from "
+                   "pageable memory")
+
+    halves = list_dispatch_halves(REPO)
+    check(tuple(halves) == LINT_HALVES,
+          "the analyzer's dispatch halves {} are the ones this phase runs "
+          "on the card".format(halves))
+
+    rng = np.random.RandomState(SEED + 16)
+    blobs = [rng.randint(0, 256, size=int(rng.randint(1, 600)),
+                         dtype=np.uint8).tobytes() for _ in range(LINT_ROWS)]
+    refs = [hashlib.sha3_256(b).digest() for b in blobs]
+    refs[LINT_ROWS // 2] = bytes(32)
+    msgs, sigs, vks, _ = testing.adversarial_signatures(LINT_ROWS, SEED + 16,
+                                                        unique=8)
+    ed_arrays, _ = ed.host_pack(msgs, sigs, vks)
+    digests = rng.randint(0, 256, size=(LINT_TREE, 32), dtype=np.uint8)
+    idx = sorted(int(i) for i in rng.choice(LINT_TREE, LINT_ROWS,
+                                            replace=False))
+
+    def tree_on(d, dispatch, collect):
+        tree = DeviceMerkleTree(device=d)
+        # gather the bottom levels on the device at this size (the class
+        # keeps the top 2^18 nodes of a tree on the host)
+        tree._TOP_CACHE = LINT_TREE >> 4
+        tree.build_from_leaf_hashes(digests)
+        collect(tree, dispatch(tree, idx[:1]))       # the mirror download
+        return (lambda: dispatch(tree, idx),
+                lambda h: collect(tree, h))
+
+    def mesh_on(d):
+        m = mesh.DeviceMesh(enabled=True, shard_min=1, min_per_device=1,
+                            cpu_shard=True, devices=[d, d])
+        padded = mesh.pad_rows(ed_arrays, m.padded_size(LINT_ROWS))
+        return (lambda: m.dispatch(ed.verify, padded, n=LINT_ROWS,
+                                   label="lint"),
+                lambda outs: m.gather(outs, d)[:LINT_ROWS].cpu().numpy())
+
+    def backend_on(d):
+        backend = sha.TorchSha256Backend(d)
+        return (lambda: backend.leaf_hashes_dispatch(blobs),
+                backend.leaf_hashes_collect)
+
+    own = [
+        ("ops/ed25519.py:verify_batch_async", lambda d: (
+            lambda: ed.verify_batch_async(msgs, sigs, vks, d),
+            lambda h: h[0].cpu().numpy() & h[1])),
+        ("ops/merkle.py:DeviceMerkleTree.dispatch_proof_batch",
+         lambda d: tree_on(
+             d, lambda t, i: t.dispatch_proof_batch(i),
+             lambda t, h: t.collect_proof_batch(h))),
+        ("ops/merkle.py:DeviceMerkleTree.dispatch_path_batch",
+         lambda d: tree_on(
+             d, lambda t, i: t.dispatch_path_batch(i),
+             lambda t, h: t.collect_path_batch(h))),
+        ("ops/mesh.py:DeviceMesh.dispatch", mesh_on),
+        ("ops/sha256.py:sha256_many_dispatch", lambda d: (
+            lambda: sha.sha256_many_dispatch(blobs, d, 0x00),
+            sha.sha256_many_collect)),
+        ("ops/sha256.py:TorchSha256Backend.leaf_hashes_dispatch",
+         backend_on),
+        ("ops/trie.py:dispatch_node_hash_batch", lambda d: (
+            lambda: trie.dispatch_node_hash_batch(blobs, d),
+            trie.collect_node_hash_batch)),
+        ("ops/trie.py:dispatch_node_verify_batch", lambda d: (
+            lambda: trie.dispatch_node_verify_batch(blobs, refs, d),
+            trie.collect_node_verify_batch)),
+    ]
+    launched = dict(synced)
+    launched.update(sync_checked(
+        torch, dev, [(name, prepare) for name, prepare in own
+                     if name not in synced]))
+    check(sorted(launched) == sorted(LINT_HALVES),
+          "every dispatch half ran on the card under the sync check")
+    cpu = torch.device("cpu")
+    got = {}
+    for name in LINT_HALVES:
+        prepare, handle, collect = launched[name]
+        got[name] = collect(handle)
+        dispatch, plain_collect = prepare(cpu)
+        check(same_output(got[name], plain_collect(dispatch())),
+              "{} on the card, collected, equals its plain version".format(
+                  name))
+    check(same_output(
+        got["ops/trie.py:dispatch_node_hash_batch"],
+        np.frombuffer(b"".join(hashlib.sha3_256(b).digest() for b in blobs),
+                      dtype=np.uint8).reshape(-1, 32)),
+        "the trie's hash half equals hashlib")
+    seconds = time.perf_counter() - t_phase
+    log("lint: {} dispatch halves ran under set_sync_debug_mode(\"error\") "
+        "({} of them in phase 9), each == its plain version; phase {:.1f} s"
+        .format(len(LINT_HALVES), len(synced), seconds))
+    return {"lint": line, "halves": list(LINT_HALVES), "s": seconds}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3501,6 +3749,7 @@ def main(argv=None) -> int:
     log("build: {:.1f} s ({} libraries compiled)".format(
         time.perf_counter() - t0, len(built)))
     native_line()
+    lint = start_lint()
 
     # ----------------------------------------- 2. kernels vs plain versions
     t0 = time.perf_counter()
@@ -3866,6 +4115,7 @@ def main(argv=None) -> int:
 
     bls_result = bls_phase(torch, dev, ceilings)
     kernels += bls_result["kernels"]
+    lint_phase(torch, dev, lint, bls_result["synced"])
 
     pipeline = pipeline_phase(torch, dev, signer)
     gateway = gateway_phase(torch, dev)

@@ -28,7 +28,7 @@ import sys
 import numpy as np
 import torch
 
-from plenum_tpu_torch.ops import bls381
+from plenum_tpu_torch.ops import bls381, mesh
 
 Q = bls381.Q
 R = 1 << 384
@@ -145,7 +145,7 @@ def measure(dev=None) -> dict:
 
 
 if __name__ == "__main__":
-    if not torch.cuda.is_available():
+    if not mesh.is_accelerator():
         print("bls_field_core: no CUDA device is available", file=sys.stderr)
         sys.exit(1)
     print(json.dumps({"bls_field_core": measure()}))

@@ -37,6 +37,13 @@ from plenum_tpu_torch.consensus.quorums import Quorums
 from plenum_tpu_torch.runtime.timer import RepeatingTimer, TimerService
 from plenum_tpu_torch.client.wallet import Wallet
 
+# what attacker-controlled proof bytes can raise on their way into the
+# aggregate check once _check_proof_pre has let them through (base58
+# text, an n-f set of registered keys): each reads as "the proof does
+# not verify". Anything else — a kernel failure on the card
+# (RuntimeError) above all — is not a verdict on the proof and surfaces
+PROOF_INPUT_ERRORS = (ValueError, KeyError, TypeError)
+
 logger = logging.getLogger(__name__)
 
 _CLIENT_MSG_CLASSES = {c.typename: c for c in
@@ -303,7 +310,7 @@ class PoolClient:
         try:
             sig_ok = self._bls_verifier.verify_multi_sig(
                 multi.signature, multi.value.as_single_value(), keys)
-        except Exception as e:
+        except PROOF_INPUT_ERRORS as e:
             return "multi-sig invalid: aggregate verification " \
                    "raised (%s)" % e
         if not sig_ok:
@@ -337,7 +344,7 @@ class PoolClient:
             verdicts = self._bls_verifier.verify_multi_sigs_batch(
                 [(m.signature, m.value.as_single_value(), keys)
                  for _, m, keys in pending])
-        except Exception as e:
+        except PROOF_INPUT_ERRORS as e:
             msg = "multi-sig invalid: aggregate verification " \
                   "raised (%s)" % e
             for i, _, _ in pending:
@@ -390,7 +397,12 @@ class PoolClient:
                                                                max_age)
         # 3. enough distinct, registered signers (n-f)
         participants = list(multi.participants)
-        if len(set(participants)) != len(participants):
+        try:
+            distinct = len(set(participants))
+        except TypeError:   # a list or dict where a name should be
+            return "multi-sig invalid: unparseable multi-signature " \
+                   "(participant names are not hashable)"
+        if distinct != len(participants):
             return "multi-sig invalid: duplicate participants"
         if not self.quorums.bls_signatures.is_reached(len(participants)):
             return "multi-sig invalid: %d signers below the n-f " \
@@ -407,6 +419,14 @@ class PoolClient:
             if pk is None:
                 return "multi-sig invalid: unregistered signer %r" % name
             keys.append(pk)
+        # the signature is proof-controlled too: only text reaches the
+        # base58 codec, whose Python version raises AttributeError on
+        # anything else (the native one TypeError); checked last, where
+        # the aggregate check would read it, so every earlier check
+        # names the same failure as in the reference
+        if not isinstance(multi.signature, (str, bytes)):
+            return "multi-sig invalid: unparseable multi-signature " \
+                   "(signature is not text: %r)" % (multi.signature,)
         return multi, keys
 
     @staticmethod

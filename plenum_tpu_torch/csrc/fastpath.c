@@ -803,9 +803,17 @@ static PyObject *py_b58decode(PyObject *self, PyObject *arg) {
         uint32_t carry;
         size_t j;
         if (d < 0) {
+            /* a byte of a non-ASCII character is no code point of its
+               own, and '%c' of a negative char raises OverflowError:
+               name it by value */
+            uint8_t c = (uint8_t)s[i];
             PyMem_Free(bytes_acc);
-            PyErr_Format(PyExc_ValueError,
-                         "Invalid base58 character: '%c'", s[i]);
+            if (c < 0x80)
+                PyErr_Format(PyExc_ValueError,
+                             "Invalid base58 character: '%c'", c);
+            else
+                PyErr_Format(PyExc_ValueError,
+                             "Invalid base58 byte: 0x%x", (unsigned)c);
             return NULL;
         }
         carry = (uint32_t)d;

@@ -14,7 +14,11 @@ def resolve_device(device=None) -> torch.device:
     or by default) and no CUDA device is present: the port never carries
     on silently on the CPU."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    # the per-call CUDA gate, asked on every call (is_available creates no
+    # CUDA context) so that an entry point raises whenever CUDA is absent,
+    # whatever the mesh's cached probe said earlier
+    if dev.type == "cuda" \
+            and not torch.cuda.is_available():  # plenum-lint: disable=PT002
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch versions")
     if dev.type not in ("cuda", "cpu"):
@@ -24,13 +28,22 @@ def resolve_device(device=None) -> torch.device:
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     """numpy array → tensor on `device`; uint32 arrays travel as int32 of
-    the same bit patterns (PyTorch's uint32 support is partial)."""
+    the same bit patterns (PyTorch's uint32 support is partial). On CUDA
+    the array is staged in pinned memory (PyTorch's caching host
+    allocator keeps the block until the copy is done) and copied with
+    non_blocking=True on the current stream, so the host never waits
+    for the card, as a copy from pageable memory does; the caller may
+    reuse the array at once."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:       # torch.from_numpy wants a writable array
         a = a.copy()
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a).to(device)
+    t = torch.from_numpy(a)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def check_arg(t: torch.Tensor, name: str, dtype, shape) -> None:

@@ -174,7 +174,9 @@ def pairing_cuda(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v,
     _check_pairing_args(g1x, g1s, g1i, g1v, kidx, g2c1, g2c0, g2s, g2i, g2v,
                         B, P, K)
     _need_cuda(g1x, "pairing_cuda")
-    if P > 32:
+    # the kernel keeps one bit a pair in a 32-bit mask (csrc/bls381.cu):
+    # a limit of the kernel, not the verifier's batch threshold
+    if P > 32:  # plenum-lint: disable=PT005
         raise ValueError("pairing_cuda takes at most 32 pairs a job")
     dev = g1x.device
     verdict = torch.empty((B,), dtype=torch.bool, device=dev)

@@ -133,6 +133,12 @@ def pad_rows(arrays: Sequence, padded: int) -> List[np.ndarray]:
     return out
 
 
+def device_index(device) -> int:
+    """Index of a CUDA device: one without an index is the current one."""
+    dev = torch.device(device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
 def same_device(a, b) -> bool:
     """Whether two devices are one: a CUDA device without an index is
     the current one."""
@@ -141,9 +147,7 @@ def same_device(a, b) -> bool:
         return False
     if a.type != "cuda" or a.index == b.index:
         return True
-    cur = torch.cuda.current_device()
-    return (cur if a.index is None else a.index) \
-        == (cur if b.index is None else b.index)
+    return device_index(a) == device_index(b)
 
 
 def _upload(a, device: torch.device):

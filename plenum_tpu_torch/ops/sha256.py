@@ -438,8 +438,8 @@ _node_waves = {}        # device index → CTAs of the level kernel in a wave
 def _node_wave(lib, dev: torch.device) -> int:
     """CTAs of the level kernel that `dev` holds at once (CUDA's occupancy
     for its 256 threads, times the SMs), asked once per device."""
-    index = dev.index if dev.index is not None \
-        else torch.cuda.current_device()
+    from plenum_tpu_torch.ops.mesh import device_index
+    index = device_index(dev)
     if index not in _node_waves:
         ctas = ctypes.c_int(0)
         with torch.cuda.device(dev):

@@ -32,7 +32,8 @@ from plenum_tpu_torch.common.messages.node_messages import (
 from plenum_tpu_torch.common.serializers.serializers import MsgPackSerializer
 from plenum_tpu_torch.consensus.quorums import Quorums
 from plenum_tpu_torch.ledger.ledger import Ledger
-from plenum_tpu_torch.ledger.merkle_verifier import MerkleVerifier
+from plenum_tpu_torch.ledger.merkle_verifier import (
+    MerkleVerifier, ProofError)
 from plenum_tpu_torch.ledger.tree_hasher import TreeHasher
 from plenum_tpu_torch.observability.tracing import CAT_RECOVERY, NullTracer
 from plenum_tpu_torch.runtime.timer import TimerService
@@ -457,26 +458,46 @@ class LedgerLeecher:
             return True
         ledger = self.ledger
         try:
-            items = []
-            for seq_str, txn in rep.txns.items():
-                seq = int(seq_str)
-                if not ledger.size < seq <= self.target_size:
-                    continue
-                path_strs = paths.get(seq_str)
-                if path_strs is None:
-                    continue  # unproven txn rides the final root check
-                items.append((ledger.serialize_for_tree(txn), seq - 1,
-                              [Ledger.strToHash(s) for s in path_strs]))
-            if items:
-                MerkleVerifier(ledger.hasher).verify_leaf_inclusion_batch(
-                    items, self.target_size,
-                    Ledger.strToHash(self.target_root))
+            items = self._rep_proof_items(rep.txns, paths)
+            root = Ledger.strToHash(self.target_root) if items else None
         except Exception:
+            # a host parse of the seeder's own fields (no kernel runs
+            # here): whatever a malformed rep raises, from the codecs or
+            # the serializer, rejects the chunk
+            logger.warning("ledger %s: catchup rep from %s carries "
+                           "malformed txns or audit paths — discarding "
+                           "the chunk", self.lid, frm, exc_info=True)
+            return False
+        if not items:
+            return True
+        try:
+            MerkleVerifier(ledger.hasher).verify_leaf_inclusion_batch(
+                items, self.target_size, root)
+        except ProofError:
+            # the only verdict on well-formed items; a kernel failure of
+            # the leaf hashing on the card (RuntimeError) is no verdict
+            # on the seeder and surfaces
             logger.warning("ledger %s: catchup rep from %s failed audit-"
                            "path verification — discarding the chunk",
                            self.lid, frm, exc_info=True)
             return False
         return True
+
+    def _rep_proof_items(self, txns, paths) -> list:
+        """(leaf bytes, index, [sibling hashes]) for each txn of a rep
+        that lies in (ledger size, target size] and carries a path."""
+        ledger = self.ledger
+        items = []
+        for seq_str, txn in txns.items():
+            seq = int(seq_str)
+            if not ledger.size < seq <= self.target_size:
+                continue
+            path_strs = paths.get(seq_str)
+            if path_strs is None:
+                continue  # unproven txn rides the final root check
+            items.append((ledger.serialize_for_tree(txn), seq - 1,
+                          [Ledger.strToHash(s) for s in path_strs]))
+        return items
 
     def process_catchup_rep(self, rep: CatchupRep, frm: str):
         if self.state != LeecherState.SYNCING or rep.ledgerId != self.lid:

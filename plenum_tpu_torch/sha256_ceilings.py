@@ -166,7 +166,10 @@ def _rate(launch, body: int, grid: int, iters: int, sms: int) -> dict:
 
 def measure(dev=None) -> dict:
     dev = torch.device("cuda" if dev is None else dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # a measurement of the card itself, which needs its SM count; it runs
+    # only on the card, from chip_smoke.py or this module's command line
+    props = torch.cuda.get_device_properties(dev)  # plenum-lint: disable=PT002
+    sms = props.multi_processor_count
     listing = sass_listing(library_sass("sha256_ceilings"))
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     out = {"sms": sms, "mix": {}, "ops": {}}

@@ -392,6 +392,90 @@ def test_pool_client_checks_proofs_as_the_jax_package_does(pools, kind,
         assert all(isinstance(v, str) for v in got)
 
 
+# signature fields a Byzantine replier can put in a multi-signature
+MALFORMED_SIGNATURES = {
+    "none": None, "int": 123, "list": [], "map": {}, "empty": "",
+    "bad_char": "0OIl" * 11, "non_ascii": "é" * 44,
+    "non_ascii_bytes": b"\xff" * 44, "too_short": "3yZe7d",
+}
+
+
+def _clients(signers, pairing_device_min):
+    """The port's PoolClient (pairing through the kernel's plain version
+    at or above `pairing_device_min` proofs) and the JAX package's."""
+    from plenum_tpu.client.client import PoolClient as JaxPoolClient
+    from plenum_tpu_torch.client.client import PoolClient
+    keys = {n: signers[n].pk for n in NAMES}
+    client = PoolClient(None, NAMES, lambda n, m: None,
+                        bls_verifier=bls.BlsCryptoVerifierPlenum(
+                            device_pairing=True,
+                            pairing_device_min=pairing_device_min,
+                            device="cpu"),
+                        bls_key_provider=keys.get)
+    jclient = JaxPoolClient(None, NAMES, lambda n, m: None,
+                            bls_verifier=jbls.BlsCryptoVerifierPlenum(),
+                            bls_key_provider=keys.get)
+    return client, jclient
+
+
+def _check_name(verdict):
+    """The check a verdict names (the text before its first colon)."""
+    return verdict if verdict is None else verdict.split(":")[0]
+
+
+@pytest.mark.parametrize("codec", ["native", "python"])
+@pytest.mark.parametrize("kind", sorted(MALFORMED_SIGNATURES))
+def test_malformed_signature_is_an_invalid_multi_sig_as_in_the_jax_package(
+        pools, kind, codec, monkeypatch):
+    """A multi-signature whose signature is not base58 text of a point
+    never crashes the port's client, under either base58 codec: one by
+    one and in a batch (pairing through the kernel's plain version) the
+    verdict names the check the JAX package's verdict names, "multi-sig
+    invalid", word for word where the JAX package's does not quote an
+    exception; an honest proof batched beside it still verifies."""
+    from plenum_tpu.common.serializers import base58 as jb58
+    from plenum_tpu_torch.common.serializers import base58 as b58
+    for mod in (b58, jb58):
+        assert mod._fp is not None, "the native codec built"
+        monkeypatch.setattr(mod, "b58decode", mod._fp.b58decode
+                            if codec == "native" else mod._b58decode_py)
+    port, _, signers = pools
+    write_reqs = pool.make_requests(2, SimpleSigner(seed=b"\x61" * 32))
+    results = _reads(port[0], write_reqs[0]["identifier"],
+                     [r["operation"][TARGET_NYM] for r in write_reqs],
+                     monkeypatch)
+    honest, bad = (_tamper("valid", r, None) for r in results)
+    bad[0]["multi_signature"]["signature"] = MALFORMED_SIGNATURES[kind]
+    client, jclient = _clients(signers, pairing_device_min=2)
+    got = client.check_proof_dict(*bad)
+    want = jclient.check_proof_dict(*bad)
+    assert _check_name(got) == _check_name(want) == "multi-sig invalid"
+    if "raised (" not in want:
+        assert got == want
+    assert client.check_proof_dicts([bad, honest]) == [got, None]
+    assert [_check_name(v) for v in client.check_proof_dicts([bad])] == \
+        [_check_name(v) for v in jclient.check_proof_dicts([bad])]
+
+
+def test_unhashable_participant_is_an_invalid_multi_sig(pools, monkeypatch):
+    """A participant name that is a list reads as an unparseable
+    multi-signature in the port; the JAX package raises TypeError there
+    (a deliberate difference: a proof never crashes the port's client)."""
+    port, _, signers = pools
+    write_reqs = pool.make_requests(1, SimpleSigner(seed=b"\x61" * 32))
+    result, = _reads(port[0], write_reqs[0]["identifier"],
+                     [write_reqs[0]["operation"][TARGET_NYM]], monkeypatch)
+    bad = _tamper("valid", result, None)
+    bad[0]["multi_signature"]["participants"][0] = ["Alpha"]
+    client, jclient = _clients(signers, pairing_device_min=2)
+    want = "multi-sig invalid: unparseable multi-signature " \
+           "(participant names are not hashable)"
+    assert client.check_proof_dict(*bad) == want
+    assert client.check_proof_dicts([bad]) == [want]
+    with pytest.raises(TypeError):
+        jclient.check_proof_dict(*bad)
+
+
 def test_jax_signers_carry_across_and_verify_through_the_batch_path(
         monkeypatch):
     """carry.bls_signers takes the JAX package's signers across: the

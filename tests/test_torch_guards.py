@@ -5,8 +5,10 @@ absent and the caller did not ask for the CPU, the device mesh reads its
 stats without CUDA and never shards a CPU node's launches onto a card,
 the Node builds the branch that was not ported before (the pipeline
 runtime) and routes BLS pairing batches to its device, no port source
-names the JAX package's native directory, and chip_smoke.py refuses to
-report without a card or without the package beside it."""
+names the JAX package's native directory, chip_smoke.py refuses to
+report without a card or without the package beside it, and the port's
+lint (plenum_tpu_torch.analysis) keeps its baseline and its program
+scope inside plenum_tpu_torch/."""
 import ast
 import os
 import shutil
@@ -357,3 +359,51 @@ def test_chip_smoke_refuses_without_the_package(tmp_path):
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "No module named 'plenum_tpu_torch'" in proc.stderr
+
+
+def test_port_lint_baseline_names_only_port_paths():
+    """The port's analyzer keeps its own baseline, inside the package it
+    covers; the root lint_baseline.json belongs to the JAX package."""
+    from plenum_tpu_torch.analysis import Baseline, default_baseline
+    path = default_baseline(REPO)
+    assert os.path.dirname(path) == os.path.join(REPO, "plenum_tpu_torch")
+    entries = Baseline.load(path).entries
+    assert entries
+    for e in entries:
+        assert e["path"].startswith("plenum_tpu_torch/"), e
+
+
+def test_port_lint_program_scope_lies_in_the_port():
+    """Run over the whole tree, the port's analyzer resolves symbols only
+    within its program scope, and every module of that scope lies under
+    plenum_tpu_torch/ (the listing alone: no parse)."""
+    from plenum_tpu_torch.analysis import Analyzer
+    from plenum_tpu_torch.analysis.engine.symtab import module_name
+    analyzer = Analyzer([], REPO)
+    scope = analyzer._program_scope(analyzer.collect_files(
+        [os.path.join(REPO, "plenum_tpu_torch")]))
+    assert scope
+    for path in scope:
+        rel = analyzer._rel(path)
+        assert rel.startswith("plenum_tpu_torch/"), rel
+        assert module_name(rel).split(".")[0] == "plenum_tpu_torch", rel
+
+
+def test_port_lint_engine_never_resolves_into_the_jax_package(tmp_path):
+    """A port module calling into plenum_tpu stays unresolved even with
+    the JAX package's module beside it on disk."""
+    from plenum_tpu_torch.analysis import Analyzer
+    from plenum_tpu_torch.analysis.engine import Engine
+    (tmp_path / "plenum_tpu").mkdir()
+    (tmp_path / "plenum_tpu" / "helpers.py").write_text(
+        "def leaf():\n    return 1\n")
+    (tmp_path / "plenum_tpu_torch").mkdir()
+    (tmp_path / "plenum_tpu_torch" / "m.py").write_text(
+        "from plenum_tpu.helpers import leaf\n\n\n"
+        "def caller():\n    return leaf()\n")
+    analyzer = Analyzer([], str(tmp_path))
+    scope = analyzer._program_scope(analyzer.collect_files(
+        [str(tmp_path / "plenum_tpu_torch")]))
+    eng = Engine.build(scope, str(tmp_path), use_cache=False)
+    assert set(eng.files) == {"plenum_tpu_torch/m.py"}
+    assert eng.graph.callees("plenum_tpu_torch.m:caller") == []

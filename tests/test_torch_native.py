@@ -206,7 +206,9 @@ def test_base58_round_trip_and_bad_characters():
         assert enc == b58py._b58encode_raw(data) == jfp.b58encode(data)
         assert fp.b58decode(enc) == b58py._b58decode_py(enc) == data
         assert b58py.b58encode(data) == enc and b58py.b58decode(enc) == data
-    for bad in ("0OIl", "abc0", "I"):
+    # non-ASCII too: a byte above 0x7f is a bad character like any other
+    for bad in ("0OIl", "abc0", "I", "é", "3yZé", "a€b", b"\xff",
+                b"3y\x80"):
         with pytest.raises(ValueError):
             fp.b58decode(bad)
         with pytest.raises(ValueError):
